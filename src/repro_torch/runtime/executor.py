@@ -1,0 +1,422 @@
+"""Plan execution runtime: run a compiled `CoexecPlan` on torch devices.
+
+`PlanExecutor` walks the plan's op graph in topological order and lowers
+every node to computation on the co-execution groups (`core/coexec.py`):
+
+  * **co-executed** conv/linear nodes run channel-split across the two
+    groups (`coexec_matmul` / `coexec_conv2d`), with the split taken
+    verbatim from the plan's decision (GPU share -> fast group);
+  * gather-elision is a *graph property*: a split node's output stays
+    **group-local** iff its **sole consumer** is a compatible split node,
+    which rebuilds its input on its own streams.  An explicit reshard
+    (`gather_stacked`) happens only at true boundaries: pool/add nodes,
+    exclusive nodes, shape-adapting transitions, fan-out and the final
+    output — and a fanned-out split output is gathered exactly once;
+  * **exclusive** nodes (all channels on one side), and every node with a
+    single group, run unsplit through the kernel registry's kernel path;
+  * **pool** nodes lower to max or global-average pooling, **add** nodes
+    sum their materialized producers.
+
+Where an op node's declared input shape disagrees with the producing
+activation (ResNet projection shortcuts in the legacy unit chains), the
+executor re-materializes the declared shape deterministically (tile +
+crop, `_adapt`), and the unsplit oracle (`run_oracle`) applies the same
+adaptation.  Linear inputs flatten from the NHWC activation, as in the
+reference.
+
+Parameters are drawn once, in spec order, through `registry.init_weight`
+— the same numpy arrays as the reference executor for the same seed — or
+carried across from the reference with `load_params`.
+
+Every node is timed into a `MeasurementRecord`: the walk synchronizes the
+device after each node (one sync point per node plus the terminal one, as
+the reference blocks per node), so `wall_us` is the node's device time
+plus its host overhead.  The fused segment walk is a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import platform
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.coexec import (Group, GroupLocal, SplitPlan,
+                                     coexec_conv2d, coexec_groups,
+                                     coexec_matmul, gather_stacked,
+                                     pack_weights, resolve_device,
+                                     split_for_groups)
+from repro_torch.core.networks import pool_out_edge
+from repro_torch.graph.ir import Graph
+from repro_torch.kernels import registry
+from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
+                                        MODE_EXCLUSIVE, MODE_POOL,
+                                        SOURCE_EXECUTOR, MeasurementRecord)
+from repro_torch.runtime.plan import CoexecPlan, ExecSpec, spec_label
+
+# -------------------------------------------------------------- reporting
+
+
+@dataclasses.dataclass
+class ExecutionReport:
+    """Per-op measurement records + reshard accounting for one plan run."""
+
+    device: str                  # the plan's (simulated) target device
+    network_fingerprint: str
+    chain: bool
+    split_capable: bool
+    timings: List[MeasurementRecord]
+    reshard_points: int
+    elided: int
+    sync_points: int = 0         # device syncs issued by the walk
+
+    @property
+    def wall_us(self) -> float:
+        return sum(t.wall_us for t in self.timings)
+
+    @property
+    def predicted_us(self) -> float:
+        return sum(t.pred_us for t in self.timings)
+
+    def count(self, mode: str) -> int:
+        return sum(1 for t in self.timings if t.mode == mode)
+
+    def fidelity_summary(self) -> str:
+        ratio = (f"(x{self.wall_us / self.predicted_us:.2f})"
+                 if self.predicted_us > 0.0
+                 else "(ratio n/a: no predicted latency)")
+        return (f"fidelity: {len(self.timings)} units "
+                f"({self.count(MODE_COEXEC)} co-executed, "
+                f"{self.count(MODE_EXCLUSIVE)} exclusive, "
+                f"{self.count(MODE_POOL)} pool), "
+                f"{self.reshard_points} reshard points "
+                f"({self.elided} elided), {self.sync_points} syncs, "
+                f"executed {self.wall_us / 1e3:.1f} ms vs predicted "
+                f"{self.predicted_us / 1e3:.1f} ms {ratio}")
+
+
+# ------------------------------------------------------------- activations
+
+_Act = Union[torch.Tensor, GroupLocal]
+
+
+def _fit_axis(x: torch.Tensor, axis: int, size: int, *, align: int = 8,
+              adapt: bool = False) -> torch.Tensor:
+    """Re-materialize one axis to `size`.
+
+    Strict by default: the only tolerated mismatch is cropping away
+    alignment padding (`size < cur <= size` rounded up to `align`);
+    anything else raises, since silently tiling values over a wiring
+    mistake corrupts results without failing a test.  `adapt=True` opts
+    in to the deterministic tile + crop of declared shape adaptation.
+    """
+    cur = x.shape[axis]
+    if cur == size:
+        return x
+    if not adapt:
+        padded = -(-size // align) * align
+        if not (size < cur <= padded):
+            raise ValueError(
+                f"axis {axis} has size {cur}, expected {size} (or its "
+                f"alignment padding up to {padded}); shapes do not chain "
+                "and this call site does not adapt")
+    if cur < size:
+        reps = [1] * x.dim()
+        reps[axis] = -(-size // cur)
+        x = x.repeat(*reps)
+    return x.narrow(axis, 0, size)
+
+
+# --------------------------------------------------------------- executor
+
+class PlanExecutor:
+    """Executes a compiled `CoexecPlan` on the co-execution groups.
+
+    `device` defaults to CUDA (and raises where there is none); pass
+    `device="cpu"` to run on the CPU.  `groups` overrides the default two
+    groups on that device (one group = every node exclusive).
+    """
+
+    def __init__(self, plan: CoexecPlan, *,
+                 device: Union[str, torch.device, None] = None,
+                 groups: Optional[Sequence[Group]] = None, seed: int = 0):
+        plan.check_graph()
+        self.plan = plan
+        self.specs: List[ExecSpec] = plan.exec_specs()
+        self.graph: Graph = plan.graph_ir()
+        for spec in self.specs:
+            if spec.op is not None:
+                registry.get_lowering(spec.unit)   # raises for unported kinds
+        if groups is None:
+            self.device = resolve_device(device)
+            self.groups: Tuple[Group, ...] = coexec_groups(self.device)
+        else:
+            self.groups = tuple(groups)
+            self.device = self.groups[0].device
+        self.split_capable = len(self.groups) == 2
+        self.last_report: Optional[ExecutionReport] = None
+        self._warmed: set = set()
+        self._input_seed = seed + 1
+
+        rng = np.random.default_rng(seed)
+        self.load_params([
+            None if spec.op is None
+            else registry.get(spec.unit).init_weight(spec.op, rng)
+            for spec in self.specs])
+
+    def load_params(self, arrays: Sequence[Optional[np.ndarray]]) -> None:
+        """Take a full parameter list in spec order — e.g. the reference
+        executor's `[np.asarray(p) for p in exe.params]` — in the reference
+        layouts ((C_in, C_out) linear, HWIO conv weights), move it to this
+        executor's device as float32, and re-pack the split weights."""
+        if len(arrays) != len(self.specs):
+            raise ValueError(f"expected {len(self.specs)} parameters (one "
+                             f"per schedule entry), got {len(arrays)}")
+        params: List[Optional[torch.Tensor]] = []
+        for spec, a in zip(self.specs, arrays):
+            if spec.op is None:
+                if a is not None:
+                    raise ValueError(f"node {spec.node_id} ({spec.unit}) "
+                                     f"takes no parameter")
+                params.append(None)
+                continue
+            want = tuple(registry.get(spec.unit).weight_shape(spec.op))
+            arr = np.array(a, dtype=np.float32)
+            if arr.shape != want:
+                raise ValueError(f"node {spec.node_id}: parameter shape "
+                                 f"{arr.shape} != {want}")
+            params.append(torch.from_numpy(arr).to(self.device))
+        self.params = params
+        # pre-split the co-executed weights once: (split, packed) per spec
+        self._splits: List[Optional[Tuple[SplitPlan, torch.Tensor]]] = []
+        for spec, w in zip(self.specs, params):
+            if self.split_capable and spec.coexec:
+                split = split_for_groups(spec.op.C_out, spec.c_fast,
+                                         self.groups)
+                self._splits.append((split, pack_weights(w, split)))
+            else:
+                self._splits.append(None)
+
+    # ------------------------------------------------------------- inputs
+    def input_template(self) -> torch.Tensor:
+        """A seeded input matching the first source node's declared shape
+        (the reference's draw: every call returns the same values)."""
+        src = self.graph.sources[0]
+        shape = tuple(registry.get(src.kind).input_shape(src.op))
+        if src.kind == "conv":
+            shape = (1,) + shape
+        rng = np.random.default_rng(self._input_seed)
+        x = rng.standard_normal(shape).astype(np.float32)
+        return self._tensor(x)
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.from_numpy(np.array(x, np.float32)).to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -------------------------------------------------------- elementaries
+    def _materialize(self, act: _Act) -> Tuple[torch.Tensor, int]:
+        """Explicit reshard of a group-local result (1 sync point), no-op
+        on plain activations."""
+        if isinstance(act, GroupLocal):
+            return gather_stacked(act), 1
+        return act, 0
+
+    def _adapt(self, x: torch.Tensor, spec: ExecSpec) -> torch.Tensor:
+        """Re-materialize a plain activation to the node's declared input
+        shape (identity when shapes already chain)."""
+        op = spec.op
+        if spec.unit == "conv":
+            if x.dim() == 2:                  # linear -> conv (total)
+                x = x.reshape(1, 1, *x.shape)
+            x = _fit_axis(x, 1, op.H_in, adapt=True)
+            x = _fit_axis(x, 2, op.W_in, adapt=True)
+            return _fit_axis(x, 3, op.C_in, adapt=True)
+        # 2D (rows, channels) contracts: flatten the NHWC activation
+        shape = tuple(registry.get(spec.unit).input_shape(op))
+        flat = x.reshape(-1)
+        flat = _fit_axis(flat, 0, int(np.prod(shape)), adapt=True)
+        return flat.reshape(shape)
+
+    def _pool(self, x: torch.Tensor, pool_bytes: int) -> torch.Tensor:
+        """Global average pool when the recorded output is one value per
+        channel, else max-pool down to the recorded edge."""
+        c = x.shape[-1]
+        edge = pool_out_edge(pool_bytes, c)
+        if edge <= 1:
+            return x.mean(dim=(1, 2), keepdim=True)
+        r = max(1, x.shape[1] // edge)
+        x = x[:, :edge * r, :edge * r, :]
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=r, stride=r)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    def _dense(self, x: torch.Tensor, w: torch.Tensor, spec: ExecSpec
+               ) -> torch.Tensor:
+        """Unsplit execution through the registry's kernel path."""
+        return registry.get_lowering(spec.unit).kernel(x, w, spec.op)
+
+    def _chains(self, act: GroupLocal, spec: ExecSpec) -> bool:
+        """Whether this unit can consume the producer's group-local result
+        directly: only when the declared input shape equals its logical
+        shape exactly (any adaptation is a true boundary)."""
+        op = spec.op
+        if spec.unit == "conv":
+            return act.shape == (1, op.H_in, op.W_in, op.C_in)
+        return act.shape == tuple(registry.get(spec.unit).input_shape(op))
+
+    # ----------------------------------------------------------------- run
+    def run(self, x=None, *, chain: bool = True, warmup: bool = False
+            ) -> Tuple[torch.Tensor, ExecutionReport]:
+        """Execute the plan; returns (output, ExecutionReport).
+
+        `warmup=True` runs the schedule once untimed first (kernel builds,
+        cuDNN algorithm selection, allocator growth), once per executor
+        and chain flag; only the timed run lands on `last_report`.
+        `chain=False` gathers after every co-executed op (no elision).
+        """
+        if warmup and chain not in self._warmed:
+            self._execute(x, chain=chain)
+        y, report = self._execute(x, chain=chain)
+        self._warmed.add(chain)
+        self.last_report = report
+        return y, report
+
+    def _execute(self, x=None, *, chain: bool = True
+                 ) -> Tuple[torch.Tensor, ExecutionReport]:
+        x0 = self.input_template() if x is None else self._tensor(x)
+        acts: Dict[str, _Act] = {}
+        remaining = {n.id: len(self.graph.consumers(n.id))
+                     for n in self.graph}
+        timings: List[MeasurementRecord] = []
+        reshard = elided = 0
+        host = platform.node()
+        prov = self.plan.provenance
+
+        def materialized(src: Optional[str]) -> torch.Tensor:
+            """The gathered activation of a producer.  A group-local output
+            is gathered ONCE and written back, so fan-out costs a single
+            reshard no matter how many consumers follow."""
+            nonlocal reshard
+            if src is None:
+                return x0
+            act = acts[src]
+            if isinstance(act, GroupLocal):
+                act, r = self._materialize(act)
+                reshard += r
+                acts[src] = act
+            return act
+
+        for i, (node, spec) in enumerate(zip(self.graph, self.specs)):
+            w = self.params[i]
+            src = node.inputs[0] if node.inputs else None
+            t0 = time.perf_counter()
+            chained = False
+            if spec.unit == "pool":
+                mode = MODE_POOL
+                out = self._pool(materialized(src), spec.pool_bytes)
+            elif spec.unit == "add":
+                mode = MODE_ADD
+                parts = [materialized(s) for s in node.inputs]
+                shapes = {tuple(p.shape) for p in parts}
+                if len(shapes) != 1:
+                    raise ValueError(
+                        f"add node {node.id!r} joins mismatched shapes "
+                        f"{sorted(shapes)}")
+                out = parts[0]
+                for p in parts[1:]:
+                    out = out + p
+            else:
+                do_split = self.split_capable and spec.coexec
+                x_plan = None
+                prod_act = x0 if src is None else acts[src]
+                # gather-elision: consume the producer's group-local result
+                # iff we are its SOLE consumer, we split too, and the
+                # shapes chain exactly
+                if (isinstance(prod_act, GroupLocal) and chain and do_split
+                        and self._chains(prod_act, spec)
+                        and len(self.graph.consumers(src)) == 1):
+                    x_in, x_plan = prod_act, prod_act.split
+                    chained = True
+                    elided += 1
+                else:
+                    x_in = self._adapt(materialized(src), spec)
+                if do_split:
+                    mode = MODE_COEXEC
+                    split, packed = self._splits[i]
+                    if spec.unit == "linear":
+                        out = coexec_matmul(x_in, packed, split, self.groups,
+                                            gather=False, x_plan=x_plan)
+                    else:
+                        out = coexec_conv2d(x_in, packed, split, self.groups,
+                                            op=spec.op, gather=False,
+                                            x_plan=x_plan)
+                    if not chain:
+                        out, r = self._materialize(out)   # sync every op
+                        reshard += r
+                else:
+                    mode = MODE_EXCLUSIVE
+                    out = self._dense(x_in, w, spec)
+            acts[node.id] = out
+            self._sync()
+            timings.append(MeasurementRecord(
+                index=i, unit=spec.unit, label=spec_label(spec), mode=mode,
+                c_fast=spec.c_fast, c_slow=spec.c_slow,
+                chained_input=chained,
+                gathered_output=not isinstance(out, GroupLocal),
+                wall_us=(time.perf_counter() - t0) * 1e6,
+                pred_us=spec.pred_total_us, op=spec.op,
+                source=SOURCE_EXECUTOR, device=prov.device,
+                backend=str(self.device), host=host,
+                plan_key=self.plan.key,
+                network_fingerprint=prov.network_fingerprint,
+                node_id=node.id, segment=spec.segment))
+            # free consumed producers (keep the graph output alive)
+            for s in node.inputs:
+                remaining[s] -= 1
+                if remaining[s] == 0:
+                    acts.pop(s, None)
+
+        # the terminal sync point: with chaining, the last co-executed op's
+        # gather is deferred to here — charge it to that op
+        t0 = time.perf_counter()
+        y, r = self._materialize(acts[self.graph.output.id])
+        self._sync()
+        reshard += r
+        if timings and r:
+            timings[-1].gathered_output = True
+            timings[-1].wall_us += (time.perf_counter() - t0) * 1e6
+        report = ExecutionReport(
+            device=prov.device,
+            network_fingerprint=prov.network_fingerprint,
+            chain=chain, split_capable=self.split_capable, timings=timings,
+            reshard_points=reshard, elided=elided,
+            sync_points=len(timings) + 1)
+        return y, report
+
+    def run_oracle(self, x=None) -> torch.Tensor:
+        """The unsplit reference: every node through its plain oracle, with
+        identical params and shape adaptation — what split execution must
+        match elementwise."""
+        x0 = self.input_template() if x is None else self._tensor(x)
+        acts: Dict[str, torch.Tensor] = {}
+        for node, spec, w in zip(self.graph, self.specs, self.params):
+            src = acts[node.inputs[0]] if node.inputs else x0
+            if spec.unit == "pool":
+                acts[node.id] = self._pool(src, spec.pool_bytes)
+            elif spec.unit == "add":
+                out = acts[node.inputs[0]]
+                for s in node.inputs[1:]:
+                    out = out + acts[s]
+                acts[node.id] = out
+            else:
+                low = registry.get_lowering(spec.unit)
+                acts[node.id] = low.oracle(self._adapt(src, spec), w,
+                                           spec.op)
+        return acts[self.graph.output.id]

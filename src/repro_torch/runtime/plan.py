@@ -1,0 +1,322 @@
+"""Compiled co-execution plans, as the port reads them.
+
+The JAX package compiles a network offline into a `CoexecPlan`: the full
+per-node `PartitionDecision` schedule plus the provenance needed to know
+when it is safe to reuse (device, threads, sync mechanism, candidate-grid
+step, network fingerprint, predictor checksum).  The plan JSON is the
+contract between the two packages: this module is the port's copy of the
+decode side of `repro.runtime.plan`, so one plan document decodes to the
+same schedule, graph, provenance key and exec specs in both.
+
+Planning-only content travels as opaque metadata:
+
+  * a decision's `tile` key is a TPU blocking choice for the Pallas kernel
+    it was tuned for; it is kept on the decision and the spec, and never
+    applied to the port's kernels;
+  * embedded `segments` metadata is carried through `to_json`, not
+    executed: the port's executor walks nodes one at a time.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Any, Dict, FrozenSet, List, Optional, Tuple
+
+from repro_torch.core.networks import Unit
+from repro_torch.core.types import Op
+from repro_torch.graph.ir import Graph, from_units
+from repro_torch.kernels.registry import op_from_json, op_kind, op_label
+
+PLAN_SCHEMA_VERSION = 1
+
+#: the planner provenance records when it names none
+PLANNER_PREDICTOR = "predictor"
+
+#: partition axes a channel-split executor understands; typed axes (head,
+#: kv-block, ssm-state) belong to the decode kinds, not ported yet
+_CHANNEL_AXES = ("channel", "none")
+
+
+# -------------------------------------------------------------- decisions
+
+@dataclasses.dataclass(frozen=True)
+class PartitionDecision:
+    """One node's planned split: `c_gpu` units on the fast group, `c_cpu`
+    on the slow group, with the planner's predicted latencies.  `tile` is
+    the TPU tile config the plan carries, kept verbatim and not applied."""
+
+    op: Op
+    c_cpu: int
+    c_gpu: int
+    pred_cpu_us: float
+    pred_gpu_us: float
+    pred_total_us: float
+    axis: str = "channel"
+    tile: Optional[Dict[str, int]] = None
+
+
+def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
+    if dec.c_cpu < 0 or dec.c_gpu < 0:
+        raise ValueError(f"negative split {dec.c_gpu}/{dec.c_cpu} for "
+                         f"{op_label(dec.op)}")
+    if dec.axis == "channel" and op_kind(dec.op) in ("linear", "conv") \
+            and dec.c_cpu + dec.c_gpu != dec.op.C_out:
+        raise ValueError(
+            f"channel split {dec.c_gpu}+{dec.c_cpu} does not cover C_out="
+            f"{dec.op.C_out} of {op_label(dec.op)}")
+    return dec
+
+
+def decision_from_json(d: Dict[str, Any]) -> PartitionDecision:
+    return _validate_decision(PartitionDecision(
+        op=op_from_json(d["op"]), c_cpu=d["c_cpu"], c_gpu=d["c_gpu"],
+        pred_cpu_us=d["pred_cpu_us"], pred_gpu_us=d["pred_gpu_us"],
+        pred_total_us=d["pred_total_us"], axis=d.get("axis", "channel"),
+        tile=(dict(d["tile"]) if "tile" in d else None)))
+
+
+# ------------------------------------------------------------- provenance
+
+@dataclasses.dataclass(frozen=True)
+class PlanProvenance:
+    """Everything a compiled plan's validity depends on; `key` is the
+    reference's digest over it (the plan-cache key)."""
+
+    device: str
+    threads: int
+    mechanism: str
+    step: int
+    seed: int
+    network_fingerprint: str
+    predictor_checksum: str
+    planner: str = PLANNER_PREDICTOR
+    schema_version: int = PLAN_SCHEMA_VERSION
+    calibration: str = ""
+    bucket: str = ""
+    tune: str = ""
+
+    def _canonical(self) -> Dict[str, Any]:
+        # empty calibration/bucket/tune are omitted, as the reference does
+        d = dataclasses.asdict(self)
+        for k in ("calibration", "bucket", "tune"):
+            if not d.get(k):
+                d.pop(k, None)
+        return d
+
+    @property
+    def key(self) -> str:
+        blob = json.dumps(self._canonical(), sort_keys=True,
+                          separators=(",", ":"))
+        return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
+
+    def to_json(self) -> Dict[str, Any]:
+        return self._canonical()
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "PlanProvenance":
+        return PlanProvenance(**d)
+
+
+# ------------------------------------------------------------- exec specs
+
+@dataclasses.dataclass(frozen=True)
+class ExecSpec:
+    """Executable lowering of one schedule entry (the reference's runtime
+    contract): the unit kind, the partition axis, how many output channels
+    each group owns (`c_fast` = the GPU share, `c_slow` = the CPU share)
+    and the predicted latency.  `tile` is the plan's opaque TPU tile;
+    `node_id` and `segment` are metadata, excluded from equality."""
+
+    unit: str
+    op: Optional[Op] = None
+    pool_bytes: int = 0
+    c_fast: int = 0
+    c_slow: int = 0
+    pred_total_us: float = 0.0
+    axis: str = "channel"
+    tile: Optional[Tuple[Tuple[str, int], ...]] = None
+    node_id: str = dataclasses.field(default="", compare=False)
+    segment: int = dataclasses.field(default=-1, compare=False)
+
+    @property
+    def exclusive(self) -> bool:
+        return self.c_fast == 0 or self.c_slow == 0
+
+    @property
+    def coexec(self) -> bool:
+        return self.op is not None and not self.exclusive
+
+
+def decision_to_spec(dec: PartitionDecision, node_id: str = "") -> ExecSpec:
+    """GPU share -> fast group, CPU share -> slow group."""
+    tile = None if dec.tile is None else tuple(dec.tile.items())
+    return ExecSpec(unit=op_kind(dec.op), op=dec.op, c_fast=dec.c_gpu,
+                    c_slow=dec.c_cpu, pred_total_us=dec.pred_total_us,
+                    axis=dec.axis, tile=tile, node_id=node_id)
+
+
+def spec_label(spec: ExecSpec) -> str:
+    """Human-readable label of one spec (the reference's format)."""
+    if spec.unit == "pool":
+        return f"pool {spec.pool_bytes}B"
+    if spec.unit == "add":
+        return f"add {spec.node_id}".rstrip()
+    label = op_label(spec.op)
+    if spec.tile is not None:
+        label += " tile[" + "/".join(f"{k}{v}" for k, v in spec.tile) + "]"
+    return label
+
+
+# ------------------------------------------------------------------- plan
+
+@dataclasses.dataclass
+class CoexecPlan:
+    """A compiled co-execution schedule (decode side).
+
+    `schedule` mirrors the network graph in topological order: pool nodes
+    as `{"unit": "pool", "bytes": n}`, add joins as `{"unit": "add"}`,
+    conv/linear nodes with their `decision`, attention/ssm nodes with
+    their op.  Unit-chain plans carry no ids and no embedded graph (their
+    ids are the positions "n{i}"); other plans embed `graph_json`.
+    """
+
+    provenance: PlanProvenance
+    schedule: List[Dict[str, Any]]
+    baseline_us: Optional[float] = None
+    individual_us: Optional[float] = None
+    end_to_end_us: Optional[float] = None
+    graph_json: Optional[Dict[str, Any]] = None
+    segments: Optional[List[Dict[str, Any]]] = None
+
+    @property
+    def key(self) -> str:
+        return self.provenance.key
+
+    def node_ids(self) -> List[str]:
+        return [e.get("id", f"n{i}") for i, e in enumerate(self.schedule)]
+
+    @property
+    def decisions(self) -> List[PartitionDecision]:
+        return [decision_from_json(e["decision"]) for e in self.schedule
+                if "decision" in e]
+
+    @property
+    def units(self) -> List[Unit]:
+        if self.graph_json is not None:
+            raise ValueError("this plan was compiled over a non-chain "
+                             "graph; use plan.graph_ir()")
+        out: List[Unit] = []
+        for e in self.schedule:
+            if e["unit"] == "pool":
+                out.append(("pool", e["bytes"]))
+            else:
+                out.append((e["unit"], op_from_json(e["decision"]["op"])))
+        return out
+
+    def graph_ir(self) -> Graph:
+        """The plan's network graph: embedded for DAG plans, rebuilt from
+        the schedule for unit chains."""
+        cached = getattr(self, "_graph_ir", None)
+        if cached is None:
+            cached = (Graph.from_json(self.graph_json)
+                      if self.graph_json is not None
+                      else from_units(self.units))
+            self._graph_ir = cached
+        return cached
+
+    def check_graph(self) -> None:
+        """Raise unless the plan's graph digests to its provenance's
+        network fingerprint and every schedule entry's kind matches its
+        graph node (a plan compiled for another graph, or corrupted)."""
+        graph = self.graph_ir()
+        fp = graph.fingerprint()
+        if fp != self.provenance.network_fingerprint:
+            raise ValueError(
+                f"network fingerprint mismatch: the plan's graph digests to "
+                f"{fp}, its provenance says "
+                f"{self.provenance.network_fingerprint}")
+        if [n.kind for n in graph] != [e["unit"] for e in self.schedule]:
+            raise ValueError("plan schedule and graph disagree on node "
+                             "kinds — corrupt plan")
+
+    def coexec_node_ids(self) -> FrozenSet[str]:
+        """Ids of the co-executed channel-split nodes."""
+        ids = []
+        for nid, e in zip(self.node_ids(), self.schedule):
+            d = e.get("decision")
+            if (d is not None and d["c_cpu"] > 0 and d["c_gpu"] > 0
+                    and d.get("axis") in (None, "channel")):
+                ids.append(nid)
+        return frozenset(ids)
+
+    def _segment_of(self) -> Dict[str, int]:
+        # the embedded partition, used for record metadata only (and only
+        # when it covers the schedule exactly, as the reference checks)
+        if self.segments is None:
+            return {}
+        covered = [nid for s in self.segments for nid in s["nodes"]]
+        if covered != self.node_ids():
+            return {}
+        return {nid: k for k, s in enumerate(self.segments)
+                for nid in s["nodes"]}
+
+    def exec_specs(self) -> List[ExecSpec]:
+        """The schedule lowered to executable specs, in topological order
+        (the input contract of `runtime.executor.PlanExecutor`)."""
+        out: List[ExecSpec] = []
+        for nid, e in zip(self.node_ids(), self.schedule):
+            if e["unit"] == "pool":
+                out.append(ExecSpec(unit="pool", pool_bytes=int(e["bytes"]),
+                                    node_id=nid))
+            elif e["unit"] == "add":
+                out.append(ExecSpec(unit="add", node_id=nid))
+            elif "decision" in e:
+                dec = decision_from_json(e["decision"])
+                if dec.axis not in _CHANNEL_AXES:
+                    raise NotImplementedError(
+                        f"node {nid}: {dec.axis!r} splits of {e['unit']} "
+                        f"nodes are not ported yet (ROADMAP: decode nodes)")
+                out.append(decision_to_spec(dec, node_id=nid))
+            else:                       # legacy attention / ssm: exclusive
+                out.append(ExecSpec(unit=e["unit"],
+                                    op=op_from_json(e["op"]),
+                                    pred_total_us=float(e.get("pred_us",
+                                                              0.0)),
+                                    axis="none", node_id=nid))
+        seg_of = self._segment_of()
+        return [dataclasses.replace(s, segment=seg_of.get(s.node_id, -1))
+                for s in out]
+
+    # ------------------------------------------------------------- codecs
+    def to_json(self) -> Dict[str, Any]:
+        doc = {"schema_version": self.provenance.schema_version,
+               "provenance": self.provenance.to_json(),
+               "schedule": self.schedule,
+               "report": {"baseline_us": self.baseline_us,
+                          "individual_us": self.individual_us,
+                          "end_to_end_us": self.end_to_end_us}}
+        if self.graph_json is not None:
+            doc["graph"] = self.graph_json
+        if self.segments is not None:
+            doc["segments"] = self.segments
+        return doc
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "CoexecPlan":
+        """Decode a plan document.  Every decision is decoded once here,
+        so a malformed schedule fails at load, not at first execution."""
+        if d.get("schema_version", PLAN_SCHEMA_VERSION) != \
+                PLAN_SCHEMA_VERSION:
+            raise ValueError(f"unsupported plan schema version "
+                             f"{d.get('schema_version')!r}")
+        rep = d.get("report") or {}
+        plan = CoexecPlan(provenance=PlanProvenance.from_json(d["provenance"]),
+                          schedule=d["schedule"],
+                          baseline_us=rep.get("baseline_us"),
+                          individual_us=rep.get("individual_us"),
+                          end_to_end_us=rep.get("end_to_end_us"),
+                          graph_json=d.get("graph"),
+                          segments=d.get("segments"))
+        plan.decisions                  # decode (and check) every decision
+        return plan
