@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything
+    python3 chip_smoke.py --kernels-only   # build and kernel phases only
 
 It fails (non-zero exit, no result line) when CUDA is unavailable or when
 the port cannot be imported, and otherwise runs, in order:
@@ -11,17 +12,24 @@ the port cannot be imported, and otherwise runs, in order:
    cuDNN, so every fp32 comparison is a full-fp32 one;
 2. the build of every kernel from `src/repro_torch/csrc` (one nvcc per
    source, all at once), with ptxas's register/shared-memory report;
-3. one phase per kernel at the main path's shapes plus ragged ones:
+3. one phase per kernel at the main paths' shapes plus off-path ones:
    the kernel against its plain PyTorch version in float32 and bfloat16,
-   with kernel, plain and library (`torch.matmul` / `torch.bmm`) times
-   from CUDA events (L2 flushed before every timed launch) and the bound
-   the card's published rates give for the same work;
-4. the main path: the committed VGG16 artifact loaded through
-   `repro_torch.CompiledNetwork`, run at 224x224x3 on two CUDA-stream
-   groups for a few seeded inputs ("requests"), each output held against
-   `run_oracle` on the card, with the kernels' launch counters reset just
-   before and read just after;
-5. one more request under torch.profiler: device time by kernel;
+   with kernel, plain and library (`torch.matmul`, `torch.bmm`,
+   `scaled_dot_product_attention`; none for the SSD scan) device times
+   from CUDA events (`time_ms`: L2 flushed before every timed call, host
+   launch time kept out) and the bound the card's published rates give for
+   the same work;
+4. two main paths, each loaded through `repro_torch.CompiledNetwork` from
+   a committed artifact and run on two CUDA-stream groups for a few seeded
+   inputs ("requests"), each output held against `run_oracle` on the card,
+   with every kernel's launch counter set to 0 just before the path and
+   read just after:
+   - VGG16 at 224x224x3 (`split_matmul`, `hadamard_matmul`);
+   - a zamba2-7b decode step, 9 blocks, 4096-position KV cache
+     (`split_matmul`, `decode_attention` on both sides of a kv-block split,
+     `ssd_chunk_scan`);
+5. two more requests of each path under torch.profiler: device time by
+   kernel, and each kernel's launches in the trace beside its counter;
 6. a JSON line of per-kernel numbers, then the result line.
 """
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ARTIFACT = ROOT / "src/repro_torch/artifacts/vgg16_moto2022.coexec.json"
+ZAMBA_ARTIFACT = (ROOT / "src/repro_torch/artifacts/"
+                  "zamba2-7b_b9_s4096_moto2022_t1.coexec.json")
 
 #: published dense peaks (NVIDIA data sheets): memory bytes/s and
 #: operations/s by input type; fp32 runs outside the tensor cores (TF32 off)
@@ -51,39 +61,78 @@ PEAKS = {
 #: bf16 outputs round to 8 bits, so one rounding step apart is 2^-8
 KERNEL_RTOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
 
-#: seeded VGG16 inputs run through the main path (repeated: a stream-order
+#: seeded inputs run through each main path (repeated: a stream-order
 #: fault gives wrong answers only now and then)
 REQUESTS = 4
 
 #: end-to-end tolerance against run_oracle, relative to the largest |oracle|
-#: value: Winograd reassociates every eligible conv's fp32 sums and the
-#: split/unsplit kernels sum in other orders, across 16 layers and 5 pools
-E2E_RTOL = 2e-3
+#: value.  VGG16: Winograd reassociates every eligible conv's fp32 sums and
+#: the split/unsplit kernels sum in other orders, across 16 layers and 5
+#: pools.  zamba2-7b: split/unsplit fp32 GEMV sums (K up to 14336), the
+#: chunked SSD form against the step-by-step scan, and the kv-block
+#: log-sum-exp merge, through 9 residual blocks.
+E2E_RTOL = {"vgg16": 2e-3, "zamba2-7b": 1e-4}
 
-#: (label, M, K, N, c0, width, on the main path): n18 is co-executed — each
-#: group launches on its (25088, c_pad=3368) panel of the packed weights;
-#: the rest are the same product on the full weight and ragged shapes
+#: every kernel of the port, by its launch counter's name
+KERNEL_NAMES = ("split_matmul", "hadamard_matmul", "decode_attention",
+                "ssd_chunk_scan")
+
+VGG, ZAMBA = "vgg16", "zamba2-7b"
+
+#: (label, M, K, N, c0, width, launches per request by main path).  A
+#: co-executed linear launches once per group on its (K, c_pad) panel of
+#: the packed weights; exclusive ones on the full weight
 SPLIT_CASES = [
-    ("n18 fast", 1, 25088, 3368, 0, 728, True),
-    ("n18 slow", 1, 25088, 3368, 0, 3368, True),
-    ("n19", 1, 4096, 4096, 0, 4096, True),
-    ("n20", 1, 4096, 1000, 0, 1000, True),
-    ("n18 fast, full W", 1, 25088, 4096, 0, 728, False),
-    ("n18 slow, full W", 1, 25088, 4096, 728, 3368, False),
-    ("ragged M=17", 17, 100, 301, 96, 128, False),
-    ("ragged M=50", 50, 768, 3072, 2480, 592, False),
+    ("n18 fast", 1, 25088, 3368, 0, 728, {VGG: 1}),
+    ("n18 slow", 1, 25088, 3368, 0, 3368, {VGG: 1}),
+    ("n19", 1, 4096, 4096, 0, 4096, {VGG: 1}),
+    ("n20", 1, 4096, 1000, 0, 1000, {VGG: 1}),
+    ("embed/q_proj/o_proj", 1, 3584, 3584, 0, 3584, {ZAMBA: 3}),
+    ("in_proj fast", 1, 3584, 5696, 0, 1472, {ZAMBA: 8}),
+    ("in_proj slow", 1, 3584, 5696, 0, 5696, {ZAMBA: 8}),
+    ("out_proj fast", 1, 7168, 2528, 0, 1056, {ZAMBA: 8}),
+    ("out_proj slow", 1, 7168, 2528, 0, 2528, {ZAMBA: 8}),
+    ("mlp_up fast", 1, 3584, 9200, 0, 5136, {ZAMBA: 1}),
+    ("mlp_up slow", 1, 3584, 9200, 0, 9200, {ZAMBA: 1}),
+    ("mlp_down fast", 1, 14336, 2296, 0, 1288, {ZAMBA: 1}),
+    ("mlp_down slow", 1, 14336, 2296, 0, 2296, {ZAMBA: 1}),
+    ("n18 fast, full W", 1, 25088, 4096, 0, 728, {}),
+    ("n18 slow, full W", 1, 25088, 4096, 728, 3368, {}),
+    ("ragged M=17", 17, 100, 301, 96, 128, {}),
+    ("ragged M=50", 50, 768, 3072, 2480, 592, {}),
 ]
 
-#: (label, P, K, N, launches per run): P = ceil(H/2) * ceil(W/2) tiles
+#: (label, P, K, N, launches per request): P = ceil(H/2) * ceil(W/2) tiles
 HADAMARD_CASES = [
-    ("n3", 56 * 56, 64, 128, 1),
-    ("n4", 56 * 56, 128, 128, 1),
-    ("n6 fast", 28 * 28, 128, 192, 1),
-    ("n6 slow", 28 * 28, 128, 64, 1),
-    ("n7/n8", 28 * 28, 256, 256, 2),
-    ("ragged", 37, 40, 136, 0),
-    ("ragged P=1", 1, 32, 200, 0),
+    ("n3", 56 * 56, 64, 128, {VGG: 1}),
+    ("n4", 56 * 56, 128, 128, {VGG: 1}),
+    ("n6 fast", 28 * 28, 128, 192, {VGG: 1}),
+    ("n6 slow", 28 * 28, 128, 64, {VGG: 1}),
+    ("n7/n8", 28 * 28, 256, 256, {VGG: 2}),
+    ("ragged", 37, 40, 136, {}),
+    ("ragged P=1", 1, 32, 200, {}),
 ]
+
+#: (label, H, KV, hd, S, pos, window, launches per request): b8.attn is a
+#: kv-block split, positions [0, 3072) on the fast group, the rest on the
+#: slow one; each side attends its whole block
+ATTN_CASES = [
+    ("b8.attn fast", 32, 32, 112, 3072, 3071, 0, {ZAMBA: 1}),
+    ("b8.attn slow", 32, 32, 112, 1024, 1023, 0, {ZAMBA: 1}),
+    ("b8.attn unsplit", 32, 32, 112, 4096, 4095, 0, {}),
+    ("GQA g=4 hd=128", 32, 8, 128, 32768, 32767, 0, {}),
+    ("window 1024", 32, 8, 128, 8192, 5000, 1024, {}),
+    ("ragged S=1000", 16, 4, 64, 1000, 999, 0, {}),
+]
+
+#: (label, B, T, H, hd, N, launches per request)
+SSD_CASES = [
+    ("b*.ssm decode", 1, 1, 112, 64, 64, {ZAMBA: 8}),
+    ("prefill T=4096", 1, 4096, 112, 64, 64, {}),
+    ("ragged T=100", 2, 100, 6, 32, 16, {}),
+]
+
+_TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
 
 
 def nvidia_smi_line() -> str:
@@ -105,26 +154,56 @@ def bound_ms(nbytes: float, ops: float, dtype: torch.dtype, peaks: dict):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 _FLUSH = None
+_SPIN_CYCLES_PER_MS = None
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` per ms of device time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)                  # warm
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Median device time of one call, each launch timed by its own CUDA
-    events after a 128 MB write that evicts the 50 MB L2 cache."""
-    global _FLUSH
+    """Median device time of one call.  Before each timed call a 128 MB
+    write evicts the 50 MB L2 cache, then a spin kernel holds the stream
+    for twice the host's time to enqueue the call (capped at 100 ms): the
+    call and its end event are queued before the start event fires, so the
+    events bracket the call's device work and not the host's launch
+    overhead (allocations, ctypes, enqueue)."""
+    global _FLUSH, _SPIN_CYCLES_PER_MS
     if _FLUSH is None:
         _FLUSH = torch.empty(32 * 1024 * 1024, device="cuda")
+        _SPIN_CYCLES_PER_MS = _spin_cycles_per_ms()
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    spin = int(_SPIN_CYCLES_PER_MS * min(100.0, 2 * host_ms + 0.2))
     times = []
-    for i in range(reps + 2):
+    for _ in range(reps):
         _FLUSH.zero_()
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
-        if i >= 2:
-            times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -142,14 +221,56 @@ def check(label: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def split_matmul_phase(peaks: dict) -> dict:
+class Tally:
+    """One kernel's numbers: max errors, and times summed over the
+    launches of one request of each main path (float32)."""
+
+    def __init__(self, library: bool = True):
+        self.library = library
+        self.max_abs_err = self.max_abs_err_bf16 = 0.0
+        self.by_path: dict = {}
+
+    def add(self, dtype, err: float, per_path: dict, times: dict) -> None:
+        if dtype == torch.bfloat16:
+            self.max_abs_err_bf16 = max(self.max_abs_err_bf16, err)
+            return
+        if per_path:
+            self.max_abs_err = max(self.max_abs_err, err)
+        for path, n in per_path.items():
+            agg = self.by_path.setdefault(path, dict.fromkeys(_TIMES, 0.0))
+            for key in _TIMES:
+                if times.get(key) is not None:
+                    agg[key] += times[key] * n
+
+    def total(self, key: str):
+        if key == "library_ms" and not self.library:
+            return None
+        return sum(p[key] for p in self.by_path.values())
+
+
+def _report(kernel: str, label: str, dtype, err: float, times: dict,
+            shape: str) -> None:
+    lib = times.get("library_ms")
+    print(f"{kernel} {label:20s} {str(dtype)[6:]:8s} {shape}: max_abs_err "
+          f"{err:.3e} kernel {times['ms']:.4f} ms plain "
+          f"{times['plain_ms']:.4f} ms library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
+          f"{times['bound_ms']:.4f} ms", flush=True)
+
+
+def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
+    bnd, tb, to = bound_ms(n_bytes, ops, dtype, peaks)
+    return {"ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+            "library_ms": None if library_fn is None else time_ms(library_fn),
+            "bound_ms": bnd, "t_bytes": tb, "t_ops": to}
+
+
+def split_matmul_phase(peaks: dict) -> Tally:
     from repro_torch.kernels.split_matmul.split_matmul import (
         split_matmul, split_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "t_bytes": 0.0, "t_ops": 0.0, "max_abs_err": 0.0,
-           "max_abs_err_bf16": 0.0}
-    for label, m, k, n, c0, width, main in SPLIT_CASES:
+    tally = Tally()
+    for label, m, k, n, c0, width, per_path in SPLIT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
@@ -158,37 +279,24 @@ def split_matmul_phase(peaks: dict) -> dict:
                         split_matmul(x, w, c0, width),
                         split_matmul_plain(x, w, c0, width),
                         KERNEL_RTOL[dtype])
-            ms = time_ms(lambda: split_matmul(x, w, c0, width))
-            plain = time_ms(lambda: split_matmul_plain(x, w, c0, width))
-            lib = time_ms(lambda: torch.matmul(x, w[:, c0:c0 + width]))
             size = x.element_size()
-            bnd, tb, to = bound_ms(
-                size * (m * k + k * width + m * width), 2 * m * k * width,
-                dtype, peaks)
-            print(f"split_matmul {label:18s} {str(dtype)[6:]:8s} "
-                  f"M={m} K={k} N={n} c0={c0} width={width}: "
-                  f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} ms library {lib:.4f} ms bound {bnd:.4f} ms",
-                  flush=True)
-            if dtype == torch.bfloat16:
-                agg["max_abs_err_bf16"] = max(agg["max_abs_err_bf16"], err)
-            elif main:
-                agg["max_abs_err"] = max(agg["max_abs_err"], err)
-                for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("library_ms", lib), ("bound_ms", bnd),
-                               ("t_bytes", tb), ("t_ops", to)):
-                    agg[key] += v
-    return agg
+            times = _times(lambda: split_matmul(x, w, c0, width),
+                           lambda: split_matmul_plain(x, w, c0, width),
+                           lambda: torch.matmul(x, w[:, c0:c0 + width]),
+                           size * (m * k + k * width + m * width),
+                           2 * m * k * width, dtype, peaks)
+            _report("split_matmul", label, dtype, err, times,
+                    f"M={m} K={k} N={n} c0={c0} width={width}")
+            tally.add(dtype, err, per_path, times)
+    return tally
 
 
-def hadamard_phase(peaks: dict) -> dict:
+def hadamard_phase(peaks: dict) -> Tally:
     from repro_torch.kernels.winograd_conv.winograd_conv import (
         hadamard_matmul, hadamard_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "t_bytes": 0.0, "t_ops": 0.0, "max_abs_err": 0.0,
-           "max_abs_err_bf16": 0.0}
-    for label, p, k, n, per_run in HADAMARD_CASES:
+    tally = Tally()
+    for label, p, k, n, per_path in HADAMARD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             u = torch.randn((16, p, k), generator=gen, device="cuda").to(dtype)
             v = (torch.randn((16, k, n), generator=gen, device="cuda")
@@ -196,131 +304,282 @@ def hadamard_phase(peaks: dict) -> dict:
             err = check(f"hadamard_matmul {label} {dtype}",
                         hadamard_matmul(u, v), hadamard_matmul_plain(u, v),
                         KERNEL_RTOL[dtype])
-            ms = time_ms(lambda: hadamard_matmul(u, v))
-            plain = time_ms(lambda: hadamard_matmul_plain(u, v))
-            lib = time_ms(lambda: torch.bmm(u, v))
-            size = u.element_size()
-            bnd, tb, to = bound_ms(
-                size * 16 * (p * k + k * n + p * n), 2 * 16 * p * k * n,
-                dtype, peaks)
-            print(f"hadamard_matmul {label:10s} {str(dtype)[6:]:8s} "
-                  f"P={p} K={k} N={n}: max_abs_err {err:.3e} kernel "
-                  f"{ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms "
-                  f"bound {bnd:.4f} ms", flush=True)
-            if dtype == torch.bfloat16:
-                agg["max_abs_err_bf16"] = max(agg["max_abs_err_bf16"], err)
-            elif per_run:
-                agg["max_abs_err"] = max(agg["max_abs_err"], err)
-                for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("library_ms", lib), ("bound_ms", bnd),
-                               ("t_bytes", tb), ("t_ops", to)):
-                    agg[key] += v * per_run
-    return agg
+            times = _times(lambda: hadamard_matmul(u, v),
+                           lambda: hadamard_matmul_plain(u, v),
+                           lambda: torch.bmm(u, v),
+                           u.element_size() * 16 * (p * k + k * n + p * n),
+                           2 * 16 * p * k * n, dtype, peaks)
+            _report("hadamard_matmul", label, dtype, err, times,
+                    f"P={p} K={k} N={n}")
+            tally.add(dtype, err, per_path, times)
+    return tally
 
 
-def main_path(requests: int):
-    """The VGG16 artifact on two CUDA-stream groups, `requests` seeded
-    inputs, each held against run_oracle; returns the launch counts and
-    the executor."""
-    import repro_torch
-    from repro_torch.kernels.winograd_conv.ops import winograd_eligible
+def decode_attention_phase(peaks: dict) -> Tally:
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain, valid_range)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tally = Tally()
+    for label, h, kv, hd, s, pos, window, per_path in ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for shape in ((h, hd), (s, kv, hd),
+                                                (s, kv, hd)))
+            out, lse = decode_attention(q, k, v, pos, window=window)
+            want, want_lse = decode_attention_plain(q, k, v, pos,
+                                                    window=window)
+            err = check(f"decode_attention {label} {dtype}", out, want,
+                        KERNEL_RTOL[dtype])
+            check(f"decode_attention {label} {dtype} lse", lse, want_lse,
+                  KERNEL_RTOL[torch.float32])        # fp32 sums in both
+            lo, hi = valid_range(s, pos, window)
+            n = hi - lo + 1
+            # the library call: the attended positions, (1, heads, S, hd)
+            q4 = q[None, :, None, :]
+            k4 = k[lo:hi + 1].permute(1, 0, 2)[None]
+            v4 = v[lo:hi + 1].permute(1, 0, 2)[None]
+            times = _times(
+                lambda: decode_attention(q, k, v, pos, window=window),
+                lambda: decode_attention_plain(q, k, v, pos, window=window),
+                lambda: sdpa(q4, k4, v4, enable_gqa=h != kv),
+                q.element_size() * (2 * h * hd + 2 * n * kv * hd) + 4 * h,
+                4 * h * n * hd, dtype, peaks)
+            _report("decode_attention", label, dtype, err, times,
+                    f"H={h} KV={kv} hd={hd} S={s} pos={pos} window={window}")
+            tally.add(dtype, err, per_path, times)
+    return tally
+
+
+def ssd_phase(peaks: dict) -> Tally:
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (ssd_chunk_scan,
+                                                         ssd_chunk_scan_plain)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    tally = Tally(library=False)          # no one PyTorch call computes it
+    for label, b, t, h, hd, n, per_path in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            # the ssm lowering's operands: stabilized dt and a, fan-in
+            # scaled B, C and state
+            ins = [u.to(dtype) for u in (
+                rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
+                rand(b, t, n) / n ** 0.5,
+                0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
+                -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5)]
+            sf, y = ssd_chunk_scan(*ins)
+            sf_p, y_p = ssd_chunk_scan_plain(*ins)
+            err = max(check(f"ssd_chunk_scan {label} {dtype} y", y, y_p,
+                            KERNEL_RTOL[dtype]),
+                      check(f"ssd_chunk_scan {label} {dtype} state", sf,
+                            sf_p, KERNEL_RTOL[dtype]))
+            times = _times(lambda: ssd_chunk_scan(*ins),
+                           lambda: ssd_chunk_scan_plain(*ins), None,
+                           nbytes(*ins, y, sf), 6 * b * t * h * hd * n,
+                           dtype, peaks)
+            _report("ssd_chunk_scan", label, dtype, err, times,
+                    f"B={b} T={t} H={h} hd={hd} N={n}")
+            tally.add(dtype, err, per_path, times)
+    return tally
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention)
     from repro_torch.kernels.split_matmul.split_matmul import split_matmul
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_scan
     from repro_torch.kernels.winograd_conv.winograd_conv import (
         hadamard_matmul)
+    return {"split_matmul": split_matmul, "hadamard_matmul": hadamard_matmul,
+            "decode_attention": decode_attention,
+            "ssd_chunk_scan": ssd_chunk_scan}
+
+
+def expected_counts(plan) -> dict:
+    """Kernel launches, reshard points and elided gathers of one request
+    of a plan's chained walk on two groups, from its specs and graph: a
+    co-executed node launches its kernel once per group, an exclusive one
+    once (convs launch `hadamard_matmul` when Winograd-eligible); a channel
+    or stackable typed split's output is gathered once unless its sole
+    consumer chains it, and a non-stackable one (kv-block) merges its
+    sides itself."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.winograd_conv.ops import winograd_eligible
+    kernel = {"linear": "split_matmul", "attention": "decode_attention",
+              "ssm": "ssd_chunk_scan"}
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    specs = plan.exec_specs()
+    for s in specs:
+        if s.unit == "conv" and winograd_eligible(s.op):
+            counts["hadamard_matmul"] += 2 if s.coexec else 1
+        elif s.unit in kernel:
+            counts[kernel[s.unit]] += 2 if s.coexec else 1
+    coexec = {s.node_id for s in specs if s.coexec}
+    merged = {s.node_id for s in specs if s.coexec and s.axis != "channel"
+              and not registry.axis_spec(s.unit, s.axis).stackable}
+    elided = plan.graph_ir().elided(coexec) - merged
+    counts["reshard"] = len(coexec - merged - elided)
+    counts["elided"] = len(elided)
+    return counts
+
+
+def _node_kind(spec) -> str:
+    from repro_torch.kernels.winograd_conv.ops import winograd_eligible
+    if spec.unit == "conv":
+        return "winograd conv" if winograd_eligible(spec.op) else \
+            "direct conv"
+    if spec.op is None:
+        return spec.unit
+    return f"{spec.unit} ({spec.axis + ' split' if spec.coexec else 'one group'})"
+
+
+def main_path(name: str, artifact: Path, make_input, out_shape,
+              requests: int):
+    """One main path: the artifact on two CUDA-stream groups, `requests`
+    seeded inputs, each held against run_oracle, launch counts checked per
+    request against the artifact; returns the launch counts (counters set
+    to 0 just before the path, read just after) and the executor."""
+    import repro_torch
 
     t0 = time.perf_counter()
-    compiled = repro_torch.CompiledNetwork.load(ARTIFACT)
+    compiled = repro_torch.CompiledNetwork.load(artifact)
     exe = compiled.executor(device="cuda")
-    print(f"vgg16: loaded {ARTIFACT.name} (key {compiled.key}), weights on "
+    want = expected_counts(compiled.plan)
+    print(f"{name}: loaded {artifact.name} (key {compiled.key}), weights on "
           f"{exe.device} in {time.perf_counter() - t0:.1f} s; groups "
-          f"{len(exe.groups)}", flush=True)
+          f"{len(exe.groups)}; per request the artifact gives {want}",
+          flush=True)
     if not exe.split_capable:
         raise AssertionError("the main path needs two co-execution groups")
     exe.run(warmup=True)                       # builds, cuDNN choice
 
-    split_matmul.launches = hadamard_matmul.launches = 0
-    per_run = []
-    outputs = []
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    per_run, outputs = [], []
     for r in range(requests):
-        rng = np.random.default_rng(100 + r)
-        x = rng.standard_normal((1, 224, 224, 3)).astype(np.float32)
-        before = (split_matmul.launches, hadamard_matmul.launches)
+        x = make_input(r)
+        before = {k: fn.launches for k, fn in counters.items()}
         t = time.perf_counter()
         y, rep = exe.run(x)
         wall = (time.perf_counter() - t) * 1e3
-        per_run.append((split_matmul.launches - before[0],
-                        hadamard_matmul.launches - before[1]))
+        per_run.append({k: fn.launches - before[k]
+                        for k, fn in counters.items()})
         outputs.append((x, y, rep, wall))
-    counts = {"split_matmul": split_matmul.launches,
-              "hadamard_matmul": hadamard_matmul.launches}
+    counts = {k: fn.launches for k, fn in counters.items()}
 
-    for r, ((x, y, rep, wall), (n_sm, n_hm)) in enumerate(
-            zip(outputs, per_run)):
-        want = exe.run_oracle(x)
+    for r, ((x, y, rep, wall), launched) in enumerate(zip(outputs, per_run)):
+        oracle = exe.run_oracle(x)
         torch.cuda.synchronize()
-        if tuple(y.shape) != (1, 1000) or not bool(torch.isfinite(y).all()):
-            raise AssertionError(f"request {r}: output {tuple(y.shape)} "
-                                 f"is not a finite (1, 1000) tensor")
-        err = float((y - want).abs().max())
-        scale = max(1.0, float(want.abs().max()))
-        if err > E2E_RTOL * scale:
-            raise AssertionError(f"request {r}: max |run - run_oracle| = "
-                                 f"{err:.3e} > {E2E_RTOL} x {scale:.3g}")
-        if (n_sm, n_hm) != (4, 6):
-            raise AssertionError(f"request {r}: {n_sm} split_matmul and "
-                                 f"{n_hm} hadamard_matmul launches, want 4 "
-                                 f"and 6")
-        if (rep.reshard_points, rep.elided) != (4, 4):
-            raise AssertionError(f"request {r}: {rep.reshard_points} "
-                                 f"reshard points, {rep.elided} elided; "
-                                 f"want 4 and 4")
+        if tuple(y.shape) != out_shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name} request {r}: output "
+                                 f"{tuple(y.shape)} is not a finite "
+                                 f"{out_shape} tensor")
+        err = float((y - oracle).abs().max())
+        scale = max(1.0, float(oracle.abs().max()))
+        if err > E2E_RTOL[name] * scale:
+            raise AssertionError(f"{name} request {r}: max |run - "
+                                 f"run_oracle| = {err:.3e} > "
+                                 f"{E2E_RTOL[name]} x {scale:.3g}")
+        for k in KERNEL_NAMES:
+            if launched[k] != want[k]:
+                raise AssertionError(f"{name} request {r}: {launched[k]} "
+                                     f"{k} launches, want {want[k]}")
+        if (rep.reshard_points, rep.elided) != (want["reshard"],
+                                                want["elided"]):
+            raise AssertionError(
+                f"{name} request {r}: {rep.reshard_points} reshard points, "
+                f"{rep.elided} elided; want {want['reshard']} and "
+                f"{want['elided']}")
         share = {}
         for t, spec in zip(rep.timings, exe.specs):
-            if spec.unit == "conv":
-                kind = ("winograd conv" if winograd_eligible(spec.op)
-                        else "direct conv")
-            else:
-                kind = spec.unit
+            kind = _node_kind(spec)
             share[kind] = share.get(kind, 0.0) + t.wall_us
         parts = ", ".join(f"{k} {v / rep.wall_us:.1%}"
                           for k, v in sorted(share.items()))
-        print(f"vgg16 request {r}: wall {wall:.3f} ms (nodes "
+        shown = " ".join(f"{k} {launched[k]}" for k in KERNEL_NAMES
+                         if want[k])
+        print(f"{name} request {r}: wall {wall:.3f} ms (nodes "
               f"{rep.wall_us / 1e3:.3f} ms: {parts}); max_abs_err "
-              f"{err:.3e} (scale {scale:.3g}); launches split_matmul "
-              f"{n_sm} hadamard_matmul {n_hm}; reshard "
+              f"{err:.3e} (scale {scale:.3g}); launches {shown}; reshard "
               f"{rep.reshard_points} elided {rep.elided} syncs "
               f"{rep.sync_points}", flush=True)
     walls = sorted(o[3] for o in outputs)
-    print(f"vgg16: median request wall {statistics.median(walls):.3f} ms "
+    print(f"{name}: median request wall {statistics.median(walls):.3f} ms "
           f"over {requests} requests (min {walls[0]:.3f}, max "
           f"{walls[-1]:.3f})", flush=True)
     return counts, exe
 
 
-def device_breakdown(exe, top: int = 12) -> None:
-    """One VGG16 request under torch.profiler: device time of the kernels
-    it ran, by kernel name, against the request's wall time."""
+def vgg16_input(r: int) -> np.ndarray:
+    return np.random.default_rng(100 + r).standard_normal(
+        (1, 224, 224, 3)).astype(np.float32)
+
+
+def zamba_input(r: int) -> np.ndarray:
+    return np.random.default_rng(300 + r).standard_normal(
+        (1, 3584)).astype(np.float32)
+
+
+#: the device-kernel name each wrapper launches on the main paths (both
+#: paths run `split_matmul` at M = 1, which takes the skinny 8x32 tile;
+#: `hadamard_matmul` takes the 64x64 one)
+TRACE_NAMES = {"split_matmul": "tiled_gemm<float, 8, 32,",
+               "hadamard_matmul": "tiled_gemm<float, 64, 64,",
+               "decode_attention": "attn_partial<",
+               "ssd_chunk_scan": "ssd_chunk_kernel<"}
+
+
+def device_breakdown(name: str, exe, x, requests: int = 2,
+                     top: int = 12) -> None:
+    """`requests` requests under torch.profiler: device time per request
+    of the kernels they ran, by kernel name, against the request wall; and
+    each wrapper's launches in the trace against its launch counter."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = np.random.default_rng(200).standard_normal(
-        (1, 224, 224, 3)).astype(np.float32)
+    counters = kernel_counters()
     exe.run(x)
+    before = {k: fn.launches for k, fn in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        exe.run(x)
-        wall = (time.perf_counter() - t) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+        for _ in range(requests):
+            exe.run(x)
+        wall = (time.perf_counter() - t) * 1e3 / requests
+    rows = sorted(((e.self_device_time_total / 1e3 / requests, e.count,
+                    e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: request wall {wall:.3f} ms under the profiler; kernels "
-          f"{busy:.3f} ms of device time in {sum(r[1] for r in rows)} "
-          f"launches (the two streams may overlap)")
+    print(f"profile {name}: {requests} requests; per request wall "
+          f"{wall:.3f} ms under the profiler, kernels {busy:.3f} ms of "
+          f"device time in {sum(r[1] for r in rows) / requests:g} launches "
+          f"(the two streams may overlap)")
     for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {count:4d}x {key[:100]}")
+    seen = {k: sum(c for _, c, key in rows if TRACE_NAMES[k] in key)
+            for k in KERNEL_NAMES}
+    print(f"profile {name}: launches in the trace / by the counters over "
+          f"the {requests} requests: " + ", ".join(
+              f"{k} {seen[k]}/{counters[k].launches - before[k]}"
+              for k in KERNEL_NAMES
+              if counters[k].launches - before[k] or seen[k]), flush=True)
+
+
+SOURCES = {
+    "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
+                     "src/repro/kernels/split_matmul/split_matmul.py:44"),
+    "hadamard_matmul": ("src/repro_torch/csrc/hadamard_matmul.cu",
+                        "src/repro/kernels/winograd_conv/winograd_conv.py:55"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:72"),
+    "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_chunk.cu",
+                       "src/repro/kernels/ssd_chunk/ssd_chunk.py:67"),
+}
 
 
 def main() -> int:
@@ -347,30 +606,45 @@ def main() -> int:
 
     peaks = card_peaks()
     results = {"split_matmul": split_matmul_phase(peaks),
-               "hadamard_matmul": hadamard_phase(peaks)}
-    counts, exe = main_path(REQUESTS)
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    device_breakdown(exe)
+               "hadamard_matmul": hadamard_phase(peaks),
+               "decode_attention": decode_attention_phase(peaks),
+               "ssd_chunk_scan": ssd_phase(peaks)}
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
 
-    sources = {
-        "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
-                         "src/repro/kernels/split_matmul/split_matmul.py:44"),
-        "hadamard_matmul": (
-            "src/repro_torch/csrc/hadamard_matmul.cu",
-            "src/repro/kernels/winograd_conv/winograd_conv.py:55"),
-    }
+    launches = {}
+    for name, artifact, make_input, out_shape in (
+            (VGG, ARTIFACT, vgg16_input, (1, 1000)),
+            (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584))):
+        counts, exe = main_path(name, artifact, make_input, out_shape,
+                                REQUESTS)
+        launches[name] = counts
+        device_breakdown(name, exe, make_input(REQUESTS))
+        del exe
+        torch.cuda.empty_cache()
+    for k in KERNEL_NAMES:
+        if sum(c[k] for c in launches.values()) == 0:
+            raise AssertionError(f"{k} was not launched on a main path")
+
     line = {"kernels": [{
-        "name": name, "route": "cuda", "source": sources[name][0],
-        "replaces": sources[name][1], "launches": counts[name],
-        "max_abs_err": r["max_abs_err"],
-        "max_abs_err_bf16": r["max_abs_err_bf16"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
-        "library_ms": r["library_ms"],
-        "per": "one VGG16 run's launches, float32"}
-        for name, r in results.items()]}
+        "name": name, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1],
+        "launches": sum(c[name] for c in launches.values()),
+        "max_abs_err": t.max_abs_err,
+        "max_abs_err_bf16": t.max_abs_err_bf16,
+        "ms": t.total("ms"), "plain_ms": t.total("plain_ms"),
+        "bound_ms": t.total("bound_ms"),
+        "bound_by": ("bytes" if t.total("t_bytes") >= t.total("t_ops")
+                     else "operations"),
+        "library_ms": t.total("library_ms"),
+        "per": (f"launches: the {REQUESTS} requests of each main path; "
+                f"times: one request of each main path, float32"),
+        "by_path": {path: {"launches": launches[path][name],
+                           **{k: (None if k == "library_ms"
+                                  and not t.library else v)
+                              for k, v in agg.items()}}
+                    for path, agg in t.by_path.items()}}
+        for name, t in results.items()]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,10 @@ group-local and the consumer takes it via `x_plan=`: each consumer group
 waits on the producer's events *on its own stream* and rebuilds its input
 there — no host synchronization, the analogue of the reference's
 in-program all-gather.  `gather_stacked` is the paper's sync point: the
-caller's stream waits on both events and concatenates.
+caller's stream waits on both events and concatenates.  A kv-block split
+of decode attention is not stackable: each side attends over its own
+block of cache positions, and `gather_lse` merges the two sides' softmax
+partials at the same kind of sync point.
 
 A tensor written on one stream and read on another is marked with
 `Tensor.record_stream` for the reading stream, so PyTorch's caching
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -180,11 +183,12 @@ def pack_weights(w: torch.Tensor, plan: SplitPlan) -> torch.Tensor:
 _Input = Union[torch.Tensor, GroupLocal]
 
 
-def _split_run(x: _Input, plan: SplitPlan, groups: Sequence[Group],
-               x_plan: Optional[SplitPlan],
-               side: Callable[[int, torch.Tensor], torch.Tensor],
-               gather: bool) -> Union[torch.Tensor, GroupLocal]:
-    """Run `side(g, x_full)` for both groups on their own streams."""
+def run_sides(x: _Input, groups: Sequence[Group],
+              x_plan: Optional[SplitPlan],
+              side: Callable[[int, torch.Tensor], Any]
+              ) -> Tuple[list, list]:
+    """Run `side(g, x_full)` for both groups, each on its own stream;
+    returns the sides' results and the events marking their completion."""
     if len(groups) != 2:
         raise ValueError(f"a channel split needs 2 groups, got {len(groups)}")
     chained = x_plan is not None
@@ -210,8 +214,39 @@ def _split_run(x: _Input, plan: SplitPlan, groups: Sequence[Group],
                 x_full = x
             parts.append(side(g, x_full))
             events.append(grp.record())
+    return parts, events
+
+
+def split_run(x: _Input, plan: SplitPlan, groups: Sequence[Group],
+              x_plan: Optional[SplitPlan],
+              side: Callable[[int, torch.Tensor], torch.Tensor],
+              gather: bool) -> Union[torch.Tensor, GroupLocal]:
+    """Run `side(g, x_full)` for both groups on their own streams, each
+    producing its `plan.width(g)` output channels: the channel splits and
+    the typed stackable axes (head, ssm-state), whose plans count channels
+    (`c_fast = n_fast * hd`)."""
+    parts, events = run_sides(x, groups, x_plan, side)
     out = GroupLocal(tuple(parts), tuple(events), plan)
     return gather_stacked(out) if gather else out
+
+
+def gather_lse(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               events: Sequence[Optional[torch.cuda.Event]]) -> torch.Tensor:
+    """The sync point of a kv-block split: the caller's stream waits on
+    both sides' events, then merges their softmax partials.  Side g gives
+    its normalized output o_g (H, hd) over its block of cache positions and
+    the log-sum-exp lse_g (H,) of its scores; the whole cache's output is
+    sum_g exp(lse_g - M) o_g / sum_g exp(lse_g - M), M = max_g lse_g."""
+    dev = parts[0][0].device
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    for part, ev in zip(parts, events):
+        for t in part:
+            _hand_over(t, ev, stream)
+    (o0, lse0), (o1, lse1) = parts
+    lse = torch.stack([lse0, lse1])                         # (2, H)
+    w = torch.exp(lse - lse.max(dim=0).values)              # (2, H)
+    num = w[0][:, None] * o0.float() + w[1][:, None] * o1.float()
+    return (num / (w[0] + w[1])[:, None]).to(o0.dtype)
 
 
 def coexec_matmul(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
@@ -231,7 +266,7 @@ def coexec_matmul(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
         return split_matmul(x_full.contiguous(), packed_w[g], 0,
                             plan.width(g))
 
-    return _split_run(x, plan, groups, x_plan, side, gather)
+    return split_run(x, plan, groups, x_plan, side, gather)
 
 
 def coexec_conv2d(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
@@ -253,4 +288,4 @@ def coexec_conv2d(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
         w_g = packed_w[g][..., :plan.width(g)]
         return crop_to_declared(conv2d_op(x_full, w_g, op), op)
 
-    return _split_run(x, plan, groups, x_plan, side, gather)
+    return split_run(x, plan, groups, x_plan, side, gather)

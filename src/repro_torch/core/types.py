@@ -8,8 +8,9 @@ from the JAX package), field for field and with the same validation, so
 both packages decode one plan alike.
 
 `AttnOp` (single-position decode attention over a KV cache) and `SSMOp` (a
-chunked SSD state-space scan) are the graph IR's decoder-block kinds; the
-port decodes them so its plan codec is total, and does not run them yet.
+chunked SSD state-space scan) are the graph IR's decoder-block kinds; they
+run on the port's `decode_attention` and `ssd_chunk_scan` kernels, unsplit
+or split along their typed axes (heads, cache blocks, state heads).
 """
 from __future__ import annotations
 
@@ -71,6 +72,18 @@ class AttnOp:
             raise ValueError(f"AttnOp mode must be streaming|materialized, "
                              f"got {self.mode!r}")
 
+    def with_heads(self, h: int) -> "AttnOp":
+        """Sub-op attending with `h` query heads (GQA group granularity:
+        `h` must be a whole number of H//KV-sized groups)."""
+        group = self.H // self.KV
+        if h % group:
+            raise ValueError(f"head slice {h} breaks GQA groups of {group}")
+        return dataclasses.replace(self, H=h, KV=h // group)
+
+    def with_cache(self, s: int) -> "AttnOp":
+        """Sub-op over a length-`s` block of the KV cache."""
+        return dataclasses.replace(self, S=s)
+
 
 @dataclasses.dataclass(frozen=True)
 class SSMOp:
@@ -90,6 +103,12 @@ class SSMOp:
         if self.mode not in ("chunked", "recurrent"):
             raise ValueError(f"SSMOp mode must be chunked|recurrent, "
                              f"got {self.mode!r}")
+
+    def with_heads(self, h: int) -> "SSMOp":
+        """Sub-op carrying `h` of the state heads."""
+        if h < 1 or h > self.H:
+            raise ValueError(f"head slice {h} out of range for H={self.H}")
+        return dataclasses.replace(self, H=h)
 
 
 #: every schedulable op kind (graph IR node payloads)

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: every kernel library of the port, by source stem
-KERNELS: Tuple[str, ...] = ("split_matmul", "hadamard_matmul")
+KERNELS: Tuple[str, ...] = ("split_matmul", "hadamard_matmul",
+                           "decode_attention", "ssd_chunk")
 
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

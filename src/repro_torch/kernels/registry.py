@@ -12,10 +12,13 @@ needs.  It maps an op kind to
     one set of weights,
   * its **lowering** — the kernel path and the plain oracle that compute
     it, registered lazily by `kernels/*/ops.py` so that importing the
-    registry builds nothing.
+    registry builds nothing,
+  * its **typed partition axes** (attention: head / kv-block; ssm:
+    ssm-state), the split validation plans are decoded through, and the
+    **split lowerings** that co-execute a node along such an axis.
 
-Planning-only parts of the reference registry (predictor features, typed
-partition axes, TPU tile specs) are not ported: a decision's TPU `tile`
+Planning-only parts of the reference registry (predictor features, TPU
+tile specs and the tile search) are not ported: a decision's TPU `tile`
 travels through the port as opaque plan metadata.
 """
 from __future__ import annotations
@@ -30,13 +33,12 @@ from repro_torch.core.types import AttnOp, ConvOp, LinearOp, Op, SSMOp
 
 # ------------------------------------------------------------------ kinds
 
-#: op kind -> module that registers its lowering on import (None: the kind
-#: decodes and shape-checks, but its kernels are not ported yet)
+#: op kind -> module that registers its lowering on import
 _LOWERING_MODULES = {
     "linear": "repro_torch.kernels.split_matmul.ops",
     "conv": "repro_torch.kernels.winograd_conv.ops",
-    "attention": None,
-    "ssm": None,
+    "attention": "repro_torch.kernels.decode_attention.ops",
+    "ssm": "repro_torch.kernels.ssd_chunk.ops",
 }
 
 _KIND_BY_TYPE = {LinearOp: "linear", ConvOp: "conv",
@@ -120,6 +122,102 @@ def op_label(op: Op) -> str:
         return f"attention H{op.H}/kv{op.KV} hd{op.hd} S{op.S}{win}{tail}"
     tail = "" if op.mode == default_mode(kind) else f" [{op.mode}]"
     return f"ssm T{op.T} H{op.H} hd{op.hd} N{op.N}{tail}"
+
+
+# ------------------------------------------------------- partition axes
+
+#: minimum cache length before a kv-block split is offered — short caches
+#: stay on the head-split/unsplit paths (the log-sum-exp merge of a
+#: kv-block split is only tolerance-exact)
+KV_BLOCK_MIN_S = 256
+
+#: SSM head slices must land the output-channel boundary (h * hd) on the
+#: reference's lane tile; the port keeps the reference's rule so both
+#: packages accept the same plans
+SSM_LANE_ALIGN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSpec:
+    """A typed partition axis of an op kind.
+
+    ``size`` counts the natural units along the axis (query heads, cache
+    positions, state heads); splits place ``n`` units on the fast side and
+    ``size - n`` on the slow side, and must be multiples of
+    ``granularity`` (e.g. whole GQA groups).  ``sub`` builds the sub-op a
+    side computes.  ``stackable`` axes produce contiguous output-channel
+    blocks (``unit_channels`` per unit) and reuse the channel-split
+    gather/chaining machinery; a non-stackable axis (kv-block) merges
+    partial results inside its own lowering and is always materialized.
+    """
+
+    axis: str
+    size: Callable[[Op], int]
+    granularity: Callable[[Op], int]
+    sub: Callable[[Op, int], Op]
+    stackable: bool = True
+    unit_channels: Callable[[Op], int] = lambda op: 0
+    available: Callable[[Op], bool] = lambda op: True
+
+
+_AXES: Dict[str, Tuple[AxisSpec, ...]] = {
+    "linear": (),
+    "conv": (),
+    "attention": (
+        AxisSpec(axis="head", size=lambda op: op.H,
+                 granularity=lambda op: op.H // op.KV,   # whole GQA groups
+                 sub=lambda op, n: op.with_heads(n),
+                 unit_channels=lambda op: op.hd,
+                 available=lambda op: op.KV >= 2),       # >= 2 GQA groups
+        # sliding-window masks depend on absolute cache positions and do
+        # not slice into blocks: windowed ops stay off this axis
+        AxisSpec(axis="kv-block", size=lambda op: op.S,
+                 granularity=lambda op: max(16, op.S // 8),
+                 sub=lambda op, n: op.with_cache(n), stackable=False,
+                 available=lambda op: (op.S >= KV_BLOCK_MIN_S
+                                       and op.window == 0)),
+    ),
+    "ssm": (
+        AxisSpec(axis="ssm-state", size=lambda op: op.H,
+                 granularity=lambda op: 1,
+                 sub=lambda op, n: op.with_heads(n),
+                 unit_channels=lambda op: op.hd,
+                 available=lambda op: (op.H >= 2
+                                       and op.hd % SSM_LANE_ALIGN == 0)),
+    ),
+}
+
+
+def axis_spec(kind: str, axis: str) -> AxisSpec:
+    get(kind)                                  # raise on unknown kinds
+    for a in _AXES[kind]:
+        if a.axis == axis:
+            return a
+    raise KeyError(f"kind {kind!r} has no partition axis {axis!r}")
+
+
+def validate_axis_split(op: Op, axis: str, n_fast: int) -> AxisSpec:
+    """Reject splits the executor cannot lower — GQA-group-violating head
+    splits, misaligned SSM state splits, out-of-range boundaries — with
+    the reference's ValueErrors, so both packages accept the same plans."""
+    spec = axis_spec(op_kind(op), axis)
+    size = spec.size(op)
+    if not 0 <= n_fast <= size:
+        raise ValueError(f"{axis} split {n_fast} out of range 0..{size} "
+                         f"for {op_label(op)}")
+    if 0 < n_fast < size:
+        if not spec.available(op):
+            raise ValueError(f"axis {axis!r} unavailable for {op_label(op)}")
+        g = spec.granularity(op)
+        if n_fast % g:
+            raise ValueError(
+                f"{axis} split {n_fast} breaks granularity {g} "
+                f"(GQA groups / block size) for {op_label(op)}")
+        if axis == "ssm-state" and op.hd % SSM_LANE_ALIGN:
+            raise ValueError(
+                f"ssm-state split needs hd % {SSM_LANE_ALIGN} == 0, "
+                f"got hd={op.hd}")
+    return spec
 
 
 # ------------------------------------------------------- shape contracts
@@ -228,13 +326,52 @@ def get_lowering(kind: str) -> KernelLowering:
     if kind not in _LOWERINGS:
         get(kind)                              # raise on unknown kinds
         module = _LOWERING_MODULES[kind]
-        if module is None:
-            raise NotImplementedError(
-                f"{kind} nodes have no lowering in repro_torch yet: their "
-                f"kernels (decode_attention, ssd_chunk_scan) are ROADMAP "
-                f"queue 1 item 'decode nodes'")
         importlib.import_module(module)
         if kind not in _LOWERINGS:             # pragma: no cover - wiring bug
             raise RuntimeError(f"{module} did not register a lowering "
                                f"for {kind!r}")
     return _LOWERINGS[kind]
+
+
+# ----------------------------------------------------- split lowerings
+
+@dataclasses.dataclass(frozen=True)
+class SplitLowering:
+    """How a (kind, axis) pair co-executes across the two groups.
+
+    ``pack(w, op, n_fast, groups)`` -> (split_plan, packed): the per-side
+    parameters, built once at load.  Stackable axes return a channel
+    `SplitPlan` (``c_fast = n_fast * unit_channels``), so the executor's
+    gather/chaining machinery applies unchanged.
+
+    ``run(x, packed, split, groups, op, n_fast, *, gather, x_plan)`` ->
+    the output: a `GroupLocal` or a gathered tensor for stackable axes
+    (mirroring `coexec_matmul`), always a materialized tensor for kv-block.
+    """
+
+    pack: Callable[..., object]
+    run: Callable[..., object]
+
+
+_SPLIT_LOWERINGS: Dict[Tuple[str, str], SplitLowering] = {}
+
+
+def register_split_lowering(kind: str, axis: str, *, pack: Callable,
+                            run: Callable) -> SplitLowering:
+    """Called by kernels/*/ops.py at import time, next to its lowering."""
+    axis_spec(kind, axis)                      # raise on unknown (kind, axis)
+    low = SplitLowering(pack=pack, run=run)
+    _SPLIT_LOWERINGS[(kind, axis)] = low
+    return low
+
+
+def get_split_lowering(kind: str, axis: str) -> SplitLowering:
+    """Resolve a (kind, axis) split lowering, importing on demand."""
+    if (kind, axis) not in _SPLIT_LOWERINGS:
+        axis_spec(kind, axis)                  # raise on unknown (kind, axis)
+        importlib.import_module(_LOWERING_MODULES[kind])
+        if (kind, axis) not in _SPLIT_LOWERINGS:   # pragma: no cover
+            raise RuntimeError(
+                f"{_LOWERING_MODULES[kind]} did not register a split "
+                f"lowering for {kind!r}/{axis!r}")
+    return _SPLIT_LOWERINGS[(kind, axis)]

@@ -6,6 +6,11 @@ every node to computation on the co-execution groups (`core/coexec.py`):
   * **co-executed** conv/linear nodes run channel-split across the two
     groups (`coexec_matmul` / `coexec_conv2d`), with the split taken
     verbatim from the plan's decision (GPU share -> fast group);
+    attention and ssm nodes split along their typed axis (head, kv-block,
+    ssm-state) through the registry's split lowering, which packs its
+    per-side parameters once at load.  Head and ssm-state splits leave a
+    group-local result like a channel split; a kv-block split merges its
+    two sides itself and leaves a materialized tensor;
   * gather-elision is a *graph property*: a split node's output stays
     **group-local** iff its **sole consumer** is a compatible split node,
     which rebuilds its input on its own streams.  An explicit reshard
@@ -149,7 +154,7 @@ class PlanExecutor:
         self.graph: Graph = plan.graph_ir()
         for spec in self.specs:
             if spec.op is not None:
-                registry.get_lowering(spec.unit)   # raises for unported kinds
+                registry.get_lowering(spec.unit)   # import its kernels now
         if groups is None:
             self.device = resolve_device(device)
             self.groups: Tuple[Group, ...] = coexec_groups(self.device)
@@ -170,8 +175,10 @@ class PlanExecutor:
     def load_params(self, arrays: Sequence[Optional[np.ndarray]]) -> None:
         """Take a full parameter list in spec order — e.g. the reference
         executor's `[np.asarray(p) for p in exe.params]` — in the reference
-        layouts ((C_in, C_out) linear, HWIO conv weights), move it to this
-        executor's device as float32, and re-pack the split weights."""
+        layouts ((C_in, C_out) linear, HWIO conv weights, the stacked
+        (2, S, KV, hd) KV cache of an attention node, the flat
+        B/C/dt/a/state0 vector of an ssm node), move it to this executor's
+        device as float32, and re-pack the split weights."""
         if len(arrays) != len(self.specs):
             raise ValueError(f"expected {len(self.specs)} parameters (one "
                              f"per schedule entry), got {len(arrays)}")
@@ -190,15 +197,22 @@ class PlanExecutor:
                                  f"{arr.shape} != {want}")
             params.append(torch.from_numpy(arr).to(self.device))
         self.params = params
-        # pre-split the co-executed weights once: (split, packed) per spec
-        self._splits: List[Optional[Tuple[SplitPlan, torch.Tensor]]] = []
+        # pre-split the co-executed weights once: (split, packed) per spec.
+        # Channel splits pack the trailing weight dim; typed axes pack
+        # through their split lowering (per-side KV-head slices, cache
+        # blocks, per-head SSM operands), never inside the timed walk
+        self._splits: List[Optional[Tuple[SplitPlan, object]]] = []
         for spec, w in zip(self.specs, params):
-            if self.split_capable and spec.coexec:
+            if not (self.split_capable and spec.coexec):
+                self._splits.append(None)
+            elif spec.axis == "channel":
                 split = split_for_groups(spec.op.C_out, spec.c_fast,
                                          self.groups)
                 self._splits.append((split, pack_weights(w, split)))
             else:
-                self._splits.append(None)
+                low = registry.get_split_lowering(spec.unit, spec.axis)
+                self._splits.append(low.pack(w, spec.op, spec.c_fast,
+                                             self.groups))
 
     # ------------------------------------------------------------- inputs
     def input_template(self) -> torch.Tensor:
@@ -353,10 +367,16 @@ class PlanExecutor:
                     if spec.unit == "linear":
                         out = coexec_matmul(x_in, packed, split, self.groups,
                                             gather=False, x_plan=x_plan)
-                    else:
+                    elif spec.unit == "conv":
                         out = coexec_conv2d(x_in, packed, split, self.groups,
                                             op=spec.op, gather=False,
                                             x_plan=x_plan)
+                    else:       # typed axis: registered split lowering
+                        low = registry.get_split_lowering(spec.unit,
+                                                          spec.axis)
+                        out = low.run(x_in, packed, split, self.groups,
+                                      spec.op, spec.c_fast, gather=False,
+                                      x_plan=x_plan)
                     if not chain:
                         out, r = self._materialize(out)   # sync every op
                         reshard += r

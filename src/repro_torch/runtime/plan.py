@@ -26,16 +26,13 @@ from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 from repro_torch.core.networks import Unit
 from repro_torch.core.types import Op
 from repro_torch.graph.ir import Graph, from_units
-from repro_torch.kernels.registry import op_from_json, op_kind, op_label
+from repro_torch.kernels.registry import (op_from_json, op_kind, op_label,
+                                          validate_axis_split)
 
 PLAN_SCHEMA_VERSION = 1
 
 #: the planner provenance records when it names none
 PLANNER_PREDICTOR = "predictor"
-
-#: partition axes a channel-split executor understands; typed axes (head,
-#: kv-block, ssm-state) belong to the decode kinds, not ported yet
-_CHANNEL_AXES = ("channel", "none")
 
 
 # -------------------------------------------------------------- decisions
@@ -60,6 +57,10 @@ def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
     if dec.c_cpu < 0 or dec.c_gpu < 0:
         raise ValueError(f"negative split {dec.c_gpu}/{dec.c_cpu} for "
                          f"{op_label(dec.op)}")
+    # typed splits (head, kv-block, ssm-state) go through the registry's
+    # validation, as the reference's codec does: an illegal one cannot load
+    if dec.axis not in ("channel", "none"):
+        validate_axis_split(dec.op, dec.axis, dec.c_gpu)
     if dec.axis == "channel" and op_kind(dec.op) in ("linear", "conv") \
             and dec.c_cpu + dec.c_gpu != dec.op.C_out:
         raise ValueError(
@@ -123,10 +124,12 @@ class PlanProvenance:
 @dataclasses.dataclass(frozen=True)
 class ExecSpec:
     """Executable lowering of one schedule entry (the reference's runtime
-    contract): the unit kind, the partition axis, how many output channels
-    each group owns (`c_fast` = the GPU share, `c_slow` = the CPU share)
-    and the predicted latency.  `tile` is the plan's opaque TPU tile;
-    `node_id` and `segment` are metadata, excluded from equality."""
+    contract): the unit kind, the partition axis, how many units of that
+    axis each group owns (`c_fast` = the GPU share, `c_slow` = the CPU
+    share: output channels on the channel axis, query or state heads on
+    head / ssm-state, cache positions on kv-block) and the predicted
+    latency.  `tile` is the plan's opaque TPU tile; `node_id` and
+    `segment` are metadata, excluded from equality."""
 
     unit: str
     op: Optional[Op] = None
@@ -241,7 +244,9 @@ class CoexecPlan:
                              "kinds — corrupt plan")
 
     def coexec_node_ids(self) -> FrozenSet[str]:
-        """Ids of the co-executed channel-split nodes."""
+        """Ids of the co-executed channel-split nodes (typed-axis splits
+        co-execute too, but stay out of this set, as in the reference:
+        it is the set the segment partition is computed over)."""
         ids = []
         for nid, e in zip(self.node_ids(), self.schedule):
             d = e.get("decision")
@@ -272,12 +277,8 @@ class CoexecPlan:
             elif e["unit"] == "add":
                 out.append(ExecSpec(unit="add", node_id=nid))
             elif "decision" in e:
-                dec = decision_from_json(e["decision"])
-                if dec.axis not in _CHANNEL_AXES:
-                    raise NotImplementedError(
-                        f"node {nid}: {dec.axis!r} splits of {e['unit']} "
-                        f"nodes are not ported yet (ROADMAP: decode nodes)")
-                out.append(decision_to_spec(dec, node_id=nid))
+                out.append(decision_to_spec(decision_from_json(
+                    e["decision"]), node_id=nid))
             else:                       # legacy attention / ssm: exclusive
                 out.append(ExecSpec(unit=e["unit"],
                                     op=op_from_json(e["op"]),

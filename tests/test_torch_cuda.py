@@ -6,8 +6,9 @@ available.  On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 builds the kernels from `src/repro_torch/csrc` and holds them against
-their plain PyTorch versions, and the small network's split run on two
-CUDA streams against the same run on the CPU.
+their plain PyTorch versions, and small split runs on two CUDA streams
+(a conv/linear network; a decoder graph with head, kv-block and
+ssm-state splits) against the same runs on the CPU.
 """
 import numpy as np
 import pytest
@@ -128,6 +129,147 @@ def test_split_run_on_two_streams_matches_the_cpu_run(cuda):
                 hadamard_matmul.launches - before[1]) == (4, 4)
         assert (report.elided, report.reshard_points) == \
             (rep_cpu.elided, rep_cpu.reshard_points) == (3, 2)
+        np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(y.cpu().numpy(),
+                                   exe.run_oracle().cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ decode kernels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,s,pos,window", [
+    (32, 32, 112, 3072, 3071, 0),     # zamba2-7b b8.attn, fast side
+    (32, 32, 112, 1024, 1023, 0),     # and slow side
+    (32, 8, 128, 4096, 4095, 0),      # GQA g = 4
+    (16, 4, 64, 2000, 1500, 256),     # sliding window, pos < S - 1
+    (8, 2, 112, 1000, 999, 0),        # ragged S
+])
+def test_decode_attention_kernel_matches_plain(cuda, h, kv, hd, s, pos,
+                                               window, dtype):
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    g = torch.Generator(device=cuda).manual_seed(h + kv + s)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((h, hd), (s, kv, hd), (s, kv, hd)))
+    before = decode_attention.launches
+    out, lse = decode_attention(q, k, v, pos, window=window)
+    assert decode_attention.launches == before + 1
+    want, want_lse = decode_attention_plain(q, k, v, pos, window=window)
+    assert out.shape == (h, hd) and out.dtype == dtype
+    _close(out, want, dtype)
+    _close(lse, want_lse, torch.float32)   # fp32 sums in both
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd,n", [
+    (1, 1, 112, 64, 64),              # zamba2-7b decode step
+    (1, 300, 8, 64, 64),              # chunked, ragged last chunk
+    (2, 100, 6, 32, 16),
+])
+def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype):
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
+                                               ssd_chunk_scan_plain)
+    g = torch.Generator(device=cuda).manual_seed(b + t + h)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    ins = [rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
+           rand(b, t, n) / n ** 0.5,
+           0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
+           -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5]
+    ins = [u.to(dtype) for u in ins]
+    before = ssd_chunk_scan.launches
+    sf, y = ssd_chunk_scan(*ins)
+    assert ssd_chunk_scan.launches == before + 1
+    sf_p, y_p = ssd_chunk_scan_plain(*ins)
+    _close(y, y_p, dtype)
+    _close(sf, sf_p, dtype)
+
+
+def test_decode_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    q = torch.zeros((4, 16), device=cuda)
+    k = torch.zeros((32, 2, 16), device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention(q.half(), k.half(), k.half(), 31)
+    with pytest.raises(ValueError):
+        decode_attention(q, k, k.cpu(), 31)
+    with pytest.raises(ValueError):
+        decode_attention(q, k[::2], k[::2], 15)
+    with pytest.raises(ValueError, match="attends to none"):
+        decode_attention(q, k, k, 100, window=8)
+    ins = [torch.zeros(s, device=cuda) for s in
+           ((1, 64, 2, 256), (1, 64, 256), (1, 64, 256), (1, 64, 2), (2,),
+            (1, 2, 256, 256))]
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk_scan(*ins)
+
+
+def _small_decode_plan(attn_axis, attn_fast):
+    """A decoder graph with one attention and one Mamba2 block, channel
+    splits around the typed ones so that they chain in and out, built from
+    the port's own codecs (no JAX)."""
+    from repro_torch.core.types import AttnOp, LinearOp, SSMOp
+    from repro_torch.graph.ir import Graph
+    from repro_torch.kernels.registry import op_to_json
+    from repro_torch.runtime.plan import CoexecPlan, PlanProvenance
+    nodes = [("e", LinearOp(1, 64, 64), (), 0, "channel"),
+             ("q", LinearOp(1, 64, 128), ("e",), 40, "channel"),
+             ("a", AttnOp(H=8, S=512, KV=4, hd=16), ("q",), attn_fast,
+              attn_axis),
+             ("o", LinearOp(1, 128, 64), ("a",), 24, "channel"),
+             ("r", None, ("e", "o"), 0, ""),
+             ("i", LinearOp(1, 64, 128), ("r",), 64, "channel"),
+             ("s", SSMOp(T=1, H=8, hd=16, N=16), ("i",), 3, "ssm-state"),
+             ("u", LinearOp(1, 128, 64), ("s",), 16, "channel"),
+             ("r2", None, ("r", "u"), 0, "")]
+    kind = {LinearOp: "linear", AttnOp: "attention", SSMOp: "ssm"}
+    size = {"channel": lambda op: op.C_out, "head": lambda op: op.H,
+            "kv-block": lambda op: op.S, "ssm-state": lambda op: op.H}
+    graph, schedule = [], []
+    for nid, op, inputs, fast, axis in nodes:
+        if op is None:
+            graph.append({"id": nid, "kind": "add", "inputs": list(inputs)})
+            schedule.append({"id": nid, "unit": "add"})
+            continue
+        graph.append({"id": nid, "kind": kind[type(op)],
+                      "op": op_to_json(op), "inputs": list(inputs)})
+        dec = {"op": op_to_json(op), "c_cpu": size[axis](op) - fast,
+               "c_gpu": fast, "pred_cpu_us": 1.0, "pred_gpu_us": 1.0,
+               "pred_total_us": 1.0}
+        if axis != "channel":
+            dec["axis"] = axis
+        schedule.append({"id": nid, "unit": kind[type(op)], "decision": dec})
+    graph_json = {"schema_version": 2, "nodes": graph}
+    prov = PlanProvenance(
+        device="moto2022", threads=3, mechanism="svm_poll", step=8, seed=1,
+        network_fingerprint=Graph.from_json(graph_json).fingerprint(),
+        predictor_checksum="test")
+    return CoexecPlan(provenance=prov, schedule=schedule,
+                      graph_json=graph_json)
+
+
+@pytest.mark.parametrize("attn_axis,attn_fast", [("head", 4),
+                                                 ("kv-block", 256)])
+def test_typed_splits_on_two_streams_match_the_cpu_run(cuda, attn_axis,
+                                                       attn_fast):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.split_matmul import split_matmul
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.runtime.executor import PlanExecutor
+    plan = _small_decode_plan(attn_axis, attn_fast)
+    y_cpu, rep_cpu = PlanExecutor(plan, device="cpu").run()
+    exe = PlanExecutor(plan)
+    kernels = (split_matmul, decode_attention, ssd_chunk_scan)
+    for _ in range(3):
+        before = [k.launches for k in kernels]
+        y, report = exe.run()
+        # e exclusive + 4 channel splits; attention and ssm on both sides
+        assert [k.launches - b for k, b in zip(kernels, before)] == [9, 2, 2]
+        assert (report.elided, report.reshard_points) == \
+            (rep_cpu.elided, rep_cpu.reshard_points)
         np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(),
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(y.cpu().numpy(),

@@ -16,6 +16,8 @@ from repro.core.types import ConvOp, LinearOp
 
 ROOT = Path(__file__).resolve().parents[1]
 VGG16_ARTIFACT = ROOT / "src/repro_torch/artifacts/vgg16_moto2022.coexec.json"
+ZAMBA_ARTIFACT = (ROOT / "src/repro_torch/artifacts/"
+                  "zamba2-7b_b9_s4096_moto2022_t1.coexec.json")
 
 
 def small_units():
@@ -40,15 +42,31 @@ def compile_small(mode: str, cache_dir: Path):
                          mode=mode, cache=cache_dir, **kw)
 
 
+#: units along each typed partition axis of a decision's op JSON
+_AXIS_SIZE = {"head": "H", "ssm-state": "H", "kv-block": "S"}
+
+
 def forced_split_doc(compiled, splits):
-    """The compiled artifact's JSON with `splits` ({position: c_gpu})
-    forced onto its schedule, re-checksummed as the JAX package would."""
+    """The compiled artifact's JSON with `splits` forced onto its schedule,
+    re-checksummed as the JAX package would.  `splits` maps a schedule
+    position (or a node id) to the fast side's share: `c_gpu` output
+    channels for a channel split, or `(axis, n_fast)` for a typed axis
+    (head, kv-block, ssm-state), `n_fast` counted in that axis' units."""
     from repro.api import _artifact_checksum
     doc = json.loads(json.dumps(compiled.to_json()))
-    for pos, c_gpu in splits.items():
-        dec = doc["plan"]["schedule"][pos]["decision"]
-        dec["c_gpu"] = c_gpu
-        dec["c_cpu"] = dec["op"]["C_out"] - c_gpu
+    schedule = doc["plan"]["schedule"]
+    for key, share in splits.items():
+        entry = (schedule[key] if isinstance(key, int) else
+                 next(e for e in schedule if e.get("id") == key))
+        dec = entry["decision"]
+        if isinstance(share, tuple):
+            axis, n_fast = share
+            dec["axis"] = axis
+            dec["c_gpu"] = n_fast
+            dec["c_cpu"] = dec["op"][_AXIS_SIZE[axis]] - n_fast
+        else:
+            dec["c_gpu"] = share
+            dec["c_cpu"] = dec["op"]["C_out"] - share
     doc.pop("checksum")
     doc["checksum"] = _artifact_checksum(doc)
     return doc
