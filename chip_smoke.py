@@ -17,8 +17,10 @@ the port cannot be imported, and otherwise runs, in order:
    with kernel, plain and library (`torch.matmul`, `torch.bmm`,
    `scaled_dot_product_attention`; none for the SSD scan) device times
    from CUDA events (`time_ms`: L2 flushed before every timed call, host
-   launch time kept out) and the bound the card's published rates give for
-   the same work;
+   launch time kept out), the bound the card's published rates give for
+   the same work and the kernel's share of it (bound / kernel time);
+   `split_matmul` is also called twice on the same inputs and must give
+   bit-identical outputs (its split-K reduction is deterministic);
 4. two main paths, each loaded through `repro_torch.CompiledNetwork` from
    a committed artifact and run on two CUDA-stream groups for a few seeded
    inputs ("requests"), each output held against `run_oracle` on the card,
@@ -98,6 +100,7 @@ SPLIT_CASES = [
     ("mlp_down slow", 1, 14336, 2296, 0, 2296, {ZAMBA: 1}),
     ("n18 fast, full W", 1, 25088, 4096, 0, 728, {}),
     ("n18 slow, full W", 1, 25088, 4096, 728, 3368, {}),
+    ("scalar c0=3 M=4", 4, 4096, 1000, 3, 997, {}),
     ("ragged M=17", 17, 100, 301, 96, 128, {}),
     ("ragged M=50", 50, 768, 3072, 2480, 592, {}),
 ]
@@ -255,7 +258,8 @@ def _report(kernel: str, label: str, dtype, err: float, times: dict,
           f"{err:.3e} kernel {times['ms']:.4f} ms plain "
           f"{times['plain_ms']:.4f} ms library "
           f"{'none' if lib is None else f'{lib:.4f} ms'} bound "
-          f"{times['bound_ms']:.4f} ms", flush=True)
+          f"{times['bound_ms']:.4f} ms ({times['bound_ms'] / times['ms']:.1%}"
+          f" of it)", flush=True)
 
 
 def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
@@ -267,7 +271,7 @@ def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
 
 def split_matmul_phase(peaks: dict) -> Tally:
     from repro_torch.kernels.split_matmul.split_matmul import (
-        split_matmul, split_matmul_plain)
+        plan_call, split_matmul, split_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(11)
     tally = Tally()
     for label, m, k, n, c0, width, per_path in SPLIT_CASES:
@@ -275,10 +279,14 @@ def split_matmul_phase(peaks: dict) -> Tally:
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
                  / k ** 0.5).to(dtype)
-            err = check(f"split_matmul {label} {dtype}",
-                        split_matmul(x, w, c0, width),
+            got = split_matmul(x, w, c0, width)
+            err = check(f"split_matmul {label} {dtype}", got,
                         split_matmul_plain(x, w, c0, width),
                         KERNEL_RTOL[dtype])
+            if not torch.equal(got, split_matmul(x, w, c0, width)):
+                raise AssertionError(f"split_matmul {label} {dtype}: two "
+                                     f"calls on the same inputs differ")
+            plan = plan_call(x, w, c0, width)
             size = x.element_size()
             times = _times(lambda: split_matmul(x, w, c0, width),
                            lambda: split_matmul_plain(x, w, c0, width),
@@ -286,14 +294,17 @@ def split_matmul_phase(peaks: dict) -> Tally:
                            size * (m * k + k * width + m * width),
                            2 * m * k * width, dtype, peaks)
             _report("split_matmul", label, dtype, err, times,
-                    f"M={m} K={k} N={n} c0={c0} width={width}")
+                    f"M={m} K={k} N={n} c0={c0} width={width} "
+                    f"[variant {plan.variant} {plan.col_tiles}x"
+                    f"{plan.splits} blocks, k_chunk {plan.k_chunk}]")
             tally.add(dtype, err, per_path, times)
     return tally
 
 
 def hadamard_phase(peaks: dict) -> Tally:
+    from repro_torch.kernels import build
     from repro_torch.kernels.winograd_conv.winograd_conv import (
-        hadamard_matmul, hadamard_matmul_plain)
+        hadamard_matmul, hadamard_matmul_plain, plan_hadamard)
     gen = torch.Generator(device="cuda").manual_seed(12)
     tally = Tally()
     for label, p, k, n, per_path in HADAMARD_CASES:
@@ -301,16 +312,20 @@ def hadamard_phase(peaks: dict) -> Tally:
             u = torch.randn((16, p, k), generator=gen, device="cuda").to(dtype)
             v = (torch.randn((16, k, n), generator=gen, device="cuda")
                  / k ** 0.5).to(dtype)
-            err = check(f"hadamard_matmul {label} {dtype}",
-                        hadamard_matmul(u, v), hadamard_matmul_plain(u, v),
-                        KERNEL_RTOL[dtype])
+            got = hadamard_matmul(u, v)
+            err = check(f"hadamard_matmul {label} {dtype}", got,
+                        hadamard_matmul_plain(u, v), KERNEL_RTOL[dtype])
+            plan = plan_hadamard(16, p, k, n, u.element_size(),
+                                 (u.data_ptr(), v.data_ptr(),
+                                  got.data_ptr()), build.sm_count(0))
             times = _times(lambda: hadamard_matmul(u, v),
                            lambda: hadamard_matmul_plain(u, v),
                            lambda: torch.bmm(u, v),
                            u.element_size() * 16 * (p * k + k * n + p * n),
                            2 * 16 * p * k * n, dtype, peaks)
             _report("hadamard_matmul", label, dtype, err, times,
-                    f"P={p} K={k} N={n}")
+                    f"P={p} K={k} N={n} [{plan.bm}x{plan.bn} tile, "
+                    f"{plan.blocks} blocks, vec {int(plan.vec)}]")
             tally.add(dtype, err, per_path, times)
     return tally
 
@@ -522,13 +537,14 @@ def zamba_input(r: int) -> np.ndarray:
         (1, 3584)).astype(np.float32)
 
 
-#: the device-kernel name each wrapper launches on the main paths (both
-#: paths run `split_matmul` at M = 1, which takes the skinny 8x32 tile;
-#: `hadamard_matmul` takes the 64x64 one)
-TRACE_NAMES = {"split_matmul": "tiled_gemm<float, 8, 32,",
-               "hadamard_matmul": "tiled_gemm<float, 64, 64,",
+#: the device-kernel name of each wrapper's main pass on the main paths
+#: (both paths run `split_matmul` at M = 1: the split-K GEMV)
+TRACE_NAMES = {"split_matmul": "splitk_gemv<float",
+               "hadamard_matmul": "hadamard_gemm<float",
                "decode_attention": "attn_partial<",
                "ssd_chunk_scan": "ssd_chunk_kernel<"}
+#: second passes, counted apart from their wrappers' launches
+SECOND_PASSES = {"split_matmul": "splitk_reduce<float"}
 
 
 def device_breakdown(name: str, exe, x, requests: int = 2,
@@ -562,11 +578,15 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
         print(f"  {ms:8.3f} ms {count:4d}x {key[:100]}")
     seen = {k: sum(c for _, c, key in rows if TRACE_NAMES[k] in key)
             for k in KERNEL_NAMES}
+    second = {k: sum(c for _, c, key in rows if pattern in key)
+              for k, pattern in SECOND_PASSES.items()}
     print(f"profile {name}: launches in the trace / by the counters over "
           f"the {requests} requests: " + ", ".join(
               f"{k} {seen[k]}/{counters[k].launches - before[k]}"
               for k in KERNEL_NAMES
-              if counters[k].launches - before[k] or seen[k]), flush=True)
+              if counters[k].launches - before[k] or seen[k])
+          + "; second passes in the trace: " + ", ".join(
+              f"{k} {n}" for k, n in second.items()), flush=True)
 
 
 SOURCES = {

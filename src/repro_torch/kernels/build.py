@@ -15,6 +15,7 @@ bound library.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -130,6 +131,16 @@ def entry_point(name: str, symbol: str, n_ptr: int, n_int: int):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of one CUDA device, read once: the
+    kernels' launch plans size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def dtype_code(kernel: str, *tensors) -> int:

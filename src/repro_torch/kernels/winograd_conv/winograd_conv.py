@@ -9,10 +9,12 @@ replaces the TPU kernel
 `src/repro/kernels/winograd_conv/winograd_conv.py:hadamard_matmul`.
 
 Bound on an H100: fp32 operations outside the tensor cores (2*16*P*K*N),
-or at the smallest K the bytes of U and M.  Design
+or at the smallest K about as much by the bytes of U and M.  Design
 (`csrc/hadamard_matmul.cu`): the Winograd point is `blockIdx.z`; each
-block computes a 64 x 64 tile of M[g] from shared-memory K slices, 4 x 4
-outputs per thread.
+block computes a 128 x 128, 128 x 64 or 64 x 128 tile of M[g], 8 x 8
+outputs per thread in registers, from 16-deep K slices that a three-stage
+ring of `cp.async` copies keeps in flight.  `plan_hadamard` is the host
+half: the tile per shape and whether the 16-byte copies are aligned.
 
 `hadamard_matmul` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes `hadamard_matmul_plain`, the same
@@ -22,6 +24,7 @@ counts launches.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,10 +52,49 @@ def hadamard_matmul_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                         for g in range(u.shape[0])]).to(u.dtype)
 
 
+#: the kernel's tiles, (rows, columns) of M[g] per block, and how many
+#: blocks of each an SM holds at once (the kernel's launch bounds)
+TILES = {(128, 128): 2, (128, 64): 3, (64, 128): 3}
+
+
+@dataclass(frozen=True)
+class HadamardPlan:
+    """How one `hadamard_matmul` call is launched: a `bm` x `bn` tile of
+    M[g] per block on a (N / bn, P / bm, G) grid; `vec`: 16-byte
+    `cp.async` copies (else scalar staging)."""
+    bm: int
+    bn: int
+    vec: bool
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan_hadamard(g: int, p: int, k: int, n: int, elt: int, ptrs,
+                  sms: int) -> HadamardPlan:
+    """The launch of G products (P, K) @ (K, N) of `elt`-byte elements,
+    the operands and the output at addresses `ptrs`, on `sms` SMs.  Every
+    thread computes 8 x 8 outputs whatever the tile.  The busiest SM runs
+    its ceil(blocks / sms) blocks in rounds of the tile's resident count,
+    and a round takes about as long however many of its slots are filled,
+    so a tile costs rounds x resident x its area; the cheapest wins, the
+    larger tile on a tie (fewer shared-memory reads per product)."""
+    def cost(tile):
+        (bm, bn), resident = tile, TILES[tile]
+        busiest = -(-(g * -(-p // bm) * -(-n // bn)) // sms)
+        return -(-busiest // resident) * resident * bm * bn, -bm * bn
+    bm, bn = min(TILES, key=cost)
+    vec = all(ptr % 16 == 0 for ptr in ptrs) and (k * elt) % 16 == 0 \
+        and (n * elt) % 16 == 0
+    return HadamardPlan(bm, bn, vec, (-(-n // bn), -(-p // bm), g))
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     return build.entry_point("hadamard_matmul", "hadamard_matmul_launch",
-                             n_ptr=3, n_int=4)
+                             n_ptr=3, n_int=7)
 
 
 def hadamard_matmul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -69,13 +111,19 @@ def hadamard_matmul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     code = build.dtype_code("hadamard_matmul", u, v)
     if -(-p // 64) > 65535 or g > 65535:
         raise ValueError(f"hadamard_matmul grid too large for P={p}, G={g}")
-    out = torch.empty((g, p, n), dtype=u.dtype, device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = _launcher()(u.device.index, code, u.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), g, p, k, n, stream)
+    dev = u.device
+    out = torch.empty((g, p, n), dtype=u.dtype, device=dev)
+    plan = plan_hadamard(g, p, k, n, u.element_size(),
+                         (u.data_ptr(), v.data_ptr(), out.data_ptr()),
+                         build.sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _launcher()(dev.index, code, u.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), g, p, k, n, plan.bm, plan.bn,
+                      int(plan.vec), stream)
     if err:
         raise RuntimeError(f"hadamard_matmul launch failed with CUDA error "
-                           f"{err} (u {tuple(u.shape)}, v {tuple(v.shape)})")
+                           f"{err} (u {tuple(u.shape)}, v {tuple(v.shape)}, "
+                           f"{plan})")
     hadamard_matmul.launches += 1
     return out
 

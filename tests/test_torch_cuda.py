@@ -39,7 +39,13 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n,c0,width", [
     (1, 4096, 1000, 0, 1000), (1, 300, 77, 13, 50), (9, 64, 130, 2, 128),
-    (70, 515, 300, 44, 256)])
+    (70, 515, 300, 44, 256),
+    (1, 25088, 3368, 0, 3368),        # n18's slow side: 20 splits of K
+    (1, 25088, 4096, 728, 3368),      # ... on the full W
+    (4, 100, 301, 96, 128),           # ragged N: scalar loads
+    (8, 515, 300, 3, 257),            # odd c0, eight rows of X
+    (3, 768, 3072, 2480, 592),        # the ViT example split, M <= 8
+    (1, 40, 4096, 0, 4096)])          # K below a block's floor: 1 split
 def test_split_matmul_kernel_matches_plain(cuda, m, k, n, c0, width, dtype):
     from repro_torch.kernels.split_matmul import (split_matmul,
                                                   split_matmul_plain)
@@ -54,8 +60,53 @@ def test_split_matmul_kernel_matches_plain(cuda, m, k, n, c0, width, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,k,n", [(3136, 64, 128), (37, 40, 136),
-                                   (1, 32, 200)])
+def test_split_matmul_on_packed_panels_and_odd_pointers(cuda, dtype):
+    from repro_torch.core.coexec import SplitPlan, pack_weights
+    from repro_torch.kernels.split_matmul import (split_matmul,
+                                                  split_matmul_plain)
+    from repro_torch.kernels.split_matmul.split_matmul import (SCALAR,
+                                                               VECTOR,
+                                                               plan_call)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k, c_out = 3584, 5696
+    x = torch.randn((1, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((k, c_out), generator=g, device=cuda) / k ** 0.5
+         ).to(dtype)
+    split = SplitPlan(c_out=c_out, c_fast=1472)
+    packed = pack_weights(w, split)
+    for side in range(2):                 # packed_w[1] starts K * c_pad in
+        panel = packed[side]
+        assert plan_call(x, panel, 0, split.width(side)).variant == VECTOR
+        _close(split_matmul(x, panel, 0, split.width(side)),
+               split_matmul_plain(x, panel, 0, split.width(side)), dtype)
+    # a contiguous W one element into its storage: scalar loads
+    flat = torch.randn(k * 1000 + 1, generator=g, device=cuda).to(dtype)
+    odd = flat[1:].view(k, 1000)
+    assert plan_call(x, odd, 0, 1000).variant == SCALAR
+    _close(split_matmul(x, odd, 0, 1000), split_matmul_plain(x, odd, 0, 1000),
+           dtype)
+
+
+@pytest.mark.parametrize("m,k,n,c0,width", [(1, 25088, 3368, 0, 728),
+                                            (1, 14336, 2296, 0, 1288),
+                                            (5, 1000, 301, 7, 200)])
+def test_split_matmul_is_bit_identical_from_call_to_call(cuda, m, k, n, c0,
+                                                         width):
+    from repro_torch.kernels.split_matmul import split_matmul
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) / k ** 0.5
+    first = split_matmul(x, w, c0, width)
+    for _ in range(3):
+        assert torch.equal(split_matmul(x, w, c0, width), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,k,n", [
+    (3136, 64, 128), (37, 40, 136), (1, 32, 200),
+    (3136, 128, 128), (784, 128, 192), (784, 128, 64),   # VGG16's n4, n6
+    (784, 256, 256),                                     # n7, n8
+    (50, 33, 70)])                      # K and N unaligned: scalar staging
 def test_hadamard_matmul_kernel_matches_plain(cuda, p, k, n, dtype):
     from repro_torch.kernels.winograd_conv import (hadamard_matmul,
                                                    hadamard_matmul_plain)
@@ -67,6 +118,28 @@ def test_hadamard_matmul_kernel_matches_plain(cuda, p, k, n, dtype):
     got = hadamard_matmul(u, v)
     assert hadamard_matmul.launches == before + 1
     _close(got, hadamard_matmul_plain(u, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,k,n", [(784, 256, 256), (37, 40, 136)])
+def test_every_hadamard_tile_matches_plain(cuda, p, k, n, dtype):
+    """Each tile the planner may choose, launched directly, on a main-path
+    shape and a ragged one."""
+    import importlib
+    wc = importlib.import_module(
+        "repro_torch.kernels.winograd_conv.winograd_conv")
+    g = torch.Generator(device=cuda).manual_seed(p + n)
+    u = torch.randn((16, p, k), generator=g, device=cuda).to(dtype)
+    v = (torch.randn((16, k, n), generator=g, device=cuda) / k ** 0.5
+         ).to(dtype)
+    code = 0 if dtype == torch.float32 else 1
+    for bm, bn in wc.TILES:
+        out = torch.empty((16, p, n), dtype=dtype, device=cuda)
+        err = wc._launcher()(cuda.index or 0, code, u.data_ptr(),
+                             v.data_ptr(), out.data_ptr(), 16, p, k, n, bm,
+                             bn, 1, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        _close(out, wc.hadamard_matmul_plain(u, v), dtype)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
