@@ -18,9 +18,13 @@ the port cannot be imported, and otherwise runs, in order:
    `scaled_dot_product_attention`; none for the SSD scan) device times
    from CUDA events (`time_ms`: L2 flushed before every timed call, host
    launch time kept out), the bound the card's published rates give for
-   the same work and the kernel's share of it (bound / kernel time);
-   `split_matmul` is also called twice on the same inputs and must give
-   bit-identical outputs (its split-K reduction is deterministic);
+   the same work and the kernel's share of it (bound / kernel time), and
+   each case's launch plan; `split_matmul` and `decode_attention` are
+   also called twice on the same inputs and must give bit-identical
+   outputs (their split reductions are deterministic); the SSD scan's
+   decode and chunk kernels are both timed at T = 1 and T =
+   `DECODE_T_MAX`, beside the time `time_ms` gives an empty kernel (the
+   floor of any launch);
 4. two main paths, each loaded through `repro_torch.CompiledNetwork` from
    a committed artifact and run on two CUDA-stream groups for a few seeded
    inputs ("requests"), each output held against `run_oracle` on the card,
@@ -128,9 +132,11 @@ ATTN_CASES = [
     ("ragged S=1000", 16, 4, 64, 1000, 999, 0, {}),
 ]
 
-#: (label, B, T, H, hd, N, launches per request)
+#: (label, B, T, H, hd, N, launches per request); T = 16 is the port's
+#: DECODE_T_MAX, the longest scan the decode kernel takes
 SSD_CASES = [
     ("b*.ssm decode", 1, 1, 112, 64, 64, {ZAMBA: 8}),
+    ("decode T=16", 1, 16, 112, 64, 64, {}),
     ("prefill T=4096", 1, 4096, 112, 64, 64, {}),
     ("ragged T=100", 2, 100, 6, 32, 16, {}),
 ]
@@ -334,7 +340,7 @@ def decode_attention_phase(peaks: dict) -> Tally:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention, decode_attention_plain, valid_range)
+        decode_attention, decode_attention_plain, plan_call, valid_range)
     gen = torch.Generator(device="cuda").manual_seed(13)
     tally = Tally()
     for label, h, kv, hd, s, pos, window, per_path in ATTN_CASES:
@@ -349,6 +355,11 @@ def decode_attention_phase(peaks: dict) -> Tally:
                         KERNEL_RTOL[dtype])
             check(f"decode_attention {label} {dtype} lse", lse, want_lse,
                   KERNEL_RTOL[torch.float32])        # fp32 sums in both
+            again = decode_attention(q, k, v, pos, window=window)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"decode_attention {label} {dtype}: two "
+                                     f"calls on the same inputs differ")
+            plan = plan_call(q, k, v, pos, window)
             lo, hi = valid_range(s, pos, window)
             n = hi - lo + 1
             # the library call: the attended positions, (1, heads, S, hd)
@@ -362,16 +373,26 @@ def decode_attention_phase(peaks: dict) -> Tally:
                 q.element_size() * (2 * h * hd + 2 * n * kv * hd) + 4 * h,
                 4 * h * n * hd, dtype, peaks)
             _report("decode_attention", label, dtype, err, times,
-                    f"H={h} KV={kv} hd={hd} S={s} pos={pos} window={window}")
+                    f"H={h} KV={kv} hd={hd} S={s} pos={pos} window={window} "
+                    f"[variant {plan.variant}, {plan.nsplit} runs of "
+                    f"{plan.run_len} over {lo}..{hi}, tile {plan.tile}, "
+                    f"{plan.stages} stages, {plan.blocks} blocks]")
             tally.add(dtype, err, per_path, times)
     return tally
 
 
 def ssd_phase(peaks: dict) -> Tally:
-    from repro_torch.kernels.ssd_chunk.ssd_chunk import (ssd_chunk_scan,
-                                                         ssd_chunk_scan_plain)
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+        CHUNK, CHUNKED, DECODE_T_MAX, SsdPlan, launch_uncounted, plan_call,
+        smem_bytes, ssd_chunk_scan, ssd_chunk_scan_plain)
+    if DECODE_T_MAX not in {case[2] for case in SSD_CASES}:
+        raise AssertionError(f"SSD_CASES has no case at DECODE_T_MAX = "
+                             f"{DECODE_T_MAX}")
     gen = torch.Generator(device="cuda").manual_seed(14)
     tally = Tally(library=False)          # no one PyTorch call computes it
+    floor = time_ms(lambda: torch.cuda._sleep(0))
+    print(f"ssd_chunk_scan floor: time_ms of an empty kernel "
+          f"(torch.cuda._sleep(0)) {floor:.4f} ms", flush=True)
     for label, b, t, h, hd, n, per_path in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             def rand(*shape):
@@ -389,13 +410,34 @@ def ssd_phase(peaks: dict) -> Tally:
                             KERNEL_RTOL[dtype]),
                       check(f"ssd_chunk_scan {label} {dtype} state", sf,
                             sf_p, KERNEL_RTOL[dtype]))
+            plan = plan_call(*ins, sf)
             times = _times(lambda: ssd_chunk_scan(*ins),
                            lambda: ssd_chunk_scan_plain(*ins), None,
                            nbytes(*ins, y, sf), 6 * b * t * h * hd * n,
                            dtype, peaks)
             _report("ssd_chunk_scan", label, dtype, err, times,
-                    f"B={b} T={t} H={h} hd={hd} N={n}")
+                    f"B={b} T={t} H={h} hd={hd} N={n} [variant "
+                    f"{plan.variant}, {plan.blocks} blocks of {plan.rows} "
+                    f"rows, {plan.lanes} lanes per row, chunk {plan.chunk}]")
             tally.add(dtype, err, per_path, times)
+            if t <= DECODE_T_MAX and dtype == torch.float32:
+                # the chunk kernel on the same inputs, launched directly
+                # (not counted), against the decode kernel's time
+                length = min(CHUNK, t)
+                chunked = SsdPlan(CHUNKED, 0, hd, b * h, length,
+                                  smem_bytes(hd, n, length))
+                y_c, sf_c = torch.empty_like(y), torch.empty_like(sf)
+                launch_uncounted(chunked, ins, y_c, sf_c)
+                check(f"ssd_chunk_scan {label} chunk kernel y", y_c, y_p,
+                      KERNEL_RTOL[dtype])
+                check(f"ssd_chunk_scan {label} chunk kernel state", sf_c,
+                      sf_p, KERNEL_RTOL[dtype])
+                ms_c = time_ms(lambda: launch_uncounted(chunked, ins, y_c,
+                                                        sf_c))
+                print(f"ssd_chunk_scan {label} T={t}: decode kernel "
+                      f"{times['ms']:.4f} ms, chunk kernel {ms_c:.4f} ms, "
+                      f"empty kernel {floor:.4f} ms, bound "
+                      f"{times['bound_ms']:.4f} ms", flush=True)
     return tally
 
 
@@ -538,13 +580,15 @@ def zamba_input(r: int) -> np.ndarray:
 
 
 #: the device-kernel name of each wrapper's main pass on the main paths
-#: (both paths run `split_matmul` at M = 1: the split-K GEMV)
+#: (both paths run `split_matmul` at M = 1: the split-K GEMV; the
+#: zamba2-7b step runs the SSD scan at T = 1: the decode kernel)
 TRACE_NAMES = {"split_matmul": "splitk_gemv<float",
                "hadamard_matmul": "hadamard_gemm<float",
-               "decode_attention": "attn_partial<",
-               "ssd_chunk_scan": "ssd_chunk_kernel<"}
+               "decode_attention": "attn_runs<float",
+               "ssd_chunk_scan": "ssd_decode<float"}
 #: second passes, counted apart from their wrappers' launches
-SECOND_PASSES = {"split_matmul": "splitk_reduce<float"}
+SECOND_PASSES = {"split_matmul": "splitk_reduce<float",
+                 "decode_attention": "attn_merge<float"}
 
 
 def device_breakdown(name: str, exe, x, requests: int = 2,

@@ -34,6 +34,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC")
 
+#: shared memory one Hopper block may use, in bytes (the opt-in maximum)
+SMEM_LIMIT = 232448
+
 #: where the CUDA toolkit puts nvcc when it is not on PATH
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -134,6 +137,23 @@ def entry_point(name: str, symbol: str, n_ptr: int, n_int: int):
 
 
 @functools.lru_cache(maxsize=None)
+def resident_blocks(name: str, symbol: str, device_index: int,
+                    *args: int) -> int:
+    """A kernel library's occupancy query `int symbol(int device, int...
+    args)`: the blocks of one instantiation that an SM holds at once, as the
+    CUDA runtime's occupancy calculator gives it, read once per arguments.
+    Raises where the query fails (it returns minus a CUDA error code)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * (1 + len(args))
+    fn.restype = ctypes.c_int
+    got = fn(device_index, *args)
+    if got <= 0:
+        raise RuntimeError(f"{symbol}{(device_index, *args)}: occupancy "
+                           f"query failed ({got})")
+    return got
+
+
+@functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     """The streaming multiprocessors of one CUDA device, read once: the
     kernels' launch plans size their grids by it."""
@@ -141,6 +161,16 @@ def sm_count(device_index: int) -> int:
 
     return torch.cuda.get_device_properties(
         device_index).multi_processor_count
+
+
+def require_contiguous(kernel: str, **operands) -> None:
+    """Raise ValueError naming the first operand that is not contiguous:
+    the kernels index their operands as dense row-major arrays."""
+    for name, t in operands.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operand {name} "
+                             f"{tuple(t.shape)} with strides {t.stride()} "
+                             f"is not contiguous")
 
 
 def dtype_code(kernel: str, *tensors) -> int:

@@ -25,7 +25,6 @@ per call, whether or not the call needs the reduction pass).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -110,20 +109,13 @@ def plan_launch(m: int, k: int, n: int, c0: int, width: int, elt: int,
     return LaunchPlan(variant, mt, tile, col_tiles, splits, k_chunk)
 
 
-@functools.lru_cache(maxsize=None)
 def resident_blocks(device_index: int, code: int, variant: int,
                     mt: int) -> int:
     """GEMV blocks of this instantiation one SM of the device holds at
-    once, as the CUDA runtime's occupancy calculator gives it (with the
-    largest X stage a plan allows)."""
-    fn = build.load("split_matmul").split_matmul_resident
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    got = fn(device_index, code, variant, mt, X_STAGE_BYTES)
-    if got <= 0:
-        raise RuntimeError(f"split_matmul occupancy query failed ({got}) "
-                           f"for variant {variant}, {mt} rows")
-    return got
+    once (with the largest X stage a plan allows)."""
+    return build.resident_blocks("split_matmul", "split_matmul_resident",
+                                 device_index, code, variant, mt,
+                                 X_STAGE_BYTES)
 
 
 def plan_call(x: torch.Tensor, w: torch.Tensor, c0: int,

@@ -210,21 +210,38 @@ def test_split_run_on_two_streams_matches_the_cpu_run(cuda):
 
 
 # ------------------------------------------------------------ decode kernels
+def _odd(shape, g, cuda, dtype):
+    """A contiguous tensor one element into its storage: not 16-byte
+    aligned, so the kernels take their scalar-copy instantiations."""
+    n = int(np.prod(shape))
+    return torch.randn(n + 1, generator=g, device=cuda).to(dtype)[1:].view(
+        shape)
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["vector", "scalar"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kv,hd,s,pos,window", [
     (32, 32, 112, 3072, 3071, 0),     # zamba2-7b b8.attn, fast side
     (32, 32, 112, 1024, 1023, 0),     # and slow side
     (32, 8, 128, 4096, 4095, 0),      # GQA g = 4
+    (32, 8, 128, 8192, 5000, 1024),   # window: 1024 of 8192 positions
     (16, 4, 64, 2000, 1500, 256),     # sliding window, pos < S - 1
     (8, 2, 112, 1000, 999, 0),        # ragged S
+    (4, 4, 16, 10, 9, 0),             # one run, merged on its own
+    (6, 2, 36, 300, 250, 0),          # hd * 2 = 72: bf16 copies scalar
 ])
 def test_decode_attention_kernel_matches_plain(cuda, h, kv, hd, s, pos,
-                                               window, dtype):
+                                               window, dtype, odd):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        SCALAR, plan_call)
     g = torch.Generator(device=cuda).manual_seed(h + kv + s)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for shape in ((h, hd), (s, kv, hd), (s, kv, hd)))
+    if odd:
+        k = _odd((s, kv, hd), g, cuda, dtype)
+        assert plan_call(q, k, v, pos, window).variant == SCALAR
     before = decode_attention.launches
     out, lse = decode_attention(q, k, v, pos, window=window)
     assert decode_attention.launches == before + 1
@@ -235,14 +252,37 @@ def test_decode_attention_kernel_matches_plain(cuda, h, kv, hd, s, pos,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,s,pos,window", [
+    (32, 32, 112, 3072, 3071, 0), (32, 32, 112, 1024, 1023, 0),
+    (32, 8, 128, 8192, 5000, 1024)])
+def test_decode_attention_is_bit_identical_from_call_to_call(
+        cuda, h, kv, hd, s, pos, window, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((h, hd), (s, kv, hd), (s, kv, hd)))
+    out, lse = decode_attention(q, k, v, pos, window=window)
+    for _ in range(3):
+        again, again_lse = decode_attention(q, k, v, pos, window=window)
+        assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["vector", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,hd,n", [
     (1, 1, 112, 64, 64),              # zamba2-7b decode step
+    (1, 16, 112, 64, 64),             # DECODE_T_MAX: the decode kernel
+    (1, 17, 112, 64, 64),             # one more: the chunk kernel
     (1, 300, 8, 64, 64),              # chunked, ragged last chunk
     (2, 100, 6, 32, 16),
+    (2, 3, 5, 20, 12),                # decode, ragged rows and N
 ])
-def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype):
+def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype,
+                                             odd):
     from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
                                                ssd_chunk_scan_plain)
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+        CHUNKED, DECODE_SCALAR, DECODE_T_MAX, DECODE_VECTOR, plan_call)
     g = torch.Generator(device=cuda).manual_seed(b + t + h)
 
     def rand(*shape):
@@ -252,6 +292,12 @@ def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype):
            0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
            -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5]
     ins = [u.to(dtype) for u in ins]
+    if odd:
+        ins[5] = _odd((b, h, hd, n), g, cuda, dtype).div_(n ** 0.5)
+    variant = plan_call(*ins, torch.empty_like(ins[5])).variant
+    assert variant == (CHUNKED if t > DECODE_T_MAX else
+                       DECODE_SCALAR if odd or (n * ins[0].element_size())
+                       % 16 else DECODE_VECTOR)
     before = ssd_chunk_scan.launches
     sf, y = ssd_chunk_scan(*ins)
     assert ssd_chunk_scan.launches == before + 1
@@ -277,6 +323,22 @@ def test_decode_kernels_refuse_what_they_do_not_take(cuda):
            ((1, 64, 2, 256), (1, 64, 256), (1, 64, 256), (1, 64, 2), (2,),
             (1, 2, 256, 256))]
     with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk_scan(*ins)
+
+
+def test_decode_kernels_refuse_a_strided_operand_by_name(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    q = torch.zeros((4, 16), device=cuda)
+    k = torch.zeros((32, 2, 16), device=cuda)
+    v_wide = torch.zeros((32, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="decode_attention: operand v "):
+        decode_attention(q, k, v_wide[..., ::2], 31)
+    ins = [torch.zeros(s, device=cuda) for s in
+           ((1, 1, 2, 16), (1, 1, 8), (1, 1, 8), (1, 1, 2), (2,),
+            (1, 2, 16, 8))]
+    ins[5] = torch.zeros((1, 2, 16, 16), device=cuda)[..., :8]
+    with pytest.raises(ValueError, match="ssd_chunk_scan: operand state0 "):
         ssd_chunk_scan(*ins)
 
 

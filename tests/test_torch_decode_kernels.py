@@ -4,12 +4,17 @@ on the CPU.
 On CPU tensors `decode_attention` and `ssd_chunk_scan` compute their plain
 PyTorch versions; those are held here against the reference's Pallas
 kernels (`interpret=True`) and its plain oracles on the same numpy inputs.
-The unit lowerings, `_unpack_params` and the head / kv-block / ssm-state
-split lowerings on two CPU groups are held against the reference's unit
-oracles and the port's unsplit math; `validate_axis_split` against the
-reference's.
+Plain-PyTorch mirrors of the CUDA kernels' own arithmetic (the attention
+kernel's per-run online softmax and fixed-order merge under its launch
+plan; the SSD decode kernel's recurrent register step) are held against the
+reference's Pallas kernels too.  The unit lowerings, `_unpack_params` and
+the head / kv-block / ssm-state split lowerings on two CPU groups are held
+against the reference's unit oracles and the port's unsplit math;
+`validate_axis_split` against the reference's.
 """
 import functools
+import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +44,11 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
                                            ssd_chunk_scan_plain, ssd_scan_ref)
 from repro_torch.kernels.ssd_chunk.ops import _unpack_params
+
+# the kernel modules (their packages export the wrappers by the same names)
+da = importlib.import_module(
+    "repro_torch.kernels.decode_attention.decode_attention")
+sc = importlib.import_module("repro_torch.kernels.ssd_chunk.ssd_chunk")
 
 # fp32 softmax-weighted sums over S positions, taken in another order (and
 # with the scale applied before or after the dot product)
@@ -171,6 +181,126 @@ def test_plain_ssd_chunk_scan_carries_state_across_ragged_chunks():
     with pytest.raises(ValueError, match="shape"):
         ssd_chunk_scan_plain(ins[0], ins[1], ins[2], ins[3][:, :50], ins[4],
                              ins[5])
+
+
+# ------------------------------------------- the CUDA kernels' arithmetic
+# kernel against plain, relative to the largest |plain| value (chip_smoke's
+# KERNEL_RTOL for fp32)
+MIRROR_RTOL = 5e-5
+
+
+def _close_rel(got, want, rtol=MIRROR_RTOL):
+    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rtol * max(1.0, np.abs(want).max())
+
+
+def _attention_mirror(q, k, v, plan):
+    """`attn_runs` then `attn_merge` under `plan`, in plain PyTorch (fp32):
+    each run an online softmax over its tiles with the query pre-scaled,
+    then the runs' partials added in run order."""
+    h, hd = q.shape
+    kv = k.shape[1]
+    qg = q.reshape(kv, h // kv, hd).float() / math.sqrt(hd)
+    parts = []
+    for first, end in plan.runs():
+        m = torch.full(qg.shape[:2], -1e30)
+        l = torch.zeros(qg.shape[:2])
+        acc = torch.zeros(qg.shape)
+        for t0 in range(first, end, plan.tile):
+            t1 = min(end, t0 + plan.tile)
+            s = torch.einsum("kgd,skd->kgs", qg, k[t0:t1].float())
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.exp(s - m_new[..., None])
+            a = torch.exp(m - m_new)
+            l = l * a + p.sum(-1)
+            acc = acc * a[..., None] + torch.einsum("kgs,skd->kgd", p,
+                                                    v[t0:t1].float())
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).max(0).values
+    total, acc = torch.zeros_like(top), torch.zeros(qg.shape)
+    for m, l, a in parts:
+        w = torch.exp(m - top)
+        total = total + w * l
+        acc = acc + w[..., None] * a
+    return ((acc * (1.0 / total)[..., None]).reshape(h, hd),
+            (top + torch.log(total)).reshape(h))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,hd,s,pos,window,resident", [
+    (4, 4, 16, 300, 299, 0, 16),      # g = 1, four runs of 3 tiles each
+    (8, 4, 32, 700, 650, 0, 8),       # g = 2, pos < S - 1, 2 runs
+    (8, 2, 16, 1024, 1023, 0, 64),    # g = 4, a run per tile
+    (8, 2, 64, 700, 500, 128, 6),     # sliding window: 3 runs of 32 + 32..
+    (4, 1, 16, 512, 511, 100, 1),     # one run: merged on its own
+    (6, 2, 36, 97, 96, 0, 100),       # hd * 4 = 144, a ragged last tile
+    (4, 4, 112, 200, 199, 0, 528),    # zamba2-7b's hd
+])
+def test_attention_kernel_arithmetic_matches_reference(h, kv, hd, s, pos,
+                                                       window, resident,
+                                                       dtype):
+    q, k, v = _attn_inputs(h, kv, hd, s, seed=h + hd + s)
+    if dtype == "bfloat16":                  # bf16 inputs, compared in f32
+        q, k, v = (torch.tensor(a).bfloat16().float().numpy()
+                   for a in (q, k, v))
+    lo, hi = da.valid_range(s, pos, window)
+    elt = 4 if dtype == "float32" else 2
+    plan = da.plan_attention(lo, hi, kv, h // kv, hd, elt, 0, 0, resident)
+    assert plan.nsplit == -(-(hi - lo + 1) // plan.run_len)
+    out, lse = _attention_mirror(*map(torch.tensor, (q, k, v)), plan)
+    want = jax_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), pos, window=window,
+                                interpret=True)
+    _close_rel(out, want)
+    plain, plain_lse = decode_attention_plain(*map(torch.tensor, (q, k, v)),
+                                              pos, window=window)
+    _close_rel(out, plain)
+    _close_rel(lse, plain_lse)
+
+
+def _ssd_decode_mirror(x, b, c, dt, a, state0):
+    """`ssd_decode` in plain PyTorch (fp32): the recurrence stepped token by
+    token, h <- exp(dt a) h + (dt x_d) B_k and y_d = sum_k C_k h_dk."""
+    h = state0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dt[:, t].float()                              # (B, H)
+        decay = torch.exp(dtt * a.float())
+        xd = dtt[..., None] * x[:, t].float()               # (B, H, hd)
+        h = decay[..., None, None] * h + xd[..., None] * \
+            b[:, t, None, None, :].float()
+        ys.append(torch.einsum("bhdn,bn->bhd", h, c[:, t].float()))
+    return h, torch.stack(ys, dim=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,hd,n", [
+    (1, 1, 4, 16, 8),                     # decode: one token
+    (1, 1, 6, 64, 64),                    # zamba2-7b's head, fewer heads
+    (2, sc.DECODE_T_MAX, 3, 16, 8),       # the decode kernel's longest scan
+    (1, 5, 2, 20, 12),                    # ragged rows and N
+])
+def test_ssd_decode_arithmetic_matches_reference(b, t, h, hd, n, dtype):
+    ins = _ssd_inputs(b, t, h, hd, n, seed=b + t + h + hd)
+    if dtype == "bfloat16":                  # bf16 inputs, compared in f32
+        ins = tuple(torch.tensor(u).bfloat16().float().numpy() for u in ins)
+    plan = sc.plan_ssd(b, t, h, hd, n, 4 if dtype == "float32" else 2,
+                       (0, 0))
+    # both variants step the same arithmetic; they differ in their loads
+    assert plan.variant in (sc.DECODE_VECTOR, sc.DECODE_SCALAR)
+    sf, y = _ssd_decode_mirror(*map(torch.tensor, ins))
+    sf_k, y_k = jax_ssd_chunk_scan(*map(jnp.asarray, ins), interpret=True)
+    _close_rel(y, y_k)
+    _close_rel(sf, sf_k)
+    sf_r, y_r = jax_ssd_scan_ref(*map(jnp.asarray, ins))
+    _close_rel(y, y_r)
+    _close_rel(sf, sf_r)
+    # and the port's plain version, which the card compares with
+    sf_p, y_p = ssd_chunk_scan_plain(*map(torch.tensor, ins))
+    _close_rel(y, y_p)
+    _close_rel(sf, sf_p)
 
 
 # ------------------------------------------------------ unit lowerings
