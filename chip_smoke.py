@@ -36,7 +36,17 @@ the port cannot be imported, and otherwise runs, in order:
      `ssd_chunk_scan`);
 5. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
-6. a JSON line of per-kernel numbers, then the result line.
+6. the fused segment walk of each path (`run(fused=True)`): every fused
+   segment captured once as a CUDA graph (each printed with its kind, its
+   nodes and the kernel launches its graph holds), then the same seeded
+   requests, each output `torch.equal` to the per-node walk's and within
+   `E2E_RTOL` of `run_oracle`, with the launch counts (credited at each
+   replay), reshard and elided counts of the per-node walk and one sync
+   per segment; the two walks' median walls from one alternating run
+   (per-node, fused, per-node, fused, ...); two fused requests under
+   torch.profiler, with each kernel's launches in the trace beside its
+   credited counter and the graph launches the trace shows;
+7. a JSON line of per-kernel numbers, then the result line.
 """
 from __future__ import annotations
 
@@ -78,6 +88,9 @@ REQUESTS = 4
 #: chunked SSD form against the step-by-step scan, and the kv-block
 #: log-sum-exp merge, through 9 residual blocks.
 E2E_RTOL = {"vgg16": 2e-3, "zamba2-7b": 1e-4}
+
+#: per-node/fused request pairs of the alternating wall measurement
+WALL_PAIRS = 8
 
 #: every kernel of the port, by its launch counter's name
 KERNEL_NAMES = ("split_matmul", "hadamard_matmul", "decode_attention",
@@ -442,15 +455,8 @@ def ssd_phase(peaks: dict) -> Tally:
 
 
 def kernel_counters() -> dict:
-    from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention)
-    from repro_torch.kernels.split_matmul.split_matmul import split_matmul
-    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_scan
-    from repro_torch.kernels.winograd_conv.winograd_conv import (
-        hadamard_matmul)
-    return {"split_matmul": split_matmul, "hadamard_matmul": hadamard_matmul,
-            "decode_attention": decode_attention,
-            "ssd_chunk_scan": ssd_chunk_scan}
+    from repro_torch.runtime.segments import launch_counters
+    return launch_counters()
 
 
 def expected_counts(plan) -> dict:
@@ -496,7 +502,8 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
     """One main path: the artifact on two CUDA-stream groups, `requests`
     seeded inputs, each held against run_oracle, launch counts checked per
     request against the artifact; returns the launch counts (counters set
-    to 0 just before the path, read just after) and the executor."""
+    to 0 just before the path, read just after), the executor, the
+    expected counts and each request's (input, output, oracle)."""
     import repro_torch
 
     t0 = time.perf_counter()
@@ -526,8 +533,10 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
         outputs.append((x, y, rep, wall))
     counts = {k: fn.launches for k, fn in counters.items()}
 
+    refs = []
     for r, ((x, y, rep, wall), launched) in enumerate(zip(outputs, per_run)):
         oracle = exe.run_oracle(x)
+        refs.append((x, y, oracle))
         torch.cuda.synchronize()
         if tuple(y.shape) != out_shape or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"{name} request {r}: output "
@@ -566,7 +575,113 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
     print(f"{name}: median request wall {statistics.median(walls):.3f} ms "
           f"over {requests} requests (min {walls[0]:.3f}, max "
           f"{walls[-1]:.3f})", flush=True)
-    return counts, exe
+    return counts, exe, want, refs
+
+
+def fused_path(name: str, exe, want: dict, refs: list) -> dict:
+    """The fused segment walk of a main path: capture every fused segment
+    as a CUDA graph, then run the per-node walk's requests again, each
+    output bit-identical to that walk's and within E2E_RTOL of run_oracle,
+    with the same launch, reshard and elided counts and one sync per
+    segment; returns the launch counts (counters set to 0 just before the
+    requests, read just after)."""
+    from repro_torch.graph.ir import SEGMENT_FUSED
+
+    partition = exe.plan.segment_partition()
+    specs = {s.node_id: s for s in exe.specs}
+    t = time.perf_counter()
+    programs = exe.segment_programs()          # the requests' input shape
+    torch.cuda.synchronize()
+    captured = sum(p.graph is not None for p in programs)
+    n_fused = sum(s.kind == SEGMENT_FUSED for s in partition)
+    print(f"{name} fused: {len(programs)} segments, {n_fused} fused; "
+          f"captured {captured} CUDA graphs in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if captured != n_fused:
+        raise AssertionError(f"{name}: {captured} graphs for {n_fused} "
+                             f"fused segments")
+    for p in programs:
+        held = (", ".join(f"{k} {n}" for k, n in p.launches.items())
+                or "no launch of the port's kernels")
+        what = (f"graph holds {held}" if p.graph is not None
+                else f"eager ({p.modes[p.node_ids[0]]})")
+        print(f"  segment {p.index:2d} {p.kind:9s} "
+              f"{' + '.join(p.node_ids)}: {what}", flush=True)
+    exe.run(refs[0][0], fused=True, warmup=True)     # warm the replays
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = []
+    for x, _, _ in refs:
+        before = {k: fn.launches for k, fn in counters.items()}
+        t = time.perf_counter()
+        y, rep = exe.run(x, fused=True)
+        wall = (time.perf_counter() - t) * 1e3
+        runs.append((y, rep, wall, {k: fn.launches - before[k]
+                                    for k, fn in counters.items()}))
+    counts = {k: fn.launches for k, fn in counters.items()}
+
+    for r, ((x, y_node, oracle), (y, rep, wall, launched)) in enumerate(
+            zip(refs, runs)):
+        if not torch.equal(y, y_node):
+            diff = float((y - y_node).abs().max())
+            raise AssertionError(f"{name} fused request {r}: output differs "
+                                 f"from the per-node walk's (max |diff| "
+                                 f"{diff:.3e})")
+        err = float((y - oracle).abs().max())
+        scale = max(1.0, float(oracle.abs().max()))
+        if not err <= E2E_RTOL[name] * scale:
+            raise AssertionError(f"{name} fused request {r}: max |run - "
+                                 f"run_oracle| = {err:.3e} > "
+                                 f"{E2E_RTOL[name]} x {scale:.3g}")
+        for k in KERNEL_NAMES:
+            if launched[k] != want[k]:
+                raise AssertionError(f"{name} fused request {r}: "
+                                     f"{launched[k]} {k} launches, want "
+                                     f"{want[k]}")
+        if (rep.reshard_points, rep.elided) != (want["reshard"],
+                                                want["elided"]):
+            raise AssertionError(
+                f"{name} fused request {r}: {rep.reshard_points} reshard "
+                f"points, {rep.elided} elided; want {want['reshard']} and "
+                f"{want['elided']}")
+        if not rep.fused or rep.sync_points != len(partition):
+            raise AssertionError(f"{name} fused request {r}: "
+                                 f"{rep.sync_points} syncs, want one per "
+                                 f"segment ({len(partition)})")
+        share = {}
+        for seg_wall, p in zip(rep.segment_wall_us, programs):
+            kind = ("graph replays" if p.graph is not None else
+                    _node_kind(specs[p.node_ids[0]]))
+            share[kind] = share.get(kind, 0.0) + seg_wall
+        parts = ", ".join(f"{k} {v / rep.wall_us:.1%}"
+                          for k, v in sorted(share.items()))
+        shown = " ".join(f"{k} {launched[k]}" for k in KERNEL_NAMES
+                         if want[k])
+        print(f"{name} fused request {r}: wall {wall:.3f} ms (segments "
+              f"{rep.wall_us / 1e3:.3f} ms: {parts}); bit-identical to the "
+              f"per-node walk; max_abs_err {err:.3e} (scale {scale:.3g}); "
+              f"launches {shown}; reshard {rep.reshard_points} elided "
+              f"{rep.elided} syncs {rep.sync_points}", flush=True)
+    return counts
+
+
+def alternating_walls(name: str, exe, x, pairs: int) -> None:
+    """Request walls of the per-node and fused walks on one input, run in
+    turns (per-node, fused, per-node, fused, ...), so both see the same
+    card and host state."""
+    walls = {False: [], True: []}
+    for _ in range(pairs):
+        for fused in (False, True):
+            t = time.perf_counter()
+            exe.run(x, fused=fused)
+            walls[fused].append((time.perf_counter() - t) * 1e3)
+    node, fused = (sorted(walls[f]) for f in (False, True))
+    print(f"{name} walls, {pairs} alternating pairs: per-node median "
+          f"{statistics.median(node):.3f} ms (min {node[0]:.3f}, max "
+          f"{node[-1]:.3f}); fused median {statistics.median(fused):.3f} ms "
+          f"(min {fused[0]:.3f}, max {fused[-1]:.3f})", flush=True)
 
 
 def vgg16_input(r: int) -> np.ndarray:
@@ -586,51 +701,79 @@ TRACE_NAMES = {"split_matmul": "splitk_gemv<float",
                "hadamard_matmul": "hadamard_gemm<float",
                "decode_attention": "attn_runs<float",
                "ssd_chunk_scan": "ssd_decode<float"}
+#: CUDA runtime calls by which the host puts work on the card
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
+                     "cudaMemset", "cudaGraphLaunch")
 #: second passes, counted apart from their wrappers' launches
 SECOND_PASSES = {"split_matmul": "splitk_reduce<float",
                  "decode_attention": "attn_merge<float"}
 
 
 def device_breakdown(name: str, exe, x, requests: int = 2,
-                     top: int = 12) -> None:
+                     top: int = 12, fused: bool = False) -> None:
     """`requests` requests under torch.profiler: device time per request
     of the kernels they ran, by kernel name, against the request wall; and
-    each wrapper's launches in the trace against its launch counter."""
+    each wrapper's launches in the trace against its launch counter (for
+    the fused walk, the launches credited at the graphs' replays) and the
+    graph launches the trace shows.  Raises if the trace holds no device
+    time at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     counters = kernel_counters()
-    exe.run(x)
+    exe.run(x, fused=fused)
     before = {k: fn.launches for k, fn in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(requests):
-            exe.run(x)
+            exe.run(x, fused=fused)
         wall = (time.perf_counter() - t) * 1e3 / requests
+    if fused:
+        name = f"{name} fused"
     rows = sorted(((e.self_device_time_total / 1e3 / requests, e.count,
                     e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
+    if busy <= 0.0:
+        raise AssertionError(f"profile {name}: the trace holds no device "
+                             f"time")
+    # host calls that put work on the card: kernel launches, copies and
+    # graph launches (the CUDA runtime's API events in the trace)
+    calls = {}
+    for e in prof.key_averages():
+        if e.key.startswith(HOST_LAUNCH_CALLS):
+            calls[e.key] = calls.get(e.key, 0) + e.count / requests
     print(f"profile {name}: {requests} requests; per request wall "
           f"{wall:.3f} ms under the profiler, kernels {busy:.3f} ms of "
           f"device time in {sum(r[1] for r in rows) / requests:g} launches "
-          f"(the two streams may overlap)")
+          f"(the two streams may overlap, so the card is idle for at least "
+          f"{1 - busy / wall:.1%} of the wall); host calls per request "
+          f"{sum(calls.values()):g} ("
+          + ", ".join(f"{k} {n:g}" for k, n in sorted(calls.items())) + ")")
     for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {count:4d}x {key[:100]}")
     seen = {k: sum(c for _, c, key in rows if TRACE_NAMES[k] in key)
             for k in KERNEL_NAMES}
     second = {k: sum(c for _, c, key in rows if pattern in key)
               for k, pattern in SECOND_PASSES.items()}
+    graphs = sum(e.count for e in prof.key_averages()
+                 if e.key == "cudaGraphLaunch")
     print(f"profile {name}: launches in the trace / by the counters over "
           f"the {requests} requests: " + ", ".join(
               f"{k} {seen[k]}/{counters[k].launches - before[k]}"
               for k in KERNEL_NAMES
               if counters[k].launches - before[k] or seen[k])
           + "; second passes in the trace: " + ", ".join(
-              f"{k} {n}" for k, n in second.items()), flush=True)
+              f"{k} {n}" for k, n in second.items())
+          + f"; cudaGraphLaunch calls in the trace: {graphs}", flush=True)
+    for k in KERNEL_NAMES:
+        counted = counters[k].launches - before[k]
+        if counted and not seen[k]:
+            print(f"profile {name}: the trace lists none of the {counted} "
+                  f"{k} launches the counter holds", flush=True)
 
 
 SOURCES = {
@@ -676,24 +819,29 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
-    launches = {}
+    launches, fused_launches = {}, {}
     for name, artifact, make_input, out_shape in (
             (VGG, ARTIFACT, vgg16_input, (1, 1000)),
             (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584))):
-        counts, exe = main_path(name, artifact, make_input, out_shape,
-                                REQUESTS)
+        counts, exe, want, refs = main_path(name, artifact, make_input,
+                                            out_shape, REQUESTS)
         launches[name] = counts
         device_breakdown(name, exe, make_input(REQUESTS))
-        del exe
+        fused_launches[name] = fused_path(name, exe, want, refs)
+        alternating_walls(name, exe, make_input(REQUESTS), WALL_PAIRS)
+        device_breakdown(name, exe, make_input(REQUESTS), fused=True)
+        del exe, refs
         torch.cuda.empty_cache()
     for k in KERNEL_NAMES:
-        if sum(c[k] for c in launches.values()) == 0:
-            raise AssertionError(f"{k} was not launched on a main path")
+        for walk in (launches, fused_launches):
+            if sum(c[k] for c in walk.values()) == 0:
+                raise AssertionError(f"{k} was not launched on a main path")
 
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
-        "launches": sum(c[name] for c in launches.values()),
+        "launches": sum(c[name] for walk in (launches, fused_launches)
+                        for c in walk.values()),
         "max_abs_err": t.max_abs_err,
         "max_abs_err_bf16": t.max_abs_err_bf16,
         "ms": t.total("ms"), "plain_ms": t.total("plain_ms"),
@@ -701,12 +849,15 @@ def main() -> int:
         "bound_by": ("bytes" if t.total("t_bytes") >= t.total("t_ops")
                      else "operations"),
         "library_ms": t.total("library_ms"),
-        "per": (f"launches: the {REQUESTS} requests of each main path; "
-                f"times: one request of each main path, float32"),
-        "by_path": {path: {"launches": launches[path][name],
-                           **{k: (None if k == "library_ms"
-                                  and not t.library else v)
-                              for k, v in agg.items()}}
+        "per": (f"launches: the {REQUESTS} requests of each main path, "
+                f"per-node and fused walks; times: one request of each "
+                f"main path, float32"),
+        "by_path": {f"{path}{walk}": {"launches": counts[path][name],
+                                      **{k: (None if k == "library_ms"
+                                             and not t.library else v)
+                                         for k, v in agg.items()}}
+                    for walk, counts in (("", launches),
+                                         (" fused", fused_launches))
                     for path, agg in t.by_path.items()}}
         for name, t in results.items()]}
     print(json.dumps(line))

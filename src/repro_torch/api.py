@@ -12,6 +12,7 @@ The port loads that artifact, checks it, and runs it on a torch device:
     compiled = repro_torch.CompiledNetwork.load("vgg16.coexec.json")
     y = compiled.run()                   # on CUDA; device="cpu" for the CPU
     report = compiled.profile()          # per-node ExecutionReport
+    y = compiled.run(fused=True)         # the segment walk: CUDA graphs
 
 Loading checks the artifact's format, version and checksum (recomputed
 exactly as the reference does), that the network fingerprint recomputed
@@ -138,20 +139,27 @@ class CompiledNetwork:
         return self._executors[str(dev)]
 
     def run(self, x=None, *, device: Union[str, torch.device, None] = None,
-            chain: bool = True, warmup: bool = False) -> torch.Tensor:
-        """Execute the plan once; returns the output activation and keeps
-        the run's `ExecutionReport` on `last_report`."""
+            chain: bool = True, warmup: bool = False,
+            fused: bool = False) -> torch.Tensor:
+        """Execute the plan once; returns the output activation.
+
+        `fused=True` takes the segment walk (one CUDA graph per fused
+        segment on the card, bit-identical outputs); the per-node walk is
+        the `fused=False` reference.  The run's `ExecutionReport` is kept
+        on `last_report` (`profile()` is the report-first spelling)."""
         y, self.last_report = self.executor(device=device).run(
-            x, chain=chain, warmup=warmup)
+            x, chain=chain, warmup=warmup, fused=fused)
         return y
 
     def profile(self, x=None, *,
                 device: Union[str, torch.device, None] = None,
-                chain: bool = True, warmup: bool = True):
-        """Execute the plan (warmed up by default) and return its
-        executed-vs-predicted `ExecutionReport`."""
+                chain: bool = True, warmup: bool = True,
+                fused: bool = False):
+        """Execute the plan and return its executed-vs-predicted
+        `ExecutionReport` (warmed up by default, so timings are steady
+        state, not kernel builds and graph captures)."""
         _, self.last_report = self.executor(device=device).run(
-            x, chain=chain, warmup=warmup)
+            x, chain=chain, warmup=warmup, fused=fused)
         return self.last_report
 
     # ------------------------------------------------------------- codecs

@@ -7,7 +7,12 @@ One subcommand so far:
     end on a torch device, reporting executed-vs-predicted fidelity.
 
         python -m repro_torch execute --artifact PATH [--device cpu]
-                                      [--per-op] [--runs N]
+                                      [--per-op] [--runs N] [--fused]
+
+    `--fused` also runs the segment walk (one CUDA graph per fused
+    segment on the card) on the same input as the per-node walk, prints
+    both walls and whether the outputs are bit-identical, and exits 1 if
+    they are not.
 
 The device defaults to CUDA; without CUDA the command fails unless
 `--device cpu` is given.
@@ -20,6 +25,8 @@ from typing import Optional, Sequence
 
 
 def _cmd_execute(args) -> int:
+    import torch
+
     from repro_torch.api import CompiledNetwork
 
     compiled = CompiledNetwork.load(args.artifact)
@@ -31,14 +38,40 @@ def _cmd_execute(args) -> int:
     print(f"  on {exe.device}: {groups}")
     for i in range(args.runs):
         report = compiled.profile(device=args.device)
-        if args.per_op and i == args.runs - 1:
-            for t in report.timings:
-                extra = " chained" if t.chained_input else ""
-                print(f"  [{t.index:02d}] {t.label:42s} {t.mode:9s} "
-                      f"{t.c_fast}/{t.c_slow} wall {t.wall_us:9.0f}us "
-                      f"pred {t.pred_us:8.1f}us{extra}")
+        if args.per_op and i == args.runs - 1 and not args.fused:
+            _print_per_op(report)
         print(f"  run {i + 1}/{args.runs}: {report.fidelity_summary()}")
+    if args.fused:
+        # both walks on the same input, outputs compared bit for bit
+        x = exe.input_template()
+        y_node = compiled.run(x, device=args.device, warmup=True)
+        rep_node = compiled.last_report
+        y_fused = compiled.run(x, device=args.device, warmup=True,
+                               fused=True)
+        rep_fused = compiled.last_report
+        identical = torch.equal(y_fused, y_node)
+        print(f"  fused: {len(rep_fused.segment_wall_us)} segments, "
+              f"{rep_fused.sync_points} syncs (vs {rep_node.sync_points} "
+              f"unfused), outputs "
+              f"{'bit-identical' if identical else 'DIVERGED'}")
+        print(f"  fused wall {rep_fused.wall_us / 1e3:.3f} ms vs unfused "
+              f"{rep_node.wall_us / 1e3:.3f} ms")
+        if args.per_op:
+            _print_per_op(rep_fused)
+        print(f"  fused: {rep_fused.fidelity_summary()}")
+        if not identical:
+            return 1
     return 0
+
+
+def _print_per_op(report) -> None:
+    for t in report.timings:
+        extra = " chained" if t.chained_input else ""
+        if t.segment >= 0:
+            extra += f" seg={t.segment}"
+        print(f"  [{t.index:02d}] {t.label:42s} {t.mode:9s} "
+              f"{t.c_fast}/{t.c_slow} wall {t.wall_us:9.0f}us "
+              f"pred {t.pred_us:8.1f}us{extra}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -59,6 +92,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="timed executions to report")
     p_exec.add_argument("--per-op", action="store_true",
                         help="print one line per executed unit")
+    p_exec.add_argument("--fused", action="store_true",
+                        help="also run the segment walk (CUDA graphs) on "
+                             "the same input; exit 1 unless its output is "
+                             "bit-identical to the per-node walk's")
     args = ap.parse_args(argv)
     try:
         return _cmd_execute(args)

@@ -150,7 +150,9 @@ class GroupLocal:
 def _hand_over(t: torch.Tensor, event: Optional[torch.cuda.Event],
                stream: Optional[torch.cuda.Stream]) -> None:
     """Make `stream` wait for `t` (written before `event`) and keep `t`'s
-    memory allocated until `stream` is past its reads."""
+    memory allocated until `stream` is past its reads.  Legal inside a CUDA
+    graph capture too: the allocator defers the end-of-use events until
+    the capture ends."""
     if stream is None:
         return
     if event is not None:

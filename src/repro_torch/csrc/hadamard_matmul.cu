@@ -37,10 +37,12 @@
 //   both types accumulate in fp32 and round once to T.
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
 #include "tiled_gemm.cuh"
 
 namespace {
 
+using repro_torch::configure_smem_once;
 using repro_torch::from_f32;
 
 constexpr int kBK = 16;      // depth of one K slice
@@ -244,16 +246,14 @@ hadamard_gemm(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 template <typename T, int BM, int BN, bool VEC>
-int launch_tile(const void* u, const void* v, void* out, int g, int p, int k,
-                int n, cudaStream_t stream) {
+int launch_tile(int device, const void* u, const void* v, void* out, int g,
+                int p, int k, int n, cudaStream_t stream) {
   constexpr int threads = (BM / kTM) * (BN / kTN);
   constexpr int smem = kStages * (BM * kBK + kBK * BN) * sizeof(T);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        hadamard_gemm<T, BM, BN, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // set once per device (kernel_attrs.cuh): no runtime call per launch,
+  // so none inside a CUDA graph capture either
+  const int set = configure_smem_once<hadamard_gemm<T, BM, BN, VEC>>(device);
+  if (set != 0) return set;
   const dim3 grid((n + BN - 1) / BN, (p + BM - 1) / BM, g);
   hadamard_gemm<T, BM, BN, VEC><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(v), static_cast<T*>(out),
@@ -262,15 +262,18 @@ int launch_tile(const void* u, const void* v, void* out, int g, int p, int k,
 }
 
 template <typename T, int BM, int BN>
-int launch_vec(const void* u, const void* v, void* out, int g, int p, int k,
-               int n, int vec, cudaStream_t stream) {
-  return vec ? launch_tile<T, BM, BN, true>(u, v, out, g, p, k, n, stream)
-             : launch_tile<T, BM, BN, false>(u, v, out, g, p, k, n, stream);
+int launch_vec(int device, const void* u, const void* v, void* out, int g,
+               int p, int k, int n, int vec, cudaStream_t stream) {
+  return vec ? launch_tile<T, BM, BN, true>(device, u, v, out, g, p, k, n,
+                                            stream)
+             : launch_tile<T, BM, BN, false>(device, u, v, out, g, p, k, n,
+                                             stream);
 }
 
 template <typename T>
-int launch(const void* u, const void* v, void* out, int g, int p, int k,
-           int n, int bm, int bn, int vec, cudaStream_t stream) {
+int launch(int device, const void* u, const void* v, void* out, int g,
+           int p, int k, int n, int bm, int bn, int vec,
+           cudaStream_t stream) {
   // the host plan, checked: 16-byte copies only where they are aligned
   const bool aligned =
       reinterpret_cast<std::uintptr_t>(u) % 16 == 0 &&
@@ -280,11 +283,14 @@ int launch(const void* u, const void* v, void* out, int g, int p, int k,
       (static_cast<long long>(n) * sizeof(T)) % 16 == 0;
   if (vec && !aligned) return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 128 && bn == 128)
-    return launch_vec<T, 128, 128>(u, v, out, g, p, k, n, vec, stream);
+    return launch_vec<T, 128, 128>(device, u, v, out, g, p, k, n, vec,
+                                   stream);
   if (bm == 128 && bn == 64)
-    return launch_vec<T, 128, 64>(u, v, out, g, p, k, n, vec, stream);
+    return launch_vec<T, 128, 64>(device, u, v, out, g, p, k, n, vec,
+                                   stream);
   if (bm == 64 && bn == 128)
-    return launch_vec<T, 64, 128>(u, v, out, g, p, k, n, vec, stream);
+    return launch_vec<T, 64, 128>(device, u, v, out, g, p, k, n, vec,
+                                   stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -305,8 +311,9 @@ extern "C" int hadamard_matmul_launch(int device, int dtype, const void* u,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(u, v, out, g, p, k, n, bm, bn, vec, s);
+    return launch<float>(device, u, v, out, g, p, k, n, bm, bn, vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(u, v, out, g, p, k, n, bm, bn, vec, s);
+    return launch<__nv_bfloat16>(device, u, v, out, g, p, k, n, bm, bn, vec,
+                                 s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

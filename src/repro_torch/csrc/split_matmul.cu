@@ -46,10 +46,12 @@
 // (64 x 64 tile, 4 x 4 outputs per thread, tiled_gemm.cuh).
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
 #include "tiled_gemm.cuh"
 
 namespace {
 
+using repro_torch::configure_smem_once;
 using repro_torch::from_f32;
 using repro_torch::to_f32;
 
@@ -265,18 +267,43 @@ int with_gemv(int variant, int mt, F f) {
   return -1;
 }
 
+// The GEMV instantiation's shared-memory attributes, set once per device
+// (kernel_attrs.cuh): never a runtime call per launch, so none inside a
+// CUDA graph capture either.  -1 if there is no such instantiation.  The
+// carveout stays the CUDA default: the largest shared-memory share measured
+// ~1 % slower on the n18 GEMVs, whose X stage is at most 32 KB.
+constexpr int kCarveout = cudaSharedmemCarveoutDefault;
+
+template <typename T, int MT>
+int configure_rows(int device, bool vec) {
+  return vec
+      ? configure_smem_once<splitk_gemv<T, MT, true>, kCarveout>(device)
+      : configure_smem_once<splitk_gemv<T, MT, false>, kCarveout>(device);
+}
+
 template <typename T>
-int launch_splitk(const T* x, const T* wc, T* y, float* ws, int m, int k,
-                  int n, int width, int variant, int mt, int col_tiles,
-                  int splits, int k_chunk, cudaStream_t stream) {
+int configure(int device, int variant, int mt) {
+  if (variant != kVector && variant != kScalar) return -1;
+  const bool vec = variant == kVector;
+  switch (mt) {
+    case 1: return configure_rows<T, 1>(device, vec);
+    case 2: return configure_rows<T, 2>(device, vec);
+    case 4: return configure_rows<T, 4>(device, vec);
+    case 8: return configure_rows<T, 8>(device, vec);
+  }
+  return -1;
+}
+
+template <typename T>
+int launch_splitk(int device, const T* x, const T* wc, T* y, float* ws,
+                  int m, int k, int n, int width, int variant, int mt,
+                  int col_tiles, int splits, int k_chunk,
+                  cudaStream_t stream) {
   const size_t smem = sizeof(float) * mt * static_cast<size_t>(k_chunk);
+  const int set = configure<T>(device, variant, mt);
+  if (set != 0) return set < 0 ? static_cast<int>(cudaErrorInvalidValue)
+                               : set;
   const int launched = with_gemv<T>(variant, mt, [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
     kernel<<<dim3(col_tiles, splits), kThreads, smem, stream>>>(
         x, wc, y, splits > 1 ? ws : nullptr, m, k, n, width, k_chunk);
     return static_cast<int>(cudaGetLastError());
@@ -300,9 +327,9 @@ int launch_splitk(const T* x, const T* wc, T* y, float* ws, int m, int k,
 }
 
 template <typename T>
-int launch(const void* xv, const void* wv, void* yv, void* wsv, int m, int k,
-           int n, int c0, int width, int variant, int mt, int col_tiles,
-           int splits, int k_chunk, cudaStream_t stream) {
+int launch(int device, const void* xv, const void* wv, void* yv, void* wsv,
+           int m, int k, int n, int c0, int width, int variant, int mt,
+           int col_tiles, int splits, int k_chunk, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* wc = static_cast<const T*>(wv) + c0;
   T* y = static_cast<T*>(yv);
@@ -320,12 +347,17 @@ int launch(const void* xv, const void* wv, void* yv, void* wsv, int m, int k,
       k_chunk < 1 || splits != max(1, (k + k_chunk - 1) / k_chunk) ||
       (splits > 1 && ws == nullptr) || (variant == kVector && !aligned))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_splitk<T>(x, wc, y, ws, m, k, n, width, variant, mt,
+  return launch_splitk<T>(device, x, wc, y, ws, m, k, n, width, variant, mt,
                           col_tiles, splits, k_chunk, stream);
 }
 
 template <typename T>
-int resident(int variant, int mt, int smem) {
+int resident(int device, int variant, int mt, int smem) {
+  // with the attributes the launches run with (the carveout sets the
+  // shared memory an SM offers)
+  const int set = configure<T>(device, variant, mt);
+  if (set != 0) return set < 0 ? -static_cast<int>(cudaErrorInvalidValue)
+                               : -set;
   int blocks = 0;
   const int found = with_gemv<T>(variant, mt, [&](auto kernel) {
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -352,8 +384,9 @@ extern "C" int split_matmul_resident(int device, int dtype, int variant,
                                      int mt, int smem) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return -static_cast<int>(set);
-  if (dtype == 0) return resident<float>(variant, mt, smem);
-  if (dtype == 1) return resident<__nv_bfloat16>(variant, mt, smem);
+  if (dtype == 0) return resident<float>(device, variant, mt, smem);
+  if (dtype == 1)
+    return resident<__nv_bfloat16>(device, variant, mt, smem);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -366,10 +399,10 @@ extern "C" int split_matmul_launch(int device, int dtype, const void* x,
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, w, y, ws, m, k, n, c0, width, variant, mt,
-                         col_tiles, splits, k_chunk, s);
+    return launch<float>(device, x, w, y, ws, m, k, n, c0, width, variant,
+                         mt, col_tiles, splits, k_chunk, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, y, ws, m, k, n, c0, width, variant,
-                                 mt, col_tiles, splits, k_chunk, s);
+    return launch<__nv_bfloat16>(device, x, w, y, ws, m, k, n, c0, width,
+                                 variant, mt, col_tiles, splits, k_chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

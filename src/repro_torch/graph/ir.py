@@ -10,11 +10,12 @@ The port's copy of `repro.graph.ir`, cut to what execution needs:
     JSON-decodable.  Edges are explicit, so the executor gathers a shared
     split output once and elides the gather where the sole consumer is a
     compatible split node (`Graph.elided`).
+  * `Graph.segments(coexec)` — the reference's segment partition: the
+    topological order cut into maximal fused runs of channel-split nodes
+    and residual adds, and pool/exclusive singletons
+    (`runtime/segments.py` runs each fused run as one program).
   * `fingerprint()` — the reference's content-addressed digest, byte for
     byte: a loaded plan is checked against its provenance with it.
-
-Fused segments are a later slice of the port: a plan's `segments`
-metadata is carried, not executed, so `Graph.segments` is not ported.
 """
 from __future__ import annotations
 
@@ -33,6 +34,12 @@ GRAPH_SCHEMA_VERSION = 2
 
 #: node kinds with no kernel-registry op payload
 STRUCTURAL_KINDS = ("pool", "add")
+
+#: segment kinds: "fused" runs as one program (one CUDA graph on the card),
+#: the others are per-node eager singletons (true dispatch boundaries)
+SEGMENT_FUSED = "fused"
+SEGMENT_POOL = "pool"
+SEGMENT_EXCLUSIVE = "exclusive"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +97,27 @@ class Node:
                         if d.get("op") is not None else None),
                     pool_bytes=int(d.get("bytes", 0)),
                     inputs=tuple(d.get("inputs", ())))
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One contiguous run of a segment partition (see `Graph.segments`):
+    a "fused" run of co-executed nodes and residual adds, or a "pool" or
+    "exclusive" singleton."""
+
+    kind: str                           # fused | pool | exclusive
+    node_ids: Tuple[str, ...]
+
+    def __post_init__(self):
+        if self.kind not in (SEGMENT_FUSED, SEGMENT_POOL,
+                             SEGMENT_EXCLUSIVE):
+            raise ValueError(f"unknown segment kind {self.kind!r}")
+        if not self.node_ids:
+            raise ValueError("a segment needs at least one node")
+        object.__setattr__(self, "node_ids", tuple(self.node_ids))
+
+    def __len__(self) -> int:
+        return len(self.node_ids)
 
 
 class Graph:
@@ -213,7 +241,7 @@ class Graph:
         self._out_shapes[node_id] = shape
         return shape
 
-    # ------------------------------------------------------ gather elision
+    # ------------------------------------------- gather elision, segments
     def _chains_edge(self, producer: Node, consumer: Node) -> bool:
         """Whether the producer->consumer edge can stay group-local: the
         consumer declares exactly the producer's output shape."""
@@ -221,6 +249,60 @@ class Graph:
         if declared is None:
             return consumer.kind == "add"
         return tuple(self.output_shape(producer.id)) == tuple(declared)
+
+    def segments(self, coexec: Collection[str]) -> List[Segment]:
+        """Partition the topological order into executable segments, as
+        the reference does.
+
+        `coexec` names the channel-split nodes.  Fusable nodes (those and
+        residual "add" joins) merge into maximal "fused" runs; every other
+        node is a "pool" or "exclusive" singleton.  A fused run is cut
+        after a node where the per-node walk materializes: fan-out or the
+        graph output, a non-fusable sole consumer, or a sole consumer
+        whose declared input shape differs from the producer's output.
+        A convexity pass then splits any run whose non-final node has a
+        consumer outside it, so each run publishes one value.  The
+        segments cover `self.nodes` exactly, in order."""
+        coexec = frozenset(coexec)
+
+        def fusable(n: Node) -> bool:
+            return n.id in coexec or n.kind == "add"
+
+        runs: List[Tuple[str, List[Node]]] = []
+        cur: List[Node] = []
+        for n in self.nodes:
+            if not fusable(n):
+                if cur:
+                    runs.append((SEGMENT_FUSED, cur))
+                    cur = []
+                kind = SEGMENT_POOL if n.kind == "pool" else SEGMENT_EXCLUSIVE
+                runs.append((kind, [n]))
+                continue
+            cur.append(n)
+            cons = self.consumers(n.id)
+            cut = len(cons) != 1
+            if not cut:
+                nxt = self._by_id[cons[0]]
+                cut = not fusable(nxt) or not self._chains_edge(n, nxt)
+            if cut:
+                runs.append((SEGMENT_FUSED, cur))
+                cur = []
+        if cur:
+            runs.append((SEGMENT_FUSED, cur))
+
+        def convex(run: List[Node]) -> List[List[Node]]:
+            ids = {n.id for n in run}
+            for i, n in enumerate(run[:-1]):
+                if not all(c in ids for c in self.consumers(n.id)):
+                    return convex(run[:i + 1]) + convex(run[i + 1:])
+            return [run]
+
+        out: List[Segment] = []
+        for kind, run in runs:
+            parts = convex(run) if kind == SEGMENT_FUSED else [run]
+            out += [Segment(kind=kind, node_ids=tuple(n.id for n in part))
+                    for part in parts]
+        return out
 
     def elided(self, coexec: Collection[str]) -> FrozenSet[str]:
         """The co-executed nodes whose output stays group-local in the

@@ -12,7 +12,8 @@ machine.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Iterable, Optional
 
 from repro_torch.core.types import Op
 from repro_torch.kernels.registry import op_from_json, op_to_json
@@ -21,6 +22,9 @@ MEASUREMENT_SCHEMA_VERSION = 1
 
 #: record sources
 SOURCE_EXECUTOR = "executor"      # wall-clock timed plan execution
+SOURCE_FUSED = "fused"            # segment-walk execution: per-node wall is
+                                  # the segment wall attributed pro-rata by
+                                  # predicted latency
 
 #: execution modes
 MODE_COEXEC = "coexec"
@@ -65,3 +69,17 @@ class MeasurementRecord:
         if d.get("op") is not None:
             d["op"] = op_from_json(d["op"])
         return MeasurementRecord(**d)
+
+
+def usable_for_fidelity(record: MeasurementRecord) -> bool:
+    """The reference's fidelity filter: a record counts iff its wall and
+    prediction are both positive and it is not a pool unit."""
+    return (record.wall_us > 0.0 and record.pred_us > 0.0
+            and record.unit != "pool")
+
+
+def fidelity_error(records: Iterable[MeasurementRecord]) -> float:
+    """Σ |log(wall/pred)| over usable records (the reference's
+    uncalibrated `repro.measure.calibrate.fidelity_error`)."""
+    return sum(abs(math.log(r.wall_us / r.pred_us)) for r in records
+               if usable_for_fidelity(r))

@@ -36,14 +36,23 @@ carried across from the reference with `load_params`.
 Every node is timed into a `MeasurementRecord`: the walk synchronizes the
 device after each node (one sync point per node plus the terminal one, as
 the reference blocks per node), so `wall_us` is the node's device time
-plus its host overhead.  The fused segment walk is a later slice.
+plus its host overhead.
+
+`run(fused=True)` takes the segment walk instead (`runtime/segments.py`):
+one program per fused segment of the plan's partition, captured once as a
+CUDA graph on the card and replayed per request, with one sync per
+segment; pool, exclusive and typed-axis nodes stay eager singletons.  Its
+outputs are bit-identical to the per-node walk's.  Captured graphs hold
+the weights' addresses, so `load_params` drops them; the next fused run
+captures again.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import platform
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,11 +64,13 @@ from repro_torch.core.coexec import (Group, GroupLocal, SplitPlan,
                                      pack_weights, resolve_device,
                                      split_for_groups)
 from repro_torch.core.networks import pool_out_edge
-from repro_torch.graph.ir import Graph
+from repro_torch.graph.ir import SEGMENT_FUSED, Graph
 from repro_torch.kernels import registry
 from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MODE_EXCLUSIVE, MODE_POOL,
-                                        SOURCE_EXECUTOR, MeasurementRecord)
+                                        SOURCE_EXECUTOR, SOURCE_FUSED,
+                                        MeasurementRecord, fidelity_error,
+                                        usable_for_fidelity)
 from repro_torch.runtime.plan import CoexecPlan, ExecSpec, spec_label
 
 # -------------------------------------------------------------- reporting
@@ -76,7 +87,11 @@ class ExecutionReport:
     timings: List[MeasurementRecord]
     reshard_points: int
     elided: int
+    fused: bool = False          # segment walk (True) vs per-node walk
     sync_points: int = 0         # device syncs issued by the walk
+    #: fused runs: per-segment wall, in partition order (the member
+    #: records' wall_us is this attributed pro rata by pred_us)
+    segment_wall_us: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def wall_us(self) -> float:
@@ -89,18 +104,60 @@ class ExecutionReport:
     def count(self, mode: str) -> int:
         return sum(1 for t in self.timings if t.mode == mode)
 
+    def fidelity_error(self) -> float:
+        """Σ |log(wall/pred)| over the usable records."""
+        return fidelity_error(self.timings)
+
+    def mean_log_ratio(self) -> Optional[float]:
+        """Mean signed log(wall/pred) over the usable records (None when
+        nothing is comparable)."""
+        ratios = [math.log(t.wall_us / t.pred_us) for t in self.timings
+                  if usable_for_fidelity(t)]
+        if not ratios:
+            return None
+        return sum(ratios) / len(ratios)
+
     def fidelity_summary(self) -> str:
         ratio = (f"(x{self.wall_us / self.predicted_us:.2f})"
                  if self.predicted_us > 0.0
                  else "(ratio n/a: no predicted latency)")
+        syncs = (f"{len(self.segment_wall_us)} segments "
+                 f"({self.sync_points} syncs), " if self.fused
+                 else f"{self.sync_points} syncs, ")
         return (f"fidelity: {len(self.timings)} units "
                 f"({self.count(MODE_COEXEC)} co-executed, "
                 f"{self.count(MODE_EXCLUSIVE)} exclusive, "
-                f"{self.count(MODE_POOL)} pool), "
+                f"{self.count(MODE_POOL)} pool), {syncs}"
                 f"{self.reshard_points} reshard points "
-                f"({self.elided} elided), {self.sync_points} syncs, "
+                f"({self.elided} elided), "
                 f"executed {self.wall_us / 1e3:.1f} ms vs predicted "
                 f"{self.predicted_us / 1e3:.1f} ms {ratio}")
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"device": self.device,
+                "network_fingerprint": self.network_fingerprint,
+                "chain": self.chain,
+                "split_capable": self.split_capable,
+                "reshard_points": self.reshard_points,
+                "elided": self.elided,
+                "fused": self.fused,
+                "sync_points": self.sync_points,
+                "segment_wall_us": list(self.segment_wall_us),
+                "wall_us": self.wall_us,
+                "predicted_us": self.predicted_us,
+                "timings": [t.to_json() for t in self.timings]}
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "ExecutionReport":
+        return ExecutionReport(
+            device=d["device"],
+            network_fingerprint=d["network_fingerprint"],
+            chain=d["chain"], split_capable=d["split_capable"],
+            timings=[MeasurementRecord.from_json(t) for t in d["timings"]],
+            reshard_points=d["reshard_points"], elided=d["elided"],
+            fused=d.get("fused", False),
+            sync_points=d.get("sync_points", 0),
+            segment_wall_us=list(d.get("segment_wall_us", [])))
 
 
 # ------------------------------------------------------------- activations
@@ -164,6 +221,7 @@ class PlanExecutor:
         self.split_capable = len(self.groups) == 2
         self.last_report: Optional[ExecutionReport] = None
         self._warmed: set = set()
+        self._programs: Dict[Tuple[int, ...], list] = {}
         self._input_seed = seed + 1
 
         rng = np.random.default_rng(seed)
@@ -178,7 +236,9 @@ class PlanExecutor:
         layouts ((C_in, C_out) linear, HWIO conv weights, the stacked
         (2, S, KV, hd) KV cache of an attention node, the flat
         B/C/dt/a/state0 vector of an ssm node), move it to this executor's
-        device as float32, and re-pack the split weights."""
+        device as float32, and re-pack the split weights.  Captured
+        segment programs read the old weights' addresses, so every one is
+        dropped: the next fused run captures again."""
         if len(arrays) != len(self.specs):
             raise ValueError(f"expected {len(self.specs)} parameters (one "
                              f"per schedule entry), got {len(arrays)}")
@@ -196,6 +256,8 @@ class PlanExecutor:
                 raise ValueError(f"node {spec.node_id}: parameter shape "
                                  f"{arr.shape} != {want}")
             params.append(torch.from_numpy(arr).to(self.device))
+        self._programs = {}
+        self._warmed = {key for key in self._warmed if not key[1]}
         self.params = params
         # pre-split the co-executed weights once: (split, packed) per spec.
         # Channel splits pack the trailing weight dim; typed axes pack
@@ -276,29 +338,60 @@ class PlanExecutor:
         """Unsplit execution through the registry's kernel path."""
         return registry.get_lowering(spec.unit).kernel(x, w, spec.op)
 
-    def _chains(self, act: GroupLocal, spec: ExecSpec) -> bool:
-        """Whether this unit can consume the producer's group-local result
-        directly: only when the declared input shape equals its logical
-        shape exactly (any adaptation is a true boundary)."""
+    def _chains(self, shape: Tuple[int, ...], spec: ExecSpec) -> bool:
+        """Whether this unit can consume a producer's group-local result of
+        logical `shape` directly: only when its declared input shape is
+        exactly that (any adaptation is a true boundary)."""
         op = spec.op
         if spec.unit == "conv":
-            return act.shape == (1, op.H_in, op.W_in, op.C_in)
-        return act.shape == tuple(registry.get(spec.unit).input_shape(op))
+            return shape == (1, op.H_in, op.W_in, op.C_in)
+        return shape == tuple(registry.get(spec.unit).input_shape(op))
+
+    # ------------------------------------------------------------ segments
+    def segment_programs(self, x_shape: Optional[Tuple[int, ...]] = None):
+        """The `SegmentProgram` list for input shape `x_shape` (default:
+        the input template's), memoized per shape; on CUDA each fused
+        program is captured when the list is first built."""
+        if x_shape is None:
+            x_shape = tuple(self.input_template().shape)
+        x_shape = tuple(x_shape)
+        if x_shape not in self._programs:
+            from repro_torch.runtime.segments import compile_segments
+            self._programs[x_shape] = compile_segments(self, x_shape)
+        return self._programs[x_shape]
 
     # ----------------------------------------------------------------- run
-    def run(self, x=None, *, chain: bool = True, warmup: bool = False
-            ) -> Tuple[torch.Tensor, ExecutionReport]:
+    def run(self, x=None, *, chain: bool = True, warmup: bool = False,
+            fused: bool = False) -> Tuple[torch.Tensor, ExecutionReport]:
         """Execute the plan; returns (output, ExecutionReport).
 
         `warmup=True` runs the schedule once untimed first (kernel builds,
-        cuDNN algorithm selection, allocator growth), once per executor
-        and chain flag; only the timed run lands on `last_report`.
+        cuDNN algorithm selection, allocator growth, and for the fused
+        walk the capture of its graphs), once per executor and (chain,
+        fused) pair; only the timed run lands on `last_report`.
         `chain=False` gathers after every co-executed op (no elision).
+
+        `fused=True` takes the segment walk: one program per fused segment
+        of the plan's partition (one CUDA graph replay on the card), one
+        device sync per segment, outputs bit-identical to the per-node
+        walk, which stays the `fused=False` reference.  Without warm-up,
+        the first fused run captures before its first segment is timed.
         """
-        if warmup and chain not in self._warmed:
-            self._execute(x, chain=chain)
-        y, report = self._execute(x, chain=chain)
-        self._warmed.add(chain)
+        if fused and not chain:
+            raise ValueError(
+                "fused=True implies chaining: chain=False is the "
+                "gather-every-op reference walk and has no fused form")
+        key = (chain, fused)
+
+        def step():
+            if fused:
+                return self._execute_fused(x)
+            return self._execute(x, chain=chain)
+
+        if warmup and key not in self._warmed:
+            step()                               # untimed: not published
+        y, report = step()
+        self._warmed.add(key)
         self.last_report = report
         return y, report
 
@@ -354,7 +447,7 @@ class PlanExecutor:
                 # iff we are its SOLE consumer, we split too, and the
                 # shapes chain exactly
                 if (isinstance(prod_act, GroupLocal) and chain and do_split
-                        and self._chains(prod_act, spec)
+                        and self._chains(prod_act.shape, spec)
                         and len(self.graph.consumers(src)) == 1):
                     x_in, x_plan = prod_act, prod_act.split
                     chained = True
@@ -419,6 +512,85 @@ class PlanExecutor:
             reshard_points=reshard, elided=elided,
             sync_points=len(timings) + 1)
         return y, report
+
+    def _execute_fused(self, x=None) -> Tuple[torch.Tensor, ExecutionReport]:
+        """The segment walk: one program (one graph replay on CUDA) and one
+        device sync per fused segment, eager singletons for pool,
+        exclusive and typed-axis nodes.
+
+        The members of a fused segment no longer sync one by one, so each
+        member record carries the segment wall attributed pro rata by
+        predicted latency (equal shares when the segment has none), with
+        `source="fused"` and its segment index: member walls sum to the
+        segment wall."""
+        x0 = self.input_template() if x is None else self._tensor(x)
+        programs = self.segment_programs(tuple(x0.shape))
+        pos = {n.id: i for i, n in enumerate(self.graph)}
+        out_id = self.graph.output.id
+        acts: Dict[Optional[str], torch.Tensor] = {None: x0}
+        timings: List[MeasurementRecord] = []
+        segment_wall: List[float] = []
+        reshard = elided = 0
+        host = platform.node()
+        prov = self.plan.provenance
+
+        for sp in programs:
+            t0 = time.perf_counter()
+            if sp.kind == SEGMENT_FUSED:
+                out = sp([acts[s] for s in sp.ext_inputs])
+                if sp.graph is not None and sp.node_ids[-1] == out_id:
+                    # the graph's static output: the next request's
+                    # replay would overwrite what this one returns
+                    out = out.clone()
+            else:
+                nid = sp.node_ids[0]
+                spec = self.specs[pos[nid]]
+                src_val = acts[sp.ext_inputs[0]]
+                if sp.modes[nid] == MODE_POOL:
+                    out = self._pool(src_val, spec.pool_bytes)
+                elif sp.modes[nid] == MODE_COEXEC:
+                    # a typed-axis split, gathered (or merged) by its own
+                    # lowering
+                    split, packed = self._splits[pos[nid]]
+                    low = registry.get_split_lowering(spec.unit, spec.axis)
+                    out = low.run(self._adapt(src_val, spec), packed, split,
+                                  self.groups, spec.op, spec.c_fast,
+                                  gather=True, x_plan=None)
+                else:
+                    out = self._dense(self._adapt(src_val, spec),
+                                      self.params[pos[nid]], spec)
+            self._sync()
+            wall = (time.perf_counter() - t0) * 1e6
+            segment_wall.append(wall)
+            reshard += sp.gathers
+            elided += sp.elided
+            # convexity: only a segment's last node is consumed downstream
+            acts[sp.node_ids[-1]] = out
+            preds = [self.specs[pos[n]].pred_total_us for n in sp.node_ids]
+            total = sum(preds)
+            for nid, pred in zip(sp.node_ids, preds):
+                spec = self.specs[pos[nid]]
+                share = (wall * pred / total if total > 0.0
+                         else wall / len(preds))
+                timings.append(MeasurementRecord(
+                    index=pos[nid], unit=spec.unit, label=spec_label(spec),
+                    mode=sp.modes[nid], c_fast=spec.c_fast,
+                    c_slow=spec.c_slow, chained_input=sp.chained[nid],
+                    gathered_output=sp.gathered[nid], wall_us=share,
+                    pred_us=spec.pred_total_us, op=spec.op,
+                    source=SOURCE_FUSED, device=prov.device,
+                    backend=str(self.device), host=host,
+                    plan_key=self.plan.key,
+                    network_fingerprint=prov.network_fingerprint,
+                    node_id=nid, segment=sp.index))
+
+        report = ExecutionReport(
+            device=prov.device,
+            network_fingerprint=prov.network_fingerprint,
+            chain=True, split_capable=self.split_capable, timings=timings,
+            reshard_points=reshard, elided=elided, fused=True,
+            sync_points=len(programs), segment_wall_us=segment_wall)
+        return acts[out_id], report
 
     def run_oracle(self, x=None) -> torch.Tensor:
         """The unsplit reference: every node through its plain oracle, with

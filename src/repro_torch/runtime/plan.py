@@ -13,8 +13,9 @@ Planning-only content travels as opaque metadata:
   * a decision's `tile` key is a TPU blocking choice for the Pallas kernel
     it was tuned for; it is kept on the decision and the spec, and never
     applied to the port's kernels;
-  * embedded `segments` metadata is carried through `to_json`, not
-    executed: the port's executor walks nodes one at a time.
+  * embedded `segments` metadata is carried through `to_json`; the
+    fused walk executes it (`segment_partition`), re-deriving it from the
+    graph where it does not cover the schedule.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 
 from repro_torch.core.networks import Unit
 from repro_torch.core.types import Op
-from repro_torch.graph.ir import Graph, from_units
+from repro_torch.graph.ir import Graph, Segment, from_units
 from repro_torch.kernels.registry import (op_from_json, op_kind, op_label,
                                           validate_axis_split)
 
@@ -255,16 +256,30 @@ class CoexecPlan:
                 ids.append(nid)
         return frozenset(ids)
 
-    def _segment_of(self) -> Dict[str, int]:
-        # the embedded partition, used for record metadata only (and only
-        # when it covers the schedule exactly, as the reference checks)
-        if self.segments is None:
-            return {}
-        covered = [nid for s in self.segments for nid in s["nodes"]]
-        if covered != self.node_ids():
-            return {}
-        return {nid: k for k, s in enumerate(self.segments)
-                for nid in s["nodes"]}
+    def segment_partition(self) -> List[Segment]:
+        """The segment partition of this plan's schedule: the embedded
+        `segments` metadata where it covers the schedule exactly, else
+        `graph_ir().segments(coexec_node_ids())` (the planners embed
+        exactly that, so the two agree)."""
+        cached = getattr(self, "_segment_partition", None)
+        if cached is not None:
+            return cached
+        parts: Optional[List[Segment]] = None
+        if self.segments is not None:
+            parts = [Segment(kind=e["kind"], node_ids=tuple(e["nodes"]))
+                     for e in self.segments]
+            covered = [nid for s in parts for nid in s.node_ids]
+            if covered != self.node_ids():      # stale metadata: re-derive
+                parts = None
+        if parts is None:
+            parts = self.graph_ir().segments(self.coexec_node_ids())
+        self._segment_partition = parts
+        return parts
+
+    def segment_of(self) -> Dict[str, int]:
+        """node id -> segment-partition index."""
+        return {nid: k for k, seg in enumerate(self.segment_partition())
+                for nid in seg.node_ids}
 
     def exec_specs(self) -> List[ExecSpec]:
         """The schedule lowered to executable specs, in topological order
@@ -285,7 +300,7 @@ class CoexecPlan:
                                     pred_total_us=float(e.get("pred_us",
                                                               0.0)),
                                     axis="none", node_id=nid))
-        seg_of = self._segment_of()
+        seg_of = self.segment_of()
         return [dataclasses.replace(s, segment=seg_of.get(s.node_id, -1))
                 for s in out]
 
