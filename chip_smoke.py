@@ -25,15 +25,20 @@ the port cannot be imported, and otherwise runs, in order:
    decode and chunk kernels are both timed at T = 1 and T =
    `DECODE_T_MAX`, beside the time `time_ms` gives an empty kernel (the
    floor of any launch);
-4. two main paths, each loaded through `repro_torch.CompiledNetwork` from
-   a committed artifact and run on two CUDA-stream groups for a few seeded
-   inputs ("requests"), each output held against `run_oracle` on the card,
-   with every kernel's launch counter set to 0 just before the path and
-   read just after:
+4. five main paths (`PATHS`), each loaded through
+   `repro_torch.CompiledNetwork` from a committed artifact (strict load:
+   the port's static verifier runs first) and run on two CUDA-stream
+   groups for a few seeded inputs ("requests"), each output held against
+   `run_oracle` on the card, with every kernel's launch counter set to 0
+   just before the path and read just after:
    - VGG16 at 224x224x3 (`split_matmul`, `hadamard_matmul`);
    - a zamba2-7b decode step, 9 blocks, 4096-position KV cache
      (`split_matmul`, `decode_attention` on both sides of a kv-block split,
      `ssd_chunk_scan`);
+   - resnet18 and resnet34 at 224x224x3 (`split_matmul`; direct convs on
+     two streams, projection shortcuts through `_adapt`);
+   - inception_v3 at 299x299x3 (`split_matmul`, `hadamard_matmul` on both
+     sides of its one Winograd node; 68 fused segments);
 5. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
 6. the fused segment walk of each path (`run(fused=True)`): every fused
@@ -46,7 +51,12 @@ the port cannot be imported, and otherwise runs, in order:
    (per-node, fused, per-node, fused, ...); two fused requests under
    torch.profiler, with each kernel's launches in the trace beside its
    credited counter and the graph launches the trace shows;
-7. a JSON line of per-kernel numbers, then the result line.
+7. a bfloat16 run of VGG16 and the zamba2-7b step (`BF16_PATHS`):
+   `executor(dtype="bfloat16")`, per-node and fused, `BF16_REQUESTS`
+   requests each, held against the float32 `run_oracle` at `BF16_RTOL`
+   of its largest |value|, with the same launch counts;
+8. a JSON line of per-kernel numbers, then the result line.  Each phase
+   prints its seconds.
 """
 from __future__ import annotations
 
@@ -61,9 +71,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-ARTIFACT = ROOT / "src/repro_torch/artifacts/vgg16_moto2022.coexec.json"
-ZAMBA_ARTIFACT = (ROOT / "src/repro_torch/artifacts/"
-                  "zamba2-7b_b9_s4096_moto2022_t1.coexec.json")
+ARTIFACTS = ROOT / "src/repro_torch/artifacts"
+ARTIFACT = ARTIFACTS / "vgg16_moto2022.coexec.json"
+ZAMBA_ARTIFACT = ARTIFACTS / "zamba2-7b_b9_s4096_moto2022_t1.coexec.json"
 
 #: published dense peaks (NVIDIA data sheets): memory bytes/s and
 #: operations/s by input type; fp32 runs outside the tensor cores (TF32 off)
@@ -81,22 +91,32 @@ KERNEL_RTOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
 #: fault gives wrong answers only now and then)
 REQUESTS = 4
 
+VGG, ZAMBA = "vgg16", "zamba2-7b"
+R18, R34, INC = "resnet18", "resnet34", "inception_v3"
+
 #: end-to-end tolerance against run_oracle, relative to the largest |oracle|
 #: value.  VGG16: Winograd reassociates every eligible conv's fp32 sums and
 #: the split/unsplit kernels sum in other orders, across 16 layers and 5
 #: pools.  zamba2-7b: split/unsplit fp32 GEMV sums (K up to 14336), the
 #: chunked SSD form against the step-by-step scan, and the kv-block
-#: log-sum-exp merge, through 9 residual blocks.
-E2E_RTOL = {"vgg16": 2e-3, "zamba2-7b": 1e-4}
+#: log-sum-exp merge, through 9 residual blocks.  The resnets and
+#: inception_v3: the same fp32 reorderings (split and unsplit direct convs,
+#: inception's one Winograd node), held to the VGG16 bound.
+E2E_RTOL = {VGG: 2e-3, ZAMBA: 1e-4, R18: 2e-3, R34: 2e-3, INC: 2e-3}
 
 #: per-node/fused request pairs of the alternating wall measurement
 WALL_PAIRS = 8
 
+#: the bfloat16 phase: its paths, requests per walk, and its tolerance
+#: against the float32 run_oracle relative to the largest |oracle| value
+#: (the reference's own bf16 end-to-end tolerance)
+BF16_PATHS = (VGG, ZAMBA)
+BF16_REQUESTS = 2
+BF16_RTOL = 5e-2
+
 #: every kernel of the port, by its launch counter's name
 KERNEL_NAMES = ("split_matmul", "hadamard_matmul", "decode_attention",
                 "ssd_chunk_scan")
-
-VGG, ZAMBA = "vgg16", "zamba2-7b"
 
 #: (label, M, K, N, c0, width, launches per request by main path).  A
 #: co-executed linear launches once per group on its (K, c_pad) panel of
@@ -115,6 +135,8 @@ SPLIT_CASES = [
     ("mlp_up slow", 1, 3584, 9200, 0, 9200, {ZAMBA: 1}),
     ("mlp_down fast", 1, 14336, 2296, 0, 1288, {ZAMBA: 1}),
     ("mlp_down slow", 1, 14336, 2296, 0, 2296, {ZAMBA: 1}),
+    ("resnet fc", 1, 512, 1000, 0, 1000, {R18: 1, R34: 1}),
+    ("inception fc", 1, 2048, 1000, 0, 1000, {INC: 1}),
     ("n18 fast, full W", 1, 25088, 4096, 0, 728, {}),
     ("n18 slow, full W", 1, 25088, 4096, 728, 3368, {}),
     ("scalar c0=3 M=4", 4, 4096, 1000, 3, 997, {}),
@@ -129,6 +151,8 @@ HADAMARD_CASES = [
     ("n6 fast", 28 * 28, 128, 192, {VGG: 1}),
     ("n6 slow", 28 * 28, 128, 64, {VGG: 1}),
     ("n7/n8", 28 * 28, 256, 256, {VGG: 2}),
+    ("inception n5 fast", 37 * 37, 80, 160, {INC: 1}),
+    ("inception n5 slow", 37 * 37, 80, 32, {INC: 1}),
     ("ragged", 37, 40, 136, {}),
     ("ragged P=1", 1, 32, 200, {}),
 ]
@@ -502,8 +526,9 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
     """One main path: the artifact on two CUDA-stream groups, `requests`
     seeded inputs, each held against run_oracle, launch counts checked per
     request against the artifact; returns the launch counts (counters set
-    to 0 just before the path, read just after), the executor, the
-    expected counts and each request's (input, output, oracle)."""
+    to 0 just before the path, read just after), the compiled network, its
+    float32 executor, the expected counts and each request's (input,
+    output, oracle)."""
     import repro_torch
 
     t0 = time.perf_counter()
@@ -575,7 +600,7 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
     print(f"{name}: median request wall {statistics.median(walls):.3f} ms "
           f"over {requests} requests (min {walls[0]:.3f}, max "
           f"{walls[-1]:.3f})", flush=True)
-    return counts, exe, want, refs
+    return counts, compiled, exe, want, refs
 
 
 def fused_path(name: str, exe, want: dict, refs: list) -> dict:
@@ -684,9 +709,73 @@ def alternating_walls(name: str, exe, x, pairs: int) -> None:
           f"(min {fused[0]:.3f}, max {fused[-1]:.3f})", flush=True)
 
 
-def vgg16_input(r: int) -> np.ndarray:
-    return np.random.default_rng(100 + r).standard_normal(
-        (1, 224, 224, 3)).astype(np.float32)
+def bf16_path(name: str, compiled, want: dict, refs: list) -> dict:
+    """The path in bfloat16 (`executor(dtype="bfloat16")`): the first
+    `BF16_REQUESTS` requests of the float32 path, per-node then fused, each
+    output a finite bf16 tensor within `BF16_RTOL` of the float32
+    run_oracle, the fused outputs `torch.equal` to the per-node ones, with
+    the float32 path's launch counts; returns the launch counts per walk
+    (counters set to 0 just before each walk's requests, read just
+    after)."""
+    t = time.perf_counter()
+    exe = compiled.executor(device="cuda", dtype="bfloat16")
+    x0 = refs[0][0]
+    exe.run(x0, warmup=True)                   # bf16 builds, cuDNN choice
+    exe.run(x0, fused=True, warmup=True)       # bf16 captures
+    print(f"{name} bf16: weights and graphs in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    counters = kernel_counters()
+    counts, per_node = {}, []
+    for fused in (False, True):
+        walk = f"{name} bf16{' fused' if fused else ''}"
+        for fn in counters.values():
+            fn.launches = 0
+        for r, (x, _, oracle) in enumerate(refs[:BF16_REQUESTS]):
+            before = {k: fn.launches for k, fn in counters.items()}
+            y, rep = exe.run(x, fused=fused)
+            torch.cuda.synchronize()
+            launched = {k: fn.launches - before[k]
+                        for k, fn in counters.items()}
+            if (y.dtype != torch.bfloat16 or y.shape != oracle.shape
+                    or not bool(torch.isfinite(y).all())):
+                raise AssertionError(f"{walk} request {r}: output "
+                                     f"{tuple(y.shape)} {y.dtype} is not a "
+                                     f"finite bf16 {tuple(oracle.shape)}")
+            err = float((y.float() - oracle).abs().max())
+            scale = max(1.0, float(oracle.abs().max()))
+            if not err <= BF16_RTOL * scale:
+                raise AssertionError(f"{walk} request {r}: max |run - fp32 "
+                                     f"run_oracle| = {err:.3e} > "
+                                     f"{BF16_RTOL} x {scale:.3g}")
+            if fused and not torch.equal(y, per_node[r]):
+                raise AssertionError(f"{walk} request {r}: output differs "
+                                     f"from the bf16 per-node walk's")
+            if not fused:
+                per_node.append(y.clone())
+            for k in KERNEL_NAMES:
+                if launched[k] != want[k]:
+                    raise AssertionError(f"{walk} request {r}: "
+                                         f"{launched[k]} {k} launches, "
+                                         f"want {want[k]}")
+            shown = " ".join(f"{k} {launched[k]}" for k in KERNEL_NAMES
+                             if want[k])
+            print(f"{walk} request {r}: max_abs_err vs the fp32 oracle "
+                  f"{err:.3e} (scale {scale:.3g}, {err / scale:.2e} of it)"
+                  f"{'; bit-identical to the per-node walk' if fused else ''}"
+                  f"; launches {shown}; syncs {rep.sync_points}", flush=True)
+        counts[walk] = {k: fn.launches for k, fn in counters.items()}
+    return counts
+
+
+def image_input(size: int):
+    """Seeded (1, size, size, 3) requests of a CNN path."""
+    def make(r: int) -> np.ndarray:
+        return np.random.default_rng(100 + r).standard_normal(
+            (1, size, size, 3)).astype(np.float32)
+    return make
+
+
+vgg16_input = image_input(224)
 
 
 def zamba_input(r: int) -> np.ndarray:
@@ -776,6 +865,32 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
                   f"{k} launches the counter holds", flush=True)
 
 
+#: the main paths: (name, committed artifact, request maker, output shape)
+PATHS = [
+    (VGG, ARTIFACT, vgg16_input, (1, 1000)),
+    (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584)),
+    (R18, ARTIFACTS / "resnet18_moto2022.coexec.json", image_input(224),
+     (1, 1000)),
+    (R34, ARTIFACTS / "resnet34_moto2022.coexec.json", image_input(224),
+     (1, 1000)),
+    (INC, ARTIFACTS / "inception_v3_moto2022.coexec.json", image_input(299),
+     (1, 1000)),
+]
+
+
+class Phases:
+    """Seconds of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f} s (total "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.t = now
+
+
 SOURCES = {
     "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
                      "src/repro/kernels/split_matmul/split_matmul.py:44"),
@@ -796,6 +911,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
+    phases = Phases()
     print(nvidia_smi_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -810,38 +926,61 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    phases.done("build")
 
     peaks = card_peaks()
-    results = {"split_matmul": split_matmul_phase(peaks),
-               "hadamard_matmul": hadamard_phase(peaks),
-               "decode_attention": decode_attention_phase(peaks),
-               "ssd_chunk_scan": ssd_phase(peaks)}
+    results = {}
+    for name, phase in (("split_matmul", split_matmul_phase),
+                        ("hadamard_matmul", hadamard_phase),
+                        ("decode_attention", decode_attention_phase),
+                        ("ssd_chunk_scan", ssd_phase)):
+        results[name] = phase(peaks)
+        phases.done(f"kernel {name}")
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
-    launches, fused_launches = {}, {}
-    for name, artifact, make_input, out_shape in (
-            (VGG, ARTIFACT, vgg16_input, (1, 1000)),
-            (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584))):
-        counts, exe, want, refs = main_path(name, artifact, make_input,
-                                            out_shape, REQUESTS)
-        launches[name] = counts
+    # launch counts per walk: "<path>", "<path> fused", "<path> bf16", ...
+    walks = {}
+    for name, artifact, make_input, out_shape in PATHS:
+        counts, compiled, exe, want, refs = main_path(
+            name, artifact, make_input, out_shape, REQUESTS)
+        walks[name] = counts
         device_breakdown(name, exe, make_input(REQUESTS))
-        fused_launches[name] = fused_path(name, exe, want, refs)
+        phases.done(f"{name} per-node")
+        walks[f"{name} fused"] = fused_path(name, exe, want, refs)
         alternating_walls(name, exe, make_input(REQUESTS), WALL_PAIRS)
         device_breakdown(name, exe, make_input(REQUESTS), fused=True)
-        del exe, refs
+        phases.done(f"{name} fused")
+        if name in BF16_PATHS:
+            walks.update(bf16_path(name, compiled, want, refs))
+            phases.done(f"{name} bf16")
+        del compiled, exe, refs
         torch.cuda.empty_cache()
     for k in KERNEL_NAMES:
-        for walk in (launches, fused_launches):
-            if sum(c[k] for c in walk.values()) == 0:
-                raise AssertionError(f"{k} was not launched on a main path")
+        for suffix in ("", " fused"):
+            if sum(walks[f"{p[0]}{suffix}"][k] for p in PATHS) == 0:
+                raise AssertionError(f"{k} was not launched on a main "
+                                     f"path's{suffix or ' per-node'} walk")
+
+    def by_path(name: str, t: Tally) -> dict:
+        """Each walk's launches of kernel `name`, with the float32 times
+        of one request where the walk is a float32 one."""
+        out = {}
+        for walk, counts in walks.items():
+            path = walk.split(" ")[0]
+            if not counts[name] and path not in t.by_path:
+                continue
+            out[walk] = {"launches": counts[name]}
+            if "bf16" not in walk and path in t.by_path:
+                out[walk].update(
+                    {k: (None if k == "library_ms" and not t.library else v)
+                     for k, v in t.by_path[path].items()})
+        return out
 
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
-        "launches": sum(c[name] for walk in (launches, fused_launches)
-                        for c in walk.values()),
+        "launches": sum(c[name] for c in walks.values()),
         "max_abs_err": t.max_abs_err,
         "max_abs_err_bf16": t.max_abs_err_bf16,
         "ms": t.total("ms"), "plain_ms": t.total("plain_ms"),
@@ -849,17 +988,13 @@ def main() -> int:
         "bound_by": ("bytes" if t.total("t_bytes") >= t.total("t_ops")
                      else "operations"),
         "library_ms": t.total("library_ms"),
-        "per": (f"launches: the {REQUESTS} requests of each main path, "
-                f"per-node and fused walks; times: one request of each "
-                f"main path, float32"),
-        "by_path": {f"{path}{walk}": {"launches": counts[path][name],
-                                      **{k: (None if k == "library_ms"
-                                             and not t.library else v)
-                                         for k, v in agg.items()}}
-                    for walk, counts in (("", launches),
-                                         (" fused", fused_launches))
-                    for path, agg in t.by_path.items()}}
+        "per": (f"launches: the {REQUESTS} requests of each main path's "
+                f"per-node and fused walks and the {BF16_REQUESTS} of each "
+                f"bf16 walk; times: one request of each main path, "
+                f"float32"),
+        "by_path": by_path(name, t)}
         for name, t in results.items()]}
+    phases.done("paths")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,6 +66,16 @@ class SplitPlan:
         return self.c_fast if group == 0 else self.c_slow
 
 
+def throughput_split(c_out: int, fast_share: float,
+                     align: int = 8) -> SplitPlan:
+    """Balance channels proportionally to group throughputs (the closed-form
+    optimum of the paper's objective for linear cost models): the fast
+    group's share rounded to the alignment, clamped to 0..c_out."""
+    c_fast = int(round(c_out * fast_share / align)) * align
+    c_fast = min(max(c_fast, 0), c_out)
+    return SplitPlan(c_out=c_out, c_fast=c_fast, align=align)
+
+
 def split_for_groups(c_out: int, c_fast: int, groups: Sequence["Group"],
                      align: int = 8) -> SplitPlan:
     """A partitioner decision (c_gpu channels on the fast group) lowered

@@ -17,9 +17,11 @@ needs.  It maps an op kind to
     ssm-state), the split validation plans are decoded through, and the
     **split lowerings** that co-execute a node along such an axis.
 
-Planning-only parts of the reference registry (predictor features, TPU
-tile specs and the tile search) are not ported: a decision's TPU `tile`
-travels through the port as opaque plan metadata.
+It also holds the reference's TPU tile table (`TileSpec` per kind,
+`resolve_tile`, the tile JSON codec) as data: a decision's `tile` is the
+TPU blocking the plan was tuned for, which the static verifier
+(`repro_torch.analysis`) checks and no Hopper kernel applies.  Predictor
+features and the tile search stay with the planning half.
 """
 from __future__ import annotations
 
@@ -220,6 +222,328 @@ def validate_axis_split(op: Op, axis: str, n_fast: int) -> AxisSpec:
     return spec
 
 
+# ---------------------------------------------------------- tile configs
+#
+# The reference's TPU tile table, as data.  A plan decision's `tile` key
+# is a Pallas blocking choice (VMEM-budgeted, sublane/lane aligned); it is
+# the TPU contract every plan document carries, and the static verifier
+# checks it here (`tile.legality`).  No Hopper kernel reads this table.
+
+#: fp32 minimum (sublane, lane) tile — tile params aligned below these
+#: cannot be laid out by Mosaic (see the Pallas TPU tiling rules)
+TILE_SUBLANE = 8
+TILE_LANE = 128
+
+#: per-core VMEM budget a candidate's working set must fit in (bytes)
+TILE_VMEM_BUDGET = 16 * 1024 * 1024
+
+#: version of the Pallas kernels' blocking logic; the reference folds it
+#: into its tune-cache digests, so cached tiles die when the kernels change
+KERNEL_TILE_VERSION = 1
+
+
+def _round_up(v: int, mult: int) -> int:
+    return -(-v // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """One concrete blocking choice for a kind's Pallas kernel.
+
+    ``values`` is an ordered tuple of ``(param, value)`` pairs in the
+    kind's TileSpec order (frozen and hashable).
+    """
+
+    kind: str
+    values: Tuple[Tuple[str, int], ...]
+
+    def get(self, name: str) -> int:
+        for k, v in self.values:
+            if k == name:
+                return v
+        raise KeyError(f"tile config for {self.kind!r} has no {name!r}")
+
+    def as_dict(self) -> Dict[str, int]:
+        return dict(self.values)
+
+    def label(self) -> str:
+        return "/".join(f"{k}{v}" for k, v in self.values)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileParam:
+    """One tunable blocking parameter of a kind's kernel.
+
+    ``extent`` names the key in :func:`tile_extents` the param blocks
+    over; ``align`` is the legal multiple (sublane/lane tile).  A
+    ``reduction`` param changes the accumulation grouping when varied, so
+    it is pinned to its default under numerics-preserving search.  A
+    ``divides`` param must divide its (clamped) extent exactly.
+    """
+
+    name: str
+    extent: str
+    align: int
+    default: int
+    candidates: Tuple[int, ...]
+    reduction: bool = False
+    divides: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSpec:
+    """The legal tile-config space of one op kind.
+
+    This is the *validator* the reference's Pallas kernels defer to:
+    `clamp_tile` clamps oversize tiles to the padded problem extents;
+    `validate_tile` rejects misaligned / oversize / over-budget configs
+    with ValueError.
+    """
+
+    kind: str
+    params: Tuple[TileParam, ...]
+    #: approximate per-grid-step VMEM working set (bytes) of a config
+    vmem_bytes: Callable[[Dict[str, int], Dict[str, int]], int]
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(p.name for p in self.params)
+
+    def param(self, name: str) -> TileParam:
+        for p in self.params:
+            if p.name == name:
+                return p
+        raise KeyError(f"kind {self.kind!r} has no tile param {name!r}")
+
+    def config(self, **values: int) -> TileConfig:
+        """Build a TileConfig in spec order; unknown names raise, missing
+        params take their (unclamped) declared defaults."""
+        unknown = set(values) - set(self.names())
+        if unknown:
+            raise ValueError(f"unknown tile param(s) {sorted(unknown)} "
+                             f"for kind {self.kind!r}; "
+                             f"legal: {list(self.names())}")
+        return TileConfig(self.kind, tuple(
+            (p.name, int(values.get(p.name, p.default)))
+            for p in self.params))
+
+    def default_config(self, op: Op = None) -> TileConfig:
+        """The hardcoded-default config; clamped to ``op``'s extents when
+        an op is given."""
+        cfg = self.config()
+        return cfg if op is None else self.clamp_tile(cfg, tile_extents(op))
+
+    def clamp_tile(self, tile: TileConfig,
+                   extents: Dict[str, int]) -> TileConfig:
+        """Clamp oversize params down to the padded problem extent, then
+        validate."""
+        clamped = {}
+        for name, v in tile.values:
+            p = self.param(name)
+            lim = _round_up(max(1, extents[p.extent]), p.align)
+            clamped[name] = min(int(v), lim)
+        cfg = self.config(**clamped)
+        self.validate_tile(cfg, extents)
+        return cfg
+
+    def validate_tile(self, tile: TileConfig,
+                      extents: Dict[str, int] = None) -> TileConfig:
+        """Strict legality check — raises ValueError instead of rewriting.
+
+        Checks: positive, aligned to the min tile, under the VMEM budget,
+        and (when extents are given) not exceeding the padded extent plus
+        any divides-extent constraint.
+        """
+        if tile.kind != self.kind:
+            raise ValueError(f"tile config kind {tile.kind!r} does not "
+                             f"match spec kind {self.kind!r}")
+        vals = tile.as_dict()
+        if set(vals) != set(self.names()):
+            raise ValueError(
+                f"tile config params {sorted(vals)} != spec params "
+                f"{sorted(self.names())} for kind {self.kind!r}")
+        for p in self.params:
+            v = vals[p.name]
+            if v <= 0:
+                raise ValueError(f"{self.kind} tile {p.name}={v} must be "
+                                 f"positive")
+            if v % p.align:
+                raise ValueError(
+                    f"{self.kind} tile {p.name}={v} breaks the minimum "
+                    f"tile: must be a multiple of {p.align}")
+            if extents is not None:
+                lim = _round_up(max(1, extents[p.extent]), p.align)
+                if v > lim:
+                    raise ValueError(
+                        f"{self.kind} tile {p.name}={v} exceeds the padded "
+                        f"{p.extent} extent {lim}; clamp via "
+                        f"TileSpec.clamp_tile instead of relying on the "
+                        f"kernel to rewrite it")
+                if p.divides and extents[p.extent] % v:
+                    raise ValueError(
+                        f"{self.kind} tile {p.name}={v} must divide "
+                        f"{p.extent}={extents[p.extent]}")
+        if extents is not None:
+            budget = self.vmem_bytes(vals, extents)
+            if budget > TILE_VMEM_BUDGET:
+                raise ValueError(
+                    f"{self.kind} tile {tile.label()} working set "
+                    f"{budget} B exceeds the VMEM budget "
+                    f"{TILE_VMEM_BUDGET} B")
+        return tile
+
+    def configs(self, op: Op, *,
+                preserve_numerics: bool = True) -> List[TileConfig]:
+        """The legal, deduplicated candidate grid for ``op``.
+
+        With ``preserve_numerics`` (the default, and the only mode the
+        reference's autotuner selects from unless told otherwise) every
+        reduction-axis param is pinned to its default-resolved value, so
+        each candidate computes bit-identical fp32 results to the default
+        config — varying only how the *output* space is tiled.  With
+        ``preserve_numerics=False`` the reduction params are searched too;
+        those candidates are tolerance-exact, not bit-identical.
+        """
+        extents = tile_extents(op)
+        default = self.default_config(op)
+        grids: List[List[int]] = []
+        for p in self.params:
+            if p.reduction and preserve_numerics:
+                grids.append([default.get(p.name)])
+            else:
+                grids.append(sorted(set(p.candidates) | {p.default}))
+        out: List[TileConfig] = []
+        seen = set()
+        for combo in _product(grids):
+            try:
+                cfg = self.clamp_tile(
+                    self.config(**dict(zip(self.names(), combo))), extents)
+            except ValueError:
+                continue
+            if cfg not in seen:
+                seen.add(cfg)
+                out.append(cfg)
+        if default not in seen:                  # pragma: no cover - safety
+            out.insert(0, default)
+        return out
+
+
+def _product(grids: List[List[int]]) -> List[Tuple[int, ...]]:
+    combos: List[Tuple[int, ...]] = [()]
+    for grid in grids:
+        combos = [c + (v,) for c in combos for v in grid]
+    return combos
+
+
+def _linear_vmem(v: Dict[str, int], extents: Dict[str, int]) -> int:
+    # x block + w block + fp32 acc scratch + out block
+    return 4 * (v["bm"] * v["bk"] + v["bk"] * v["bn"] + 2 * v["bm"] * v["bn"])
+
+
+def _conv_vmem(v: Dict[str, int], extents: Dict[str, int]) -> int:
+    # 16 Winograd points share the (bm, bn) tile: u + w + acc + out per point
+    return 16 * 4 * (v["bm"] * v["bk"] + v["bk"] * v["bn"] +
+                     2 * v["bm"] * v["bn"])
+
+
+def _attn_vmem(v: Dict[str, int], extents: Dict[str, int]) -> int:
+    # k + v cache blocks dominate; heads/hd are bounded small
+    return 2 * 4 * v["bs"] * TILE_LANE
+
+
+def _ssm_vmem(v: Dict[str, int], extents: Dict[str, int]) -> int:
+    # decay matrix (L, L) + chunk-local b/c/x blocks
+    return 4 * (v["chunk"] * v["chunk"] + 4 * v["chunk"] * TILE_LANE)
+
+
+_TILE_SPECS: Dict[str, TileSpec] = {
+    "linear": TileSpec(
+        kind="linear",
+        params=(
+            TileParam("bm", "m", TILE_SUBLANE, 128, (8, 64, 128, 256)),
+            TileParam("bn", "n", TILE_LANE, 128, (128, 256, 512)),
+            TileParam("bk", "k", TILE_LANE, 512, (128, 256, 512, 1024),
+                      reduction=True),
+        ),
+        vmem_bytes=_linear_vmem,
+    ),
+    "conv": TileSpec(
+        kind="conv",
+        params=(
+            TileParam("bm", "m", TILE_SUBLANE, 128, (8, 64, 128, 256)),
+            TileParam("bn", "n", TILE_LANE, 128, (128, 256)),
+            TileParam("bk", "k", TILE_LANE, 256, (128, 256, 512),
+                      reduction=True),
+        ),
+        vmem_bytes=_conv_vmem,
+    ),
+    "attention": TileSpec(
+        kind="attention",
+        params=(
+            TileParam("bs", "s", TILE_LANE, 512, (128, 256, 512, 1024, 2048),
+                      reduction=True),
+        ),
+        vmem_bytes=_attn_vmem,
+    ),
+    "ssm": TileSpec(
+        kind="ssm",
+        params=(
+            TileParam("chunk", "t", 1, 256, (64, 128, 256, 512),
+                      reduction=True, divides=True),
+        ),
+        vmem_bytes=_ssm_vmem,
+    ),
+}
+
+
+def tile_spec(kind: str) -> TileSpec:
+    get(kind)                                    # raise on unknown kinds
+    return _TILE_SPECS[kind]
+
+
+def tile_extents(op: Op) -> Dict[str, int]:
+    """The problem extents each tile param blocks over, from the op's
+    declared shapes (batch-1; runtime extents can only be larger)."""
+    kind = op_kind(op)
+    if kind == "linear":
+        return {"m": op.L, "n": op.C_out, "k": op.C_in}
+    if kind == "conv":
+        th = -(-op.H_out // 2)
+        tw = -(-op.W_out // 2)
+        return {"m": th * tw, "n": op.C_out, "k": op.C_in}
+    if kind == "attention":
+        return {"s": op.S}
+    return {"t": op.T}
+
+
+def default_tile(op: Op) -> TileConfig:
+    """The default-resolved (clamped) config — what an untuned plan runs."""
+    return tile_spec(op_kind(op)).default_config(op)
+
+
+def resolve_tile(op: Op, tile: TileConfig = None) -> TileConfig:
+    """The config the reference's Pallas kernel runs: the clamped default
+    when ``tile`` is None, else ``tile`` strictly validated against the
+    op's declared extents."""
+    spec = tile_spec(op_kind(op))
+    if tile is None:
+        return spec.default_config(op)
+    return spec.validate_tile(tile, tile_extents(op))
+
+
+def tile_to_json(tile: TileConfig) -> Dict[str, int]:
+    """JSON codec of a tile config — plain param->value mapping; the kind
+    is implied by the enclosing decision's op."""
+    return {k: v for k, v in tile.values}
+
+
+def tile_from_json(kind: str, d: Dict[str, int]) -> TileConfig:
+    spec = tile_spec(kind)
+    if set(d) != set(spec.names()):
+        raise ValueError(f"tile JSON params {sorted(d)} != spec params "
+                         f"{sorted(spec.names())} for kind {kind!r}")
+    return spec.config(**{k: int(v) for k, v in d.items()})
+
+
 # ------------------------------------------------------- shape contracts
 
 def _ssm_param_count(op: SSMOp) -> int:
@@ -260,6 +584,16 @@ class KernelEntry:
     input_shape: Callable[[Op], Tuple[int, ...]]
     weight_shape: Callable[[Op], Tuple[int, ...]]
     output_shape: Callable[[Op], Tuple[int, ...]]
+    #: whether a plan may split the op's output channels across the two
+    #: groups; kinds with ``splittable=False`` split along their typed
+    #: ``axes`` instead
+    splittable: bool = True
+
+    @property
+    def axes(self) -> Tuple[AxisSpec, ...]:
+        """The kind's typed partition axes (empty for channel-split
+        kinds)."""
+        return _AXES[self.kind]
 
     def init_weight(self, op: Op, rng: np.random.Generator) -> np.ndarray:
         """Seeded fan-in-scaled weights: the reference's draw, so one seed
@@ -287,12 +621,14 @@ _ENTRIES: Dict[str, KernelEntry] = {
         input_shape=lambda op: (1, op.H * op.hd),
         weight_shape=lambda op: (2, op.S, op.KV, op.hd),   # stacked K/V
         output_shape=lambda op: (1, op.H * op.hd),
+        splittable=False,
     ),
     "ssm": KernelEntry(
         kind="ssm",
         input_shape=lambda op: (op.T, op.H * op.hd),
         weight_shape=lambda op: (_ssm_param_count(op),),
         output_shape=lambda op: (op.T, op.H * op.hd),
+        splittable=False,
     ),
 }
 

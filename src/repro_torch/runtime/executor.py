@@ -31,7 +31,11 @@ reference.
 
 Parameters are drawn once, in spec order, through `registry.init_weight`
 — the same numpy arrays as the reference executor for the same seed — or
-carried across from the reference with `load_params`.
+carried across from the reference with `load_params`.  `dtype` (float32
+or bfloat16, as in the reference) is the executor's one activation and
+parameter type: the fp32 draws, the inputs and `load_params` are cast to
+it, every kernel runs its instantiation for it (accumulating in fp32),
+and `run_oracle` computes in it too, as the reference's oracle does.
 
 Every node is timed into a `MeasurementRecord`: the walk synchronizes the
 device after each node (one sync point per node plus the terminal one, as
@@ -194,19 +198,36 @@ def _fit_axis(x: torch.Tensor, axis: int, size: int, *, align: int = 8,
 
 # --------------------------------------------------------------- executor
 
+#: the activation/parameter types an executor runs in (the reference's)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """float32 or bfloat16, given as a torch dtype or by name."""
+    if isinstance(dtype, torch.dtype) and dtype in DTYPES.values():
+        return dtype
+    if isinstance(dtype, str) and dtype in DTYPES:
+        return DTYPES[dtype]
+    raise ValueError(f"unsupported dtype {dtype!r}; choices: "
+                     f"{list(DTYPES)}")
+
+
 class PlanExecutor:
     """Executes a compiled `CoexecPlan` on the co-execution groups.
 
     `device` defaults to CUDA (and raises where there is none); pass
     `device="cpu"` to run on the CPU.  `groups` overrides the default two
-    groups on that device (one group = every node exclusive).
+    groups on that device (one group = every node exclusive).  `dtype`
+    (float32 or bfloat16) is what parameters and activations are held in.
     """
 
     def __init__(self, plan: CoexecPlan, *,
                  device: Union[str, torch.device, None] = None,
-                 groups: Optional[Sequence[Group]] = None, seed: int = 0):
+                 groups: Optional[Sequence[Group]] = None, seed: int = 0,
+                 dtype: Union[str, torch.dtype] = torch.float32):
         plan.check_graph()
         self.plan = plan
+        self.dtype = resolve_dtype(dtype)
         self.specs: List[ExecSpec] = plan.exec_specs()
         self.graph: Graph = plan.graph_ir()
         for spec in self.specs:
@@ -236,7 +257,7 @@ class PlanExecutor:
         layouts ((C_in, C_out) linear, HWIO conv weights, the stacked
         (2, S, KV, hd) KV cache of an attention node, the flat
         B/C/dt/a/state0 vector of an ssm node), move it to this executor's
-        device as float32, and re-pack the split weights.  Captured
+        device in its dtype, and re-pack the split weights.  Captured
         segment programs read the old weights' addresses, so every one is
         dropped: the next fused run captures again."""
         if len(arrays) != len(self.specs):
@@ -255,7 +276,7 @@ class PlanExecutor:
             if arr.shape != want:
                 raise ValueError(f"node {spec.node_id}: parameter shape "
                                  f"{arr.shape} != {want}")
-            params.append(torch.from_numpy(arr).to(self.device))
+            params.append(torch.from_numpy(arr).to(self.device, self.dtype))
         self._programs = {}
         self._warmed = {key for key in self._warmed if not key[1]}
         self.params = params
@@ -290,8 +311,9 @@ class PlanExecutor:
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
-        return torch.from_numpy(np.array(x, np.float32)).to(self.device)
+            return x.to(self.device, self.dtype)
+        return torch.from_numpy(np.array(x, np.float32)).to(self.device,
+                                                            self.dtype)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

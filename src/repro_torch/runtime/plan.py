@@ -8,27 +8,38 @@ contract between the two packages: this module is the port's copy of the
 decode side of `repro.runtime.plan`, so one plan document decodes to the
 same schedule, graph, provenance key and exec specs in both.
 
-Planning-only content travels as opaque metadata:
+Loading is strict by default, as in the reference: `CoexecPlan.from_json`
+(and `loads`/`load`) statically verifies the document first
+(`repro_torch.analysis.verify_plan`) and raises `VerificationError` on any
+error diagnostic; `verify=False` loads a quarantined document anyway.
+
+Planning-only content travels as metadata:
 
   * a decision's `tile` key is a TPU blocking choice for the Pallas kernel
-    it was tuned for; it is kept on the decision and the spec, and never
-    applied to the port's kernels;
+    it was tuned for; the verifier checks it against the reference's TPU
+    tile table (`kernels.registry.TileSpec`), and it is kept on the
+    decision and the spec, never applied to the port's kernels;
   * embedded `segments` metadata is carried through `to_json`; the
+    verifier holds it to the partition `Graph.segments` derives, and the
     fused walk executes it (`segment_partition`), re-deriving it from the
-    graph where it does not cover the schedule.
+    graph where an unverified document's metadata does not cover the
+    schedule.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Any, Dict, FrozenSet, List, Optional, Tuple
+from pathlib import Path
+from typing import Any, Dict, FrozenSet, List, Optional, Union
 
 from repro_torch.core.networks import Unit
+from repro_torch.core.planner import PlanReport
 from repro_torch.core.types import Op
 from repro_torch.graph.ir import Graph, Segment, from_units
-from repro_torch.kernels.registry import (op_from_json, op_kind, op_label,
-                                          validate_axis_split)
+from repro_torch.kernels.registry import (TileConfig, op_from_json, op_kind,
+                                          op_label, resolve_tile,
+                                          tile_from_json, validate_axis_split)
 
 PLAN_SCHEMA_VERSION = 1
 
@@ -42,7 +53,8 @@ PLANNER_PREDICTOR = "predictor"
 class PartitionDecision:
     """One node's planned split: `c_gpu` units on the fast group, `c_cpu`
     on the slow group, with the planner's predicted latencies.  `tile` is
-    the TPU tile config the plan carries, kept verbatim and not applied."""
+    the TPU tile config the plan carries (validated against the
+    reference's TPU tile table, never applied to the port's kernels)."""
 
     op: Op
     c_cpu: int
@@ -51,7 +63,11 @@ class PartitionDecision:
     pred_gpu_us: float
     pred_total_us: float
     axis: str = "channel"
-    tile: Optional[Dict[str, int]] = None
+    tile: Optional[TileConfig] = None
+
+    @property
+    def exclusive(self) -> bool:
+        return self.c_cpu == 0 or self.c_gpu == 0
 
 
 def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
@@ -67,15 +83,22 @@ def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
         raise ValueError(
             f"channel split {dec.c_gpu}+{dec.c_cpu} does not cover C_out="
             f"{dec.op.C_out} of {op_label(dec.op)}")
+    # an illegal TPU tile (misaligned, over the padded extents or the VMEM
+    # budget) cannot load either
+    if dec.tile is not None:
+        resolve_tile(dec.op, dec.tile)
     return dec
 
 
 def decision_from_json(d: Dict[str, Any]) -> PartitionDecision:
+    op = op_from_json(d["op"])
+    tile = (tile_from_json(op_kind(op), d["tile"])
+            if "tile" in d else None)
     return _validate_decision(PartitionDecision(
-        op=op_from_json(d["op"]), c_cpu=d["c_cpu"], c_gpu=d["c_gpu"],
+        op=op, c_cpu=d["c_cpu"], c_gpu=d["c_gpu"],
         pred_cpu_us=d["pred_cpu_us"], pred_gpu_us=d["pred_gpu_us"],
         pred_total_us=d["pred_total_us"], axis=d.get("axis", "channel"),
-        tile=(dict(d["tile"]) if "tile" in d else None)))
+        tile=tile))
 
 
 # ------------------------------------------------------------- provenance
@@ -129,7 +152,7 @@ class ExecSpec:
     axis each group owns (`c_fast` = the GPU share, `c_slow` = the CPU
     share: output channels on the channel axis, query or state heads on
     head / ssm-state, cache positions on kv-block) and the predicted
-    latency.  `tile` is the plan's opaque TPU tile; `node_id` and
+    latency.  `tile` is the plan's TPU tile (not applied); `node_id` and
     `segment` are metadata, excluded from equality."""
 
     unit: str
@@ -139,7 +162,7 @@ class ExecSpec:
     c_slow: int = 0
     pred_total_us: float = 0.0
     axis: str = "channel"
-    tile: Optional[Tuple[Tuple[str, int], ...]] = None
+    tile: Optional[TileConfig] = None
     node_id: str = dataclasses.field(default="", compare=False)
     segment: int = dataclasses.field(default=-1, compare=False)
 
@@ -154,10 +177,9 @@ class ExecSpec:
 
 def decision_to_spec(dec: PartitionDecision, node_id: str = "") -> ExecSpec:
     """GPU share -> fast group, CPU share -> slow group."""
-    tile = None if dec.tile is None else tuple(dec.tile.items())
     return ExecSpec(unit=op_kind(dec.op), op=dec.op, c_fast=dec.c_gpu,
                     c_slow=dec.c_cpu, pred_total_us=dec.pred_total_us,
-                    axis=dec.axis, tile=tile, node_id=node_id)
+                    axis=dec.axis, tile=dec.tile, node_id=node_id)
 
 
 def spec_label(spec: ExecSpec) -> str:
@@ -168,7 +190,7 @@ def spec_label(spec: ExecSpec) -> str:
         return f"add {spec.node_id}".rstrip()
     label = op_label(spec.op)
     if spec.tile is not None:
-        label += " tile[" + "/".join(f"{k}{v}" for k, v in spec.tile) + "]"
+        label += f" tile[{spec.tile.label()}]"
     return label
 
 
@@ -204,6 +226,13 @@ class CoexecPlan:
     def decisions(self) -> List[PartitionDecision]:
         return [decision_from_json(e["decision"]) for e in self.schedule
                 if "decision" in e]
+
+    @property
+    def decisions_by_node(self) -> Dict[str, PartitionDecision]:
+        """Per-node partition decisions keyed by graph node id."""
+        return {nid: decision_from_json(e["decision"])
+                for nid, e in zip(self.node_ids(), self.schedule)
+                if "decision" in e}
 
     @property
     def units(self) -> List[Unit]:
@@ -318,21 +347,52 @@ class CoexecPlan:
             doc["segments"] = self.segments
         return doc
 
+    def report(self) -> Optional[PlanReport]:
+        """The planning-time report the document carries (None when it
+        records no end-to-end latency)."""
+        if self.end_to_end_us is None:
+            return None
+        return PlanReport(device=self.provenance.device,
+                          threads=self.provenance.threads,
+                          baseline_us=self.baseline_us,
+                          individual_us=self.individual_us,
+                          end_to_end_us=self.end_to_end_us,
+                          decisions=self.decisions)
+
     @staticmethod
-    def from_json(d: Dict[str, Any]) -> "CoexecPlan":
-        """Decode a plan document.  Every decision is decoded once here,
-        so a malformed schedule fails at load, not at first execution."""
-        if d.get("schema_version", PLAN_SCHEMA_VERSION) != \
-                PLAN_SCHEMA_VERSION:
-            raise ValueError(f"unsupported plan schema version "
-                             f"{d.get('schema_version')!r}")
+    def from_json(d: Dict[str, Any], *, verify: bool = True) -> "CoexecPlan":
+        """Decode a plan document.
+
+        ``verify=True`` (default) statically verifies the document first
+        (`repro_torch.analysis.verify_plan`) and raises `VerificationError`
+        on error diagnostics, so a corrupted or hand-edited plan is refused
+        at load, with the reference's rule ids.  ``verify=False`` loads it
+        anyway (e.g. to inspect a quarantined artifact), as the reference
+        does."""
+        if verify:
+            from repro_torch.analysis import raise_on_error, verify_plan
+            raise_on_error(verify_plan(d, stats=False), "plan document")
         rep = d.get("report") or {}
-        plan = CoexecPlan(provenance=PlanProvenance.from_json(d["provenance"]),
+        return CoexecPlan(provenance=PlanProvenance.from_json(d["provenance"]),
                           schedule=d["schedule"],
                           baseline_us=rep.get("baseline_us"),
                           individual_us=rep.get("individual_us"),
                           end_to_end_us=rep.get("end_to_end_us"),
                           graph_json=d.get("graph"),
                           segments=d.get("segments"))
-        plan.decisions                  # decode (and check) every decision
-        return plan
+
+    def dumps(self) -> str:
+        return json.dumps(self.to_json(), indent=1)
+
+    @staticmethod
+    def loads(text: str, *, verify: bool = True) -> "CoexecPlan":
+        return CoexecPlan.from_json(json.loads(text), verify=verify)
+
+    def save(self, path: Union[str, Path]) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(self.dumps())
+
+    @staticmethod
+    def load(path: Union[str, Path], *, verify: bool = True) -> "CoexecPlan":
+        return CoexecPlan.loads(Path(path).read_text(), verify=verify)

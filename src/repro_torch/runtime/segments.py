@@ -313,7 +313,7 @@ def _emit(exe, instrs: List[Dict[str, Any]],
 
 def _capture(exe, prog: SegmentProgram, shapes: List[Shape]) -> None:
     """Capture `prog.fn` into one CUDA graph over static input buffers of
-    `shapes`.
+    `shapes`, in the executor's dtype.
 
     The function runs once eagerly first, on a side stream, as PyTorch
     asks: that builds the kernels, fills the launch planners' caches,
@@ -324,7 +324,7 @@ def _capture(exe, prog: SegmentProgram, shapes: List[Shape]) -> None:
     they are taken back off the counters and kept on `prog.launches`, to
     be credited at every replay.  A failed capture raises."""
     dev = exe.device
-    static = [torch.zeros(s, device=dev) for s in shapes]
+    static = [torch.zeros(s, device=dev, dtype=exe.dtype) for s in shapes]
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):

@@ -1,10 +1,13 @@
 """Loading and running artifacts in the port: the committed VGG16
 artifact, the checks `CompiledNetwork` makes on load, the CUDA default of
-its entry points, and `python -m repro_torch execute`."""
+its entry points, `save`, `dtype=`/`seed=`, the introspection the
+reference offers (`units`, `decisions_by_node`, `report`, `explain`), and
+`python -m repro_torch execute`."""
 import json
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +22,8 @@ from repro_torch.api import Target, _artifact_checksum
 from repro_torch.kernels.registry import op_to_json
 
 from test_torch_support import ROOT, VGG16_ARTIFACT, compile_small
+
+COMMITTED = sorted((ROOT / "src/repro_torch/artifacts").glob("*.json"))
 
 
 @pytest.fixture(scope="module")
@@ -153,3 +158,103 @@ def test_cli_execute_runs_an_artifact_on_the_cpu(small_artifact):
              str(small_artifact)],
             capture_output=True, text=True, cwd=ROOT, timeout=300, env=env)
         assert proc.returncode == 2 and "CUDA" in proc.stderr
+
+
+# ------------------------------------------- save, dtype, seed, introspection
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_save_load_roundtrip_with_run_equality(small_artifact, tmp_path,
+                                               dtype):
+    """The artifact, its provenance digest, target and schedule survive a
+    save/load cycle byte for byte, and so does the run's output, in fp32
+    and bf16."""
+    compiled = repro_torch.CompiledNetwork.load(small_artifact)
+    path = compiled.save(tmp_path / "again" / "small.coexec.json")
+    assert path.read_text() == small_artifact.read_text()
+    back = repro_torch.CompiledNetwork.load(path)
+    assert back.key == compiled.key
+    assert back.provenance == compiled.provenance
+    assert back.target == compiled.target and back.mode == compiled.mode
+    assert back.plan.schedule == compiled.plan.schedule
+
+    y0 = compiled.run(device="cpu", dtype=dtype)
+    y1 = back.run(device="cpu", dtype=dtype)
+    assert y0.dtype == y1.dtype == getattr(torch, dtype)
+    assert torch.equal(y0, y1)
+
+
+def test_seed_selects_the_reference_weights(small_artifact):
+    from repro.runtime.executor import PlanExecutor as JaxPlanExecutor
+    compiled = repro_torch.CompiledNetwork.load(small_artifact)
+    exe0 = compiled.executor(device="cpu")
+    exe1 = compiled.executor(device="cpu", seed=1)
+    assert exe1 is not exe0
+    assert compiled.executor(device="cpu", seed=1) is exe1   # memoized
+    assert compiled.executor(device="cpu", dtype=torch.float32) is exe0
+    jexe = JaxPlanExecutor(repro.CompiledNetwork.load(small_artifact).plan,
+                           seed=1)
+    for p, q in zip(exe1.params, jexe.params):
+        if p is not None:
+            assert torch.equal(p, torch.tensor(np.asarray(q)))
+    y0 = compiled.run(device="cpu")
+    y1 = compiled.run(device="cpu", seed=1)
+    assert not torch.equal(y0, y1)
+    assert torch.equal(compiled.run(device="cpu", seed=1), y1)
+    with pytest.raises(ValueError, match="dtype"):
+        compiled.executor(device="cpu", dtype="float16")
+
+
+def _decision_key(d, codec):
+    return (codec(d.op), d.c_cpu, d.c_gpu, d.pred_cpu_us, d.pred_gpu_us,
+            d.pred_total_us, d.axis, d.exclusive,
+            None if d.tile is None else d.tile.label())
+
+
+@pytest.mark.parametrize("name", [p.name for p in COMMITTED] + ["small"])
+def test_introspection_agrees_with_the_reference(small_artifact, name):
+    """units, decisions, decisions_by_node, report() and explain() of the
+    same artifact, in both packages."""
+    path = small_artifact if name == "small" else \
+        next(p for p in COMMITTED if p.name == name)
+    ref = repro.CompiledNetwork.load(path)
+    port = repro_torch.CompiledNetwork.load(path)
+
+    assert port.explain() == ref.explain()
+    assert port.explain().endswith("verify: clean")
+    assert [_decision_key(d, op_to_json) for d in port.decisions] == \
+        [_decision_key(d, jax_op_to_json) for d in ref.decisions]
+    assert {n: _decision_key(d, op_to_json)
+            for n, d in port.decisions_by_node.items()} == \
+        {n: _decision_key(d, jax_op_to_json)
+         for n, d in ref.decisions_by_node.items()}
+    if ref.plan.graph_json is None:
+        assert [(k, p if k == "pool" else op_to_json(p))
+                for k, p in port.units] == \
+            [(k, p if k == "pool" else jax_op_to_json(p))
+             for k, p in ref.units]
+    else:
+        with pytest.raises(ValueError):
+            port.units
+    rep, jrep = port.report(), ref.report()
+    assert (rep is None) == (jrep is None)
+    if rep is not None:
+        fields = ("device", "threads", "baseline_us", "individual_us",
+                  "end_to_end_us", "individual_speedup",
+                  "end_to_end_speedup")
+        assert [getattr(rep, f) for f in fields] == \
+            [getattr(jrep, f) for f in fields]
+        assert [_decision_key(d, op_to_json) for d in rep.decisions] == \
+            [_decision_key(d, jax_op_to_json) for d in jrep.decisions]
+
+
+def test_cli_execute_without_chaining_reports_no_elision(capsys):
+    """`execute --no-chain` gathers after every co-executed op; the chained
+    walk of the same resnet18 artifact elides 13 gathers."""
+    from repro_torch.cli import main
+    path = str(ROOT / "src/repro_torch/artifacts/resnet18_moto2022.coexec.json")
+    assert main(["execute", "--artifact", path, "--device", "cpu",
+                 "--no-warmup"]) == 0
+    assert "4 reshard points (13 elided)" in capsys.readouterr().out
+    assert main(["execute", "--artifact", path, "--device", "cpu",
+                 "--no-chain", "--no-warmup"]) == 0
+    out = capsys.readouterr().out
+    assert "17 reshard points (0 elided)" in out

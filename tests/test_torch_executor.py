@@ -125,7 +125,7 @@ def test_forced_chained_splits_elide_the_gather(compiled):
     n2 with exactly n2's declared input shape, so the CPU walk chains
     through x_plan and never gathers it."""
     doc = forced_split_doc(compiled, {1: 16, 2: 16})
-    port = repro_torch.CompiledNetwork.from_json(doc)
+    port = repro_torch.CompiledNetwork.from_json(doc, verify=False)
     ref = repro.CompiledNetwork.from_json(doc, verify=False)
     coexec = ref.plan.coexec_node_ids()
     elided = ref.plan.graph_ir().elided(coexec)
@@ -150,7 +150,7 @@ def test_forced_chained_splits_elide_the_gather(compiled):
     from repro.api import _artifact_checksum
     doc.pop("checksum")
     doc["checksum"] = _artifact_checksum(doc)
-    single = repro_torch.CompiledNetwork.from_json(doc)
+    single = repro_torch.CompiledNetwork.from_json(doc, verify=False)
     y_single = single.run(device="cpu")
     rep = single.last_report
     assert not rep.split_capable and rep.count("coexec") == 0
@@ -210,3 +210,78 @@ def test_one_group_executor_on_explicit_groups(port_compiled):
     np.testing.assert_allclose(_np(y), _np(exe.run_oracle()),
                                **WINOGRAD_TOL)
     assert dataclasses.asdict(report.timings[0])["backend"] == "cpu"
+
+
+# ------------------------------------------------------------ bf16, splits
+@pytest.mark.parametrize("forced", [False, True],
+                         ids=["as-planned", "halves-forced"])
+@pytest.mark.parametrize("network,n_units", [("resnet18", 5), ("vgg16", 4)])
+def test_bf16_network_prefix_matches_the_reference(tmp_path, network,
+                                                   n_units, forced):
+    """The reference's bf16 end-to-end cases (`tests/test_executor.py`): a
+    network's first units, compiled by the JAX package, run in bfloat16 on
+    two CPU groups, as planned and with every conv/linear split in halves
+    (so both sides of a split run in bf16); held against the reference's
+    bf16 run and the port's own bf16 oracle at the reference's 5e-2."""
+    from repro.api import _artifact_checksum
+    from repro.core.networks import NETWORKS
+    units = NETWORKS[network]()[:n_units]
+    compiled = repro.compile(units, repro.Target(device="moto2022",
+                                                 threads=3),
+                             mode="grid", cache=tmp_path / "plans")
+    doc = compiled.to_json()
+    if forced:
+        doc = forced_split_doc(compiled, {
+            i: e["decision"]["op"]["C_out"] // 16 * 8
+            for i, e in enumerate(doc["plan"]["schedule"])
+            if "decision" in e})
+        doc["plan"].pop("segments")          # re-derived for the splits
+        doc["checksum"] = _artifact_checksum(doc)
+    ref = repro.CompiledNetwork.from_json(doc)
+    port = repro_torch.CompiledNetwork.from_json(doc)
+    exe = port.executor(device="cpu", dtype="bfloat16")
+    assert all(p is None or p.dtype == torch.bfloat16 for p in exe.params)
+    y, report = exe.run()
+    assert y.dtype == torch.bfloat16 and len(report.timings) == n_units
+    assert report.count("coexec") == len(port.plan.coexec_node_ids())
+    assert port.plan.coexec_node_ids() or not forced
+    want, _ = JaxPlanExecutor(ref.plan, dtype=jnp.bfloat16).run()
+    np.testing.assert_allclose(_np(y.float()), np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(_np(y.float()), _np(exe.run_oracle().float()),
+                               rtol=5e-2, atol=5e-2)
+    y_fused, _ = exe.run(fused=True)
+    assert torch.equal(y_fused, y)
+
+
+def test_load_params_casts_to_the_executor_dtype(compiled, port_compiled):
+    jexe = JaxPlanExecutor(compiled.plan, seed=7)
+    arrays = [None if p is None else np.asarray(p) for p in jexe.params]
+    exe = PlanExecutor(port_compiled.plan, device="cpu", dtype="bfloat16")
+    assert exe.dtype == torch.bfloat16
+    assert exe.input_template().dtype == torch.bfloat16
+    exe.load_params(arrays)
+    for p, a in zip(exe.params, arrays):
+        if a is not None:
+            assert torch.equal(p, torch.tensor(a).to(torch.bfloat16))
+    x = np.asarray(jexe.input_template())
+    y, _ = exe.run(x)
+    jy, _ = JaxPlanExecutor(compiled.plan, seed=7, dtype=jnp.bfloat16).run(
+        jnp.asarray(x, jnp.bfloat16))
+    np.testing.assert_allclose(_np(y.float()), np.asarray(jy, np.float32),
+                               rtol=5e-2, atol=5e-2)
+    with pytest.raises(ValueError, match="dtype"):
+        PlanExecutor(port_compiled.plan, device="cpu", dtype=torch.float16)
+
+
+def test_throughput_split_matches_the_reference():
+    from repro.core.coexec import throughput_split as jax_throughput_split
+    from repro_torch.core.coexec import throughput_split
+    for c_out in (1, 7, 64, 1000, 4096):
+        for share in (0.0, 0.01, 0.3, 0.5, 0.77, 0.999, 1.0):
+            for align in (1, 8, 128):
+                got = throughput_split(c_out, share, align=align)
+                want = jax_throughput_split(c_out, share, align=align)
+                assert (got.c_out, got.c_fast, got.c_slow, got.align,
+                        got.c_pad) == (want.c_out, want.c_fast, want.c_slow,
+                                       want.align, want.c_pad)

@@ -48,6 +48,13 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
     assert bad == "[]", f"the port imported {bad}"
 
 
+def test_the_scan_covers_the_verifier_and_the_planner_report():
+    mods = _port_modules()
+    for m in ("repro_torch.analysis", "repro_torch.analysis.verify",
+              "repro_torch.core.planner"):
+        assert m in mods
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

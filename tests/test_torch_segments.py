@@ -130,7 +130,7 @@ SMALL_FORCED = {1: 16, 2: 16, 4: 40, 5: 64, 8: 24, 9: 3}
 def test_small_plan_partition_and_fused_run(compiled, forced):
     doc = _forced_doc(compiled, SMALL_FORCED if forced else {})
     ref = repro.CompiledNetwork.from_json(doc, verify=False).plan
-    port = repro_torch.CompiledNetwork.from_json(doc)
+    port = repro_torch.CompiledNetwork.from_json(doc, verify=False)
     coexec = port.plan.coexec_node_ids()
     assert coexec == ref.coexec_node_ids()
     assert _parts(port.graph.segments(coexec)) == \
@@ -161,7 +161,7 @@ def test_typed_splits_are_singletons_and_the_fused_walk_matches(hybrid,
                                                                variant):
     doc = _forced_doc(hybrid, FORCED[variant])
     ref = repro.CompiledNetwork.from_json(doc, verify=False).plan
-    port = repro_torch.CompiledNetwork.from_json(doc)
+    port = repro_torch.CompiledNetwork.from_json(doc, verify=False)
     assert _parts(port.plan.segment_partition()) == \
         _parts(ref.segment_partition())
     assert _parts(port.graph.segments(port.plan.coexec_node_ids())) == \
@@ -207,7 +207,8 @@ def test_stale_segment_metadata_is_re_derived():
             d.pop("segments")
         else:
             d["segments"] = segments
-        assert _parts(CoexecPlan.from_json(d).segment_partition()) == want
+        assert _parts(CoexecPlan.from_json(
+            d, verify=False).segment_partition()) == want
 
 
 def test_segment_validates():
