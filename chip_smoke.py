@@ -25,12 +25,17 @@ the port cannot be imported, and otherwise runs, in order:
    decode and chunk kernels are both timed at T = 1 and T =
    `DECODE_T_MAX`, beside the time `time_ms` gives an empty kernel (the
    floor of any launch);
-4. five main paths (`PATHS`), each loaded through
-   `repro_torch.CompiledNetwork` from a committed artifact (strict load:
-   the port's static verifier runs first) and run on two CUDA-stream
-   groups for a few seeded inputs ("requests"), each output held against
-   `run_oracle` on the card, with every kernel's launch counter set to 0
-   just before the path and read just after:
+4. the compile phase, on the host: each main path compiled by
+   `repro_torch.compile` (no JAX) for its committed artifact's `Target`,
+   into a fresh plan cache and predictor cache, its document held equal
+   to the committed artifact's (checksum included), then compiled again
+   from the warm plan cache; cold and warm seconds, the host's CPU model
+   (`lscpu`) and numpy's version printed;
+5. five main paths (`PATHS`), each running the network the port compiled
+   in phase 4 (strict: the port's static verifier checks its plan) on two
+   CUDA-stream groups for a few seeded inputs ("requests"), each output
+   held against `run_oracle` on the card, with every kernel's launch
+   counter set to 0 just before the path and read just after:
    - VGG16 at 224x224x3 (`split_matmul`, `hadamard_matmul`);
    - a zamba2-7b decode step, 9 blocks, 4096-position KV cache
      (`split_matmul`, `decode_attention` on both sides of a kv-block split,
@@ -39,9 +44,9 @@ the port cannot be imported, and otherwise runs, in order:
      two streams, projection shortcuts through `_adapt`);
    - inception_v3 at 299x299x3 (`split_matmul`, `hadamard_matmul` on both
      sides of its one Winograd node; 68 fused segments);
-5. two more requests of each path under torch.profiler: device time by
+6. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
-6. the fused segment walk of each path (`run(fused=True)`): every fused
+7. the fused segment walk of each path (`run(fused=True)`): every fused
    segment captured once as a CUDA graph (each printed with its kind, its
    nodes and the kernel launches its graph holds), then the same seeded
    requests, each output `torch.equal` to the per-node walk's and within
@@ -51,11 +56,11 @@ the port cannot be imported, and otherwise runs, in order:
    (per-node, fused, per-node, fused, ...); two fused requests under
    torch.profiler, with each kernel's launches in the trace beside its
    credited counter and the graph launches the trace shows;
-7. a bfloat16 run of VGG16 and the zamba2-7b step (`BF16_PATHS`):
+8. a bfloat16 run of VGG16 and the zamba2-7b step (`BF16_PATHS`):
    `executor(dtype="bfloat16")`, per-node and fused, `BF16_REQUESTS`
    requests each, held against the float32 `run_oracle` at `BF16_RTOL`
    of its largest |value|, with the same launch counts;
-8. a JSON line of per-kernel numbers, then the result line.  Each phase
+9. a JSON line of per-kernel numbers, then the result line.  Each phase
    prints its seconds.
 """
 from __future__ import annotations
@@ -64,6 +69,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -521,23 +527,112 @@ def _node_kind(spec) -> str:
     return f"{spec.unit} ({spec.axis + ' split' if spec.coexec else 'one group'})"
 
 
-def main_path(name: str, artifact: Path, make_input, out_shape,
-              requests: int):
-    """One main path: the artifact on two CUDA-stream groups, `requests`
-    seeded inputs, each held against run_oracle, launch counts checked per
-    request against the artifact; returns the launch counts (counters set
-    to 0 just before the path, read just after), the compiled network, its
-    float32 executor, the expected counts and each request's (input,
-    output, oracle)."""
+def host_cpu_model() -> str:
+    """The host CPU as `lscpu` names it (model name, vendor, CPU count),
+    with /proc/cpuinfo's model name where `lscpu` knows none."""
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except OSError:
+        out = ""
+    for line in out.splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip().lower(), value.strip())
+    model = fields.get("model name", "unknown")
+    if model in ("", "-", "unknown"):
+        info = Path("/proc/cpuinfo")
+        for line in (info.read_text().splitlines() if info.exists() else []):
+            key, _, value = line.partition(":")
+            if key.strip() == "model name":
+                model = f"{value.strip()} (/proc/cpuinfo; lscpu: {model})"
+                break
+    return (f"{model}, vendor {fields.get('vendor id', 'unknown')}, "
+            f"{fields.get('cpu(s)', '?')} CPUs")
+
+
+def predictor_files(root: Path) -> dict:
+    """Each predictor pickle under `root` with its modification time: a
+    compile that trains writes its files, one that loads leaves them."""
+    return {p.name: p.stat().st_mtime_ns for p in root.glob("*.pkl")}
+
+
+def compile_phase(paths) -> dict:
+    """Compile every main path with `repro_torch.compile` on this host,
+    for its committed artifact's `Target` and mode, into a fresh plan
+    cache and a fresh predictor cache; each document must equal the
+    committed artifact's, checksum included, and a second compile must be
+    a warm hit of the plan cache.  Returns the compiled networks by path
+    name."""
     import repro_torch
+    from repro_torch.graph.frontends import from_model
+
+    print(f"compile: host {host_cpu_model()}; numpy {np.__version__}",
+          flush=True)
+    compiled = {}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_compile_") as tmp:
+        plans, predictors = Path(tmp, "plans"), Path(tmp, "predictors")
+        for name, artifact, _, _ in paths:
+            doc = json.loads(artifact.read_text())
+            target = repro_torch.Target.from_json(doc["target"])
+            network = (from_model(ZAMBA, **ZAMBA_GRAPH) if name == ZAMBA
+                       else name)
+            before = predictor_files(predictors)
+            t = time.perf_counter()
+            net = repro_torch.compile(network, target, mode=doc["mode"],
+                                      cache=plans,
+                                      predictor_cache=predictors)
+            cold = time.perf_counter() - t
+            after = predictor_files(predictors)
+            written = sorted(p for p in after if before.get(p) != after[p])
+            if net.from_cache:
+                raise AssertionError(f"compile {name}: the first compile "
+                                     f"hit a fresh plan cache")
+            got = net.to_json()
+            if got != doc:
+                raise AssertionError(
+                    f"compile {name}: the port's plan differs from "
+                    f"{artifact.name} (checksum {got['checksum']}, "
+                    f"committed {doc['checksum']}; key {net.key}, "
+                    f"committed {doc['plan']['provenance']})")
+            t = time.perf_counter()
+            again = repro_torch.compile(network, target, mode=doc["mode"],
+                                        cache=plans,
+                                        predictor_cache=predictors)
+            warm = time.perf_counter() - t
+            if not again.from_cache or again.to_json() != doc:
+                raise AssertionError(f"compile {name}: the second compile "
+                                     f"was not a warm hit of the plan")
+            how = (f"predictors trained ({len(written)} files written)"
+                   if written else
+                   "predictors loaded (no file written)")
+            print(f"compile {name}: threads {target.threads}, {how}; cold "
+                  f"{cold:.3f} s, warm {warm:.3f} s; equal to "
+                  f"{artifact.name} (checksum {got['checksum']}, key "
+                  f"{net.key})", flush=True)
+            compiled[name] = net
+    return compiled
+
+
+def main_path(name: str, compiled, make_input, out_shape, requests: int):
+    """One main path: the network the port compiled, on two CUDA-stream
+    groups, `requests` seeded inputs, each held against run_oracle, launch
+    counts checked per request against its plan; returns the launch counts
+    (counters set to 0 just before the path, read just after), its float32
+    executor, the expected counts and each request's (input, output,
+    oracle)."""
+    from repro_torch.analysis import errors, verify_plan
 
     t0 = time.perf_counter()
-    compiled = repro_torch.CompiledNetwork.load(artifact)
+    bad = errors(verify_plan(compiled.plan, stats=False))
+    if bad:
+        raise AssertionError(f"{name}: the compiled plan fails the static "
+                             f"verifier: {bad[0]}")
     exe = compiled.executor(device="cuda")
     want = expected_counts(compiled.plan)
-    print(f"{name}: loaded {artifact.name} (key {compiled.key}), weights on "
-          f"{exe.device} in {time.perf_counter() - t0:.1f} s; groups "
-          f"{len(exe.groups)}; per request the artifact gives {want}",
+    print(f"{name}: the port's compiled plan (key {compiled.key}), weights "
+          f"on {exe.device} in {time.perf_counter() - t0:.1f} s; groups "
+          f"{len(exe.groups)}; per request the plan gives {want}",
           flush=True)
     if not exe.split_capable:
         raise AssertionError("the main path needs two co-execution groups")
@@ -600,7 +695,7 @@ def main_path(name: str, artifact: Path, make_input, out_shape,
     print(f"{name}: median request wall {statistics.median(walls):.3f} ms "
           f"over {requests} requests (min {walls[0]:.3f}, max "
           f"{walls[-1]:.3f})", flush=True)
-    return counts, compiled, exe, want, refs
+    return counts, exe, want, refs
 
 
 def fused_path(name: str, exe, want: dict, refs: list) -> dict:
@@ -865,7 +960,11 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
                   f"{k} launches the counter holds", flush=True)
 
 
-#: the main paths: (name, committed artifact, request maker, output shape)
+#: the zamba2-7b path's graph: 9 blocks, a 4096-position KV cache
+ZAMBA_GRAPH = dict(blocks=9, cache_len=4096)
+
+#: the main paths: (name, committed artifact, request maker, output shape);
+#: the compile phase compiles each and must reproduce its artifact
 PATHS = [
     (VGG, ARTIFACT, vgg16_input, (1, 1000)),
     (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584)),
@@ -939,11 +1038,15 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
+    compiled_nets = compile_phase(PATHS)
+    phases.done("compile")
+
     # launch counts per walk: "<path>", "<path> fused", "<path> bf16", ...
     walks = {}
-    for name, artifact, make_input, out_shape in PATHS:
-        counts, compiled, exe, want, refs = main_path(
-            name, artifact, make_input, out_shape, REQUESTS)
+    for name, _, make_input, out_shape in PATHS:
+        compiled = compiled_nets.pop(name)
+        counts, exe, want, refs = main_path(name, compiled, make_input,
+                                            out_shape, REQUESTS)
         walks[name] = counts
         device_breakdown(name, exe, make_input(REQUESTS))
         phases.done(f"{name} per-node")

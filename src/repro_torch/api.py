@@ -1,31 +1,38 @@
-"""The execution half of the compile→run facade.
+"""The compile→run facade of the port.
 
-The JAX package compiles a network offline and ships the result as a
-`repro.compiled_network` artifact:
-
-    compiled = repro.compile("vgg16", repro.Target(device="moto2022"))
-    compiled.save("vgg16.coexec.json")
-
-The port loads that artifact, verifies it, and runs it on a torch device:
+Compile a network into a co-execution plan and run it on a torch device,
+with no JAX anywhere:
 
     import repro_torch
-    compiled = repro_torch.CompiledNetwork.load("vgg16.coexec.json")
+    target = repro_torch.Target(device="moto2022", threads=3)
+    compiled = repro_torch.compile("vgg16", target)     # cached planning
     y = compiled.run()                   # on CUDA; device="cpu" for the CPU
     y = compiled.run(dtype="bfloat16")   # bf16 parameters and activations
     report = compiled.profile()          # per-node ExecutionReport
     y = compiled.run(fused=True)         # the segment walk: CUDA graphs
     print(compiled.explain())            # the per-node decision table
+    compiled.save("vgg16.coexec.json")   # the shippable artifact
 
-Loading is strict, as in the reference: the artifact's format, version and
-checksum (recomputed exactly as the reference does; rules
-`artifact.format`, `artifact.checksum`) and then the whole plan go through
-the port's static verifier (`repro_torch.analysis`), which raises
-`VerificationError` with the reference's rule ids on any error.
-`verify=False` skips the plan's verification (the artifact checks stay).
-Compiling and replanning stay in the JAX package for now.
+`compile` is the port's copy of `repro.compile`: it resolves the network
+(a `Graph`, a registered network or model name, a unit list, or a bare op
+list), trains or loads the GBDT predictors on the simulated phone the
+`Target` names, and runs the cached planners (`runtime/cache.py`).  The
+planning half is host numpy with the reference's float operations in the
+reference's order, so the plan, its key, its predictor checksum and the
+saved artifact are the reference's byte for byte, and the two packages
+share one on-disk plan cache.  Predictor caches are the port's own
+(pickles of the port's classes, `port_mux_*` files).
+
+`CompiledNetwork.load` reads an artifact either package saved.  Loading is
+strict, as in the reference: the artifact's format, version and checksum
+(recomputed exactly as the reference does; rules `artifact.format`,
+`artifact.checksum`) and then the whole plan go through the port's static
+verifier (`repro_torch.analysis`), which raises `VerificationError` with
+the reference's rule ids on any error.  `verify=False` skips the plan's
+verification (the artifact checks stay).
 
 `Target` is the request half of a plan's provenance: `device` names the
-simulated phone the plan was compiled for, not the torch device it runs
+simulated phone the plan is compiled for, not the torch device it runs
 on, which every execution entry point takes as `device=`.
 """
 from __future__ import annotations
@@ -34,35 +41,45 @@ import dataclasses
 import hashlib
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.networks import Unit
+from repro_torch.core.networks import NETWORKS, Unit
+from repro_torch.core.simulator.devices import DEVICES
+from repro_torch.core.sync import SyncMechanism
+from repro_torch.core.types import ConvOp, LinearOp, Op
+from repro_torch.graph.ir import Graph, from_units
+from repro_torch.runtime.cache import (PlanCache, grid_plan_graph_cached,
+                                       partition_ops_plan_cached,
+                                       plan_graph_cached)
 from repro_torch.runtime.plan import (CoexecPlan, PartitionDecision,
                                       PlanProvenance, spec_label)
 
+#: compile() planning modes
+MODE_PREDICTED = "predicted"     # GBDT predictors (the deployable path)
+MODE_GRID = "grid"               # measurement-driven oracle (upper bound)
+
 ARTIFACT_FORMAT = "repro.compiled_network"
 ARTIFACT_VERSION = 1
+
+DEFAULT_CACHE_DIR = "reports/plans"
 
 #: Target.mesh policies
 MESH_AUTO = "auto"               # split when 2 groups exist (always here)
 MESH_SINGLE = "single"           # one group: every node runs exclusive
 MESH_SPLIT = "split"             # require the 2-group split
 
-#: the simulated devices and sync mechanisms plans are compiled for
-DEVICES = ("moto2022", "oneplus11", "pixel4", "pixel5")
-MECHANISMS = ("event", "svm_poll")
-
 
 @dataclasses.dataclass(frozen=True)
 class Target:
-    """Where and how a network was compiled to run (the request half of
-    provenance); validated eagerly, as in the reference."""
+    """Where and how a network is compiled to run (the request half of
+    provenance); validated eagerly, as in the reference.  `mechanism`
+    takes a `SyncMechanism` or its string value and keeps the string."""
 
     device: str
     threads: int = 3
-    mechanism: str = "svm_poll"
+    mechanism: str = SyncMechanism.SVM_POLL.value
     step: int = 8
     seed: int = 1
     mesh: str = MESH_AUTO
@@ -70,10 +87,17 @@ class Target:
     def __post_init__(self):
         if self.device not in DEVICES:
             raise ValueError(f"unknown device {self.device!r}; "
-                             f"choices: {list(DEVICES)}")
-        if self.mechanism not in MECHANISMS:
-            raise ValueError(f"unknown sync mechanism {self.mechanism!r}; "
-                             f"choices: {list(MECHANISMS)}")
+                             f"choices: {sorted(DEVICES)}")
+        if isinstance(self.mechanism, SyncMechanism):
+            object.__setattr__(self, "mechanism", self.mechanism.value)
+        try:
+            SyncMechanism(self.mechanism)
+        except ValueError:
+            raise ValueError(
+                f"unknown sync mechanism {self.mechanism!r}; "
+                f"choices: {[m.value for m in SyncMechanism]}") from None
+        # exact int checks: threads=True would serialize as JSON `true`
+        # and split the cache key from threads=1
         if type(self.threads) is not int or self.threads < 1:
             raise ValueError(f"threads must be a positive int, "
                              f"got {self.threads!r}")
@@ -84,6 +108,10 @@ class Target:
             raise ValueError(f"unknown mesh policy {self.mesh!r}; "
                              f"choices: ['auto', 'single', 'split']")
 
+    @property
+    def sync_mechanism(self) -> SyncMechanism:
+        return SyncMechanism(self.mechanism)
+
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -91,6 +119,219 @@ class Target:
     def from_json(d: Dict[str, Any]) -> "Target":
         return Target(**d)
 
+
+# -------------------------------------------------------------- predictors
+
+def _trained_mux_predictors(device: str, threads: int, *, samples: int,
+                            estimators: int,
+                            cache_dir: Optional[Union[str, Path]] = None,
+                            kinds: Sequence[str] = ("linear", "conv")):
+    """Train (or load from `cache_dir`) the (cpu, gpu) MuxPredictor pair.
+
+    The on-disk layout is the reference's, one pickle per underlying
+    LatencyPredictor keyed by every training knob, under a stem of the
+    port's own (`port_mux_...`): the files hold the port's classes, and
+    the reference's `mux_...` pickles are never opened.  A load is
+    checksum-identical to a retrain; a file that fails to load (corrupt,
+    or naming any global but the predictor classes and numpy's array
+    reconstructors, see `train._PortUnpickler`) means a retrain.
+    """
+    from repro_torch.runtime.plan import train_mux_predictors
+
+    if cache_dir is None:
+        return train_mux_predictors(device, threads, samples=samples,
+                                    estimators=estimators, kinds=kinds)
+
+    from repro_torch.core.predictor.train import (LatencyPredictor,
+                                                  MuxPredictor)
+    root = Path(cache_dir)
+    stem = f"port_mux_{device}_cpu{threads}_{samples}x{estimators}"
+    paths = {f"{side}_{kind}": root / f"{stem}_{side}_{kind}.pkl"
+             for side in ("cpu", "gpu") for kind in kinds}
+    if all(p.exists() for p in paths.values()):
+        try:
+            def member(side, kind):
+                if kind not in kinds:
+                    return None
+                return LatencyPredictor.load(paths[f"{side}_{kind}"])
+
+            cp = MuxPredictor(member("cpu", "linear"),
+                              member("cpu", "conv"),
+                              attention=member("cpu", "attention"),
+                              ssm=member("cpu", "ssm"))
+            gp = MuxPredictor(member("gpu", "linear"),
+                              member("gpu", "conv"),
+                              attention=member("gpu", "attention"),
+                              ssm=member("gpu", "ssm"))
+            return cp, gp
+        except Exception:           # noqa: BLE001 — bad cache: retrain
+            pass
+    cp, gp = train_mux_predictors(device, threads, samples=samples,
+                                  estimators=estimators, kinds=kinds)
+    root.mkdir(parents=True, exist_ok=True)
+    for side, p in (("cpu", cp), ("gpu", gp)):
+        for kind in kinds:
+            m = p.member(kind)
+            if m is not None:
+                m.save(paths[f"{side}_{kind}"])
+    return cp, gp
+
+
+# ------------------------------------------------------- network resolution
+
+def available_networks() -> Dict[str, List[str]]:
+    """Every name `compile` resolves, from the two registries: legacy
+    unit-chain networks (`core.networks.NETWORKS`) and decoder-block model
+    graphs (`graph.frontends`: tiny configs + `models.registry`)."""
+    from repro_torch.graph.frontends import model_names
+    return {"networks": sorted(NETWORKS), "models": model_names()}
+
+
+def _unknown_name_error(name: str) -> ValueError:
+    names = available_networks()
+    return ValueError(
+        f"unknown network {name!r}; registered unit networks: "
+        f"{names['networks']}; model graphs (via graph.from_model): "
+        f"{names['models']}")
+
+
+def _resolve_graph(network) -> Tuple[Union[Graph, List[Op]], bool]:
+    """Normalize `compile`'s first argument to (graph_or_ops, is_graph).
+
+    Accepts a `Graph`, a registered network or model name, a unit list
+    (("conv"/"linear"/"pool", payload) tuples), or a bare op list.
+    Everything except bare op lists lowers to a Graph; bare op lists are
+    planned per op (no end-to-end report, threads/seed-free provenance),
+    hence the flag.
+    """
+    if isinstance(network, Graph):
+        return network, True
+    if isinstance(network, str):
+        if network in NETWORKS:
+            return from_units(NETWORKS[network]()), True
+        from repro_torch.graph.frontends import from_model, model_names
+        if network in model_names():
+            return from_model(network), True
+        raise _unknown_name_error(network)
+    seq = list(network)
+    if not seq:
+        raise ValueError("cannot compile an empty network")
+    if all(isinstance(e, (LinearOp, ConvOp)) for e in seq):
+        return seq, False
+    if all(isinstance(e, tuple) and len(e) == 2 and isinstance(e[0], str)
+           for e in seq):
+        return from_units(seq), True
+    raise TypeError(
+        "network must be a repro_torch.graph.Graph, a registered name, a "
+        "unit list [(kind, payload), ...], or a bare op list "
+        f"[LinearOp/ConvOp, ...]; got {type(seq[0]).__name__} elements")
+
+
+# ------------------------------------------------------------------ compile
+
+#: what `compile(tune=True)` raises until the port's autotuner exists
+TUNE_NOT_PORTED = ("tune=True needs the kernel tile autotuner, which the "
+                   "port does not have yet (ROADMAP Queue 1 item 4: "
+                   "autotune measurement); compile without tune")
+
+
+def compile(network, target: Target, *,               # noqa: A001 — facade
+            mode: str = MODE_PREDICTED,
+            cache: Union[PlanCache, str, Path] = DEFAULT_CACHE_DIR,
+            predictors=None,
+            samples: int = 400, estimators: int = 60,
+            predictor_cache: Optional[Union[str, Path]] = None,
+            bucket: str = "",
+            tune: bool = False) -> "CompiledNetwork":
+    """Compile a network into a `CompiledNetwork` (cached planning), as
+    `repro.compile` does.
+
+    * `network` — a `Graph`, a registered name ("resnet18",
+      "tiny_decoder", "zamba2-7b", ...), a unit list, or a bare op list.
+    * `target` — the validated `Target` (device/threads/mechanism/step/
+      seed/mesh).
+    * `mode` — "predicted" plans with trained GBDT predictors (the paper's
+      deployable path); "grid" uses the measurement-driven oracle and
+      needs no predictors.
+    * `cache` — a `PlanCache` or a directory path; planning is skipped
+      entirely on a warm hit (the plan file is just read back).  The
+      cache's files are the reference's: a plan either package wrote
+      warm-hits in the other.
+    * `predictors` — optional pre-trained (cpu, gpu) pair; when omitted in
+      "predicted" mode a deterministic pair is trained (or loaded from
+      `predictor_cache`) with `samples`/`estimators`.
+    * `bucket` — a serving (batch, seq) bucket tag folded into the
+      provenance digest; only graph plans in "predicted" mode take it.
+
+    `tune=True` raises NotImplementedError: the port has no tile
+    autotuner yet.
+    """
+    if not isinstance(target, Target):
+        raise TypeError(f"target must be a repro_torch.Target, "
+                        f"got {type(target).__name__}")
+    if mode not in (MODE_PREDICTED, MODE_GRID):
+        raise ValueError(f"unknown mode {mode!r}; "
+                         f"choices: ['predicted', 'grid']")
+    if tune:
+        raise NotImplementedError(TUNE_NOT_PORTED)
+    graph_or_ops, is_graph = _resolve_graph(network)
+    if bucket and (mode != MODE_PREDICTED or not is_graph):
+        raise ValueError("bucket= requires a graph network in "
+                         "mode='predicted' (portfolio entries must be "
+                         "replannable)")
+    if not isinstance(cache, PlanCache):
+        cache = PlanCache(Path(cache))
+    mech = target.sync_mechanism
+    hits_before = cache.hits
+
+    if mode == MODE_GRID:
+        if predictors is not None:
+            raise ValueError("mode='grid' is measurement-driven and takes "
+                             "no predictors; drop predictors= or use "
+                             "mode='predicted'")
+        if not is_graph:
+            from repro_torch.kernels.registry import op_kind
+            graph_or_ops = from_units(
+                [(op_kind(op), op) for op in graph_or_ops])
+        plan = grid_plan_graph_cached(
+            graph_or_ops, target.device, target.threads, mechanism=mech,
+            step=target.step, seed=target.seed, cache=cache)
+    else:
+        if predictors is None:
+            kinds: Tuple[str, ...] = ("linear", "conv")
+            if is_graph:
+                # decode kinds present in the graph get predictor members
+                # so the planner can price their (axis, split, mode)
+                # candidates; conv/linear-only graphs keep the plain pair
+                # (and its checksum)
+                kinds += tuple(sorted(
+                    {n.kind for n in graph_or_ops
+                     if n.op is not None and n.kind in ("attention", "ssm")}))
+            predictors = _trained_mux_predictors(
+                target.device, target.threads, samples=samples,
+                estimators=estimators, cache_dir=predictor_cache,
+                kinds=kinds)
+        cpu_pred, gpu_pred = predictors
+        if gpu_pred.device != target.device:
+            raise ValueError(
+                f"predictors were trained for {gpu_pred.device!r} but the "
+                f"target device is {target.device!r}")
+        if is_graph:
+            plan = plan_graph_cached(
+                graph_or_ops, cpu_pred, gpu_pred, threads=target.threads,
+                mechanism=mech, step=target.step, seed=target.seed,
+                bucket=bucket, cache=cache)
+        else:
+            plan = partition_ops_plan_cached(
+                graph_or_ops, cpu_pred, gpu_pred,
+                mechanism=mech, step=target.step, cache=cache)
+
+    return CompiledNetwork(plan=plan, target=target, mode=mode,
+                           from_cache=cache.hits > hits_before,
+                           predictors=predictors)
+
+
+# --------------------------------------------------------- compiled network
 
 def _artifact_checksum(doc: Dict[str, Any]) -> str:
     # the reference's digest, key for key
@@ -101,14 +342,20 @@ def _artifact_checksum(doc: Dict[str, Any]) -> str:
 
 
 class CompiledNetwork:
-    """A loaded plan + its target, with lazily built executors (one per
-    torch device, dtype and weight seed).  `mode` is the planning mode the
-    artifact records."""
+    """A compiled or loaded plan + its target, with lazily built executors
+    (one per torch device, dtype and weight seed).  `mode` is the planning
+    mode; `from_cache` says whether `compile` read the plan back from the
+    plan cache; `predictors` is the (cpu, gpu) pair it planned with (None
+    for grid plans and loaded artifacts)."""
 
-    def __init__(self, plan: CoexecPlan, target: Target, *, mode: str):
+    def __init__(self, plan: CoexecPlan, target: Target, *,
+                 mode: str = MODE_PREDICTED, from_cache: bool = False,
+                 predictors=None):
         self.plan = plan
         self.target = target
         self.mode = mode
+        self.from_cache = from_cache
+        self.predictors = predictors
         self.last_report = None
         self._executors: Dict[Tuple[str, str, int], Any] = {}
 

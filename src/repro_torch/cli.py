@@ -1,10 +1,23 @@
 """`python -m repro_torch` — the port's CLI.
 
-Two subcommands so far:
+Three subcommands so far:
 
-  * `execute` — load a saved `repro.compiled_network` artifact (as the JAX
-    package's `python -m repro plan --save` writes it) and run it end to
-    end on a torch device, reporting executed-vs-predicted fidelity.
+  * `plan` — compile (or fetch from the plan cache) a co-execution plan
+    with the port's planning half, as `python -m repro plan` does, with
+    its options; `--out` also writes the plan JSON, `--save` the
+    shippable artifact (byte-identical to the reference's for the same
+    options), `--explain` prints the per-node decision table.
+
+        python -m repro_torch plan --network vgg16 --device moto2022
+                                   --threads 3 --save vgg16.coexec.json
+        python -m repro_torch plan --model zamba2-7b --blocks 9
+                                   --cache-len 4096 --threads 1 --save X
+
+    `--tune` exits 2: the port has no tile autotuner yet.
+
+  * `execute` — load a saved `repro.compiled_network` artifact (as `plan
+    --save` in either package writes it) and run it end to end on a
+    torch device, reporting executed-vs-predicted fidelity.
 
         python -m repro_torch execute --artifact PATH [--device cpu]
                                       [--per-op] [--runs N] [--no-chain]
@@ -32,11 +45,141 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
 #: the port's committed artifacts, scanned by `verify --all-artifacts`
 ARTIFACTS_DIR = Path(__file__).resolve().parent / "artifacts"
+
+
+def _add_compile_args(ap: argparse.ArgumentParser) -> None:
+    from repro_torch.core.simulator.devices import DEVICES
+    from repro_torch.core.sync import SyncMechanism
+
+    # no choices= here: unknown names surface compile's ValueError, which
+    # lists both registries (unit networks + model graphs) in one message
+    ap.add_argument("--network", default="resnet18",
+                    help="unit network (vgg16, resnet18, ...) or any name "
+                         "--model accepts")
+    ap.add_argument("--model", default=None,
+                    help="decoder-block model graph via graph.from_model "
+                         "(tiny_decoder, tiny_ssm, zamba2-7b, ...); "
+                         "overrides --network")
+    ap.add_argument("--cache-len", type=int, default=128,
+                    help="KV-cache length of --model attention nodes")
+    ap.add_argument("--tokens", type=int, default=1,
+                    help="tokens per decode step of --model graphs "
+                         "(chunked prefill; pure-SSM configs only)")
+    ap.add_argument("--blocks", type=int, default=1,
+                    help="decoder blocks to chain for --model graphs")
+    ap.add_argument("--device", default="moto2022", choices=sorted(DEVICES),
+                    help="the simulated phone to plan for")
+    ap.add_argument("--threads", type=int, default=3)
+    ap.add_argument("--mechanism", default="svm_poll",
+                    choices=[m.value for m in SyncMechanism])
+    ap.add_argument("--step", type=int, default=8,
+                    help="candidate-grid step (channels)")
+    ap.add_argument("--mode", default="predicted",
+                    choices=["predicted", "grid"],
+                    help="predicted = GBDT planning (deployable); "
+                         "grid = measurement-driven oracle")
+    ap.add_argument("--cache-dir", default="reports/plans",
+                    help="on-disk PlanCache directory (shared with the "
+                         "reference: the same keys and files)")
+    ap.add_argument("--samples", type=int, default=400,
+                    help="training ops per predictor (simulator-measured)")
+    ap.add_argument("--estimators", type=int, default=60,
+                    help="GBDT trees per predictor")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--predictor-cache", default=None,
+                    help="optional directory to cache trained predictors "
+                         "(a load is checksum-identical to a retrain)")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune kernel tiles (not in the port yet: "
+                         "exits 2)")
+
+
+class _UserInputError(Exception):
+    """A bad CLI input (unknown name, invalid target, ...), printed as one
+    line; internal failures keep their tracebacks."""
+
+
+def _network_arg(args):
+    """The compile() input: model names, via --model or --network, build
+    a decoder-block graph with the CLI's blocks/cache-len/tokens knobs;
+    everything else resolves by name inside `compile`."""
+    name = args.model or args.network
+    if args.model or _is_model_name(name):
+        from repro_torch.graph.frontends import from_model
+        return from_model(name, blocks=args.blocks,
+                          cache_len=args.cache_len, tokens=args.tokens)
+    return name
+
+
+def _is_model_name(name: str) -> bool:
+    from repro_torch.core.networks import NETWORKS
+    if name in NETWORKS:
+        return False
+    from repro_torch.graph.frontends import model_names
+    return name in model_names()
+
+
+def _compile(args):
+    from repro_torch.api import Target, compile as _api_compile
+    t0 = time.time()
+    # ValueErrors up to and including compile() are user-input problems
+    # (unknown name/device/mechanism, predictor/target mismatch), and so
+    # is --tune, which the port cannot do yet
+    try:
+        target = Target(device=args.device, threads=args.threads,
+                        mechanism=args.mechanism, step=args.step,
+                        seed=args.seed)
+        compiled = _api_compile(_network_arg(args), target, mode=args.mode,
+                                cache=args.cache_dir, samples=args.samples,
+                                estimators=args.estimators,
+                                predictor_cache=args.predictor_cache,
+                                tune=args.tune)
+    except (ValueError, NotImplementedError) as e:
+        raise _UserInputError(str(e)) from e
+    return compiled, time.time() - t0
+
+
+def _cmd_plan(args) -> int:
+    from repro_torch.runtime.cache import PlanCache
+    compiled, dt = _compile(args)
+    plan = compiled.plan
+    n_co = sum(1 for d in plan.decisions if not d.exclusive)
+    name = args.model or args.network
+    status = "HIT" if compiled.from_cache else "MISS (compiled)"
+    print(f"plan {name} on {args.device} (cpu{args.threads}, "
+          f"{args.mechanism}, {args.mode}): cache {status}")
+    print(f"  compiled in {dt:.1f}s (predictors + planning; a warm hit is "
+          f"a pure JSON read)")
+    print(f"  key {plan.key} -> "
+          f"{PlanCache(Path(args.cache_dir)).path_for(plan.provenance)}")
+    if plan.end_to_end_us is not None:
+        print(f"  baseline (GPU only): {plan.baseline_us / 1e3:.1f} ms | "
+              f"end-to-end co-exec: {plan.end_to_end_us / 1e3:.1f} ms "
+              f"({plan.baseline_us / plan.end_to_end_us:.2f}x)")
+    print(f"  {n_co}/{len(plan.decisions)} ops co-executed")
+    # write the files before the explain dump: a consumer closing the pipe
+    # early (`... | head`) must not skip the requested writes
+    if args.out:
+        plan.save(Path(args.out))
+        print(f"  wrote plan {args.out}")
+    if args.save:
+        compiled.save(args.save)
+        print(f"  wrote artifact {args.save}")
+    if args.explain:
+        print(compiled.explain())
+    if args.verbose:
+        from repro_torch.analysis import rejections
+        print(f"  {rejections.summary()}")
+        for digest, rule, detail in rejections.entries():
+            why = f": {detail}" if detail else ""
+            print(f"    {digest} rejected by {rule}{why}")
+    return 0
 
 
 def _cmd_execute(args) -> int:
@@ -127,9 +270,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
-        description="Run compiled co-execution artifacts on PyTorch "
+        description="Compile co-execution plans and run them on PyTorch "
                     "devices.")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p_plan = sub.add_parser(
+        "plan", help="compile (or fetch from cache) a co-execution plan")
+    _add_compile_args(p_plan)
+    p_plan.add_argument("--out", default=None,
+                        help="also write the plan JSON to this path")
+    p_plan.add_argument("--save", default=None,
+                        help="write the shippable CompiledNetwork artifact "
+                             "(plan + target + checksum) to this path")
+    p_plan.add_argument("--explain", action="store_true",
+                        help="print the per-op decision table")
+    p_plan.add_argument("-v", "--verbose", action="store_true",
+                        help="also print cache-rejection counts (which "
+                             "verifier rule each stale entry failed)")
     p_exec = sub.add_parser(
         "execute", help="execute a saved CompiledNetwork artifact end to "
                         "end and report executed-vs-predicted fidelity")
@@ -166,6 +322,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "verify":
         return _cmd_verify(args)
+    if args.cmd == "plan":
+        try:
+            return _cmd_plan(args)
+        except _UserInputError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     try:
         return _cmd_execute(args)
     except (RuntimeError, ValueError) as e:

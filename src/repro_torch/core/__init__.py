@@ -1,2 +1,5 @@
-"""Core of the port: op types, the paper's networks, and two-group
-channel-split co-execution on torch devices and streams (coexec.py)."""
+"""Core of the port: op types, the paper's networks, the planning half
+(the simulated phones in simulator/, the sync cost model in sync.py, the
+GBDT latency predictors in predictor/, partitioner.py and planner.py) and
+two-group channel-split co-execution on torch devices and streams
+(coexec.py)."""

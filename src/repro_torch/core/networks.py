@@ -12,11 +12,33 @@ same network fingerprint in both packages.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 from repro_torch.core.types import ConvOp, LinearOp
 
 Unit = Tuple[str, Union[ConvOp, LinearOp, int]]
+
+
+def unit_input_shape(unit: Unit) -> Optional[Tuple[int, ...]]:
+    """Declared input shape of a conv/linear unit ((H, W, C) or (L, C)); a
+    pool unit's input is whatever the previous unit produced (None)."""
+    kind, payload = unit
+    if kind == "pool":
+        return None
+    from repro_torch.kernels import registry
+    return registry.get(kind).input_shape(payload)
+
+
+def unit_output_shape(unit: Unit, c_prev: int = 0) -> Tuple[int, ...]:
+    """Declared output shape of a unit.  Pool units only record output
+    bytes, so the producing channel count `c_prev` is needed to recover
+    their spatial extent (networks here never pool over channels)."""
+    kind, payload = unit
+    if kind == "pool":
+        edge = pool_out_edge(int(payload), c_prev)
+        return (edge, edge, c_prev)
+    from repro_torch.kernels import registry
+    return registry.get(kind).output_shape(payload)
 
 
 def pool_out_edge(pool_bytes: int, c: int) -> int:

@@ -2,10 +2,12 @@
 
 The paper partitions *individual* linear and convolutional operations along
 their output channels (Section 2).  These dataclasses are the common currency
-of a compiled plan: the port decodes them from plan JSON and executes them.
-They are the port's own copy of `repro.core.types` (the port imports nothing
-from the JAX package), field for field and with the same validation, so
-both packages decode one plan alike.
+between the simulator, the latency predictors, the partitioner, the
+planner and the executor.  They are the port's own copy of
+`repro.core.types` (the port imports nothing from the JAX package), field
+for field, with the same defaults, validation and accounting, so both
+packages decode one plan alike and `repr(op)` is the same string in both:
+the simulator seeds each op's measurement noise from it.
 
 `AttnOp` (single-position decode attention over a KV cache) and `SSMOp` (a
 chunked SSD state-space scan) are the graph IR's decoder-block kinds; they
@@ -25,6 +27,25 @@ class LinearOp:
     L: int
     C_in: int
     C_out: int
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.L * self.C_in * self.C_out
+
+    @property
+    def input_bytes(self) -> int:
+        return 4 * self.L * self.C_in
+
+    @property
+    def weight_bytes(self) -> int:
+        return 4 * self.C_in * self.C_out
+
+    @property
+    def output_bytes(self) -> int:
+        return 4 * self.L * self.C_out
+
+    def with_cout(self, c_out: int) -> "LinearOp":
+        return dataclasses.replace(self, C_out=c_out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,13 +67,36 @@ class ConvOp:
     def W_out(self) -> int:
         return max(1, self.W_in // self.S)
 
+    @property
+    def flops(self) -> int:
+        return 2 * self.H_out * self.W_out * self.C_out * self.K * self.K * self.C_in
+
+    @property
+    def input_bytes(self) -> int:
+        return 4 * self.H_in * self.W_in * self.C_in
+
+    @property
+    def weight_bytes(self) -> int:
+        return 4 * self.K * self.K * self.C_in * self.C_out
+
+    @property
+    def output_bytes(self) -> int:
+        return 4 * self.H_out * self.W_out * self.C_out
+
+    def with_cout(self, c_out: int) -> "ConvOp":
+        return dataclasses.replace(self, C_out=c_out)
+
 
 @dataclasses.dataclass(frozen=True)
 class AttnOp:
-    """Single-position (decode-step) GQA attention over a length-S KV cache:
-    the (1, H * hd) query block attends causally to positions 0..S-1
-    (optionally sliding-window limited); the (2, S, KV, hd) cache is the
-    op's parameter."""
+    """Single-position (decode-step) GQA attention over a length-S KV cache.
+
+    The activation is the current token's query block, flattened to
+    (1, H * hd); the KV cache is the op's parameter tensor (2, S, KV, hd)
+    — state, not activation, exactly as in a serving decode step.  The op
+    attends causally to positions 0..S-1 (optionally sliding-window
+    limited) and produces the (1, H * hd) attended block.
+    """
 
     H: int                    # query heads
     S: int                    # cache length (attends to positions 0..S-1)
@@ -84,12 +128,36 @@ class AttnOp:
         """Sub-op over a length-`s` block of the KV cache."""
         return dataclasses.replace(self, S=s)
 
+    def with_mode(self, mode: str) -> "AttnOp":
+        return dataclasses.replace(self, mode=mode)
+
+    @property
+    def flops(self) -> int:
+        # q.k scores + probs.v, each 2*H*S*hd MACs-as-flops
+        return 4 * self.H * self.S * self.hd
+
+    @property
+    def input_bytes(self) -> int:
+        return 4 * self.H * self.hd
+
+    @property
+    def weight_bytes(self) -> int:
+        return 4 * 2 * self.S * self.KV * self.hd     # the KV cache
+
+    @property
+    def output_bytes(self) -> int:
+        return 4 * self.H * self.hd
+
 
 @dataclasses.dataclass(frozen=True)
 class SSMOp:
-    """Chunked SSD (Mamba2-style) scan over T tokens of a (T, H * hd)
-    block; the B/C/dt projections, decay and carried state are the op's
-    flattened parameter vector."""
+    """Chunked SSD (Mamba2-style) scan over T tokens.
+
+    The activation is the inner-projected token block (T, H * hd); the
+    B/C/dt projections, the per-head decay and the carried state are the
+    op's parameter vector (flattened; the lowering unpacks and applies the
+    stabilizing transforms).  Output is the scanned (T, H * hd) block.
+    """
 
     T: int                    # tokens scanned
     H: int                    # SSM heads
@@ -110,6 +178,35 @@ class SSMOp:
             raise ValueError(f"head slice {h} out of range for H={self.H}")
         return dataclasses.replace(self, H=h)
 
+    def with_mode(self, mode: str) -> "SSMOp":
+        return dataclasses.replace(self, mode=mode)
+
+    @property
+    def flops(self) -> int:
+        # per token: state update (~4*H*hd*N) + output contraction (2*H*hd*N)
+        return 6 * self.T * self.H * self.hd * self.N
+
+    @property
+    def input_bytes(self) -> int:
+        return 4 * self.T * self.H * self.hd
+
+    @property
+    def weight_bytes(self) -> int:
+        # b, c: (T, N) each; dt: (T, H); a: (H,); state0: (H, hd, N)
+        return 4 * (2 * self.T * self.N + self.T * self.H + self.H
+                    + self.H * self.hd * self.N)
+
+    @property
+    def output_bytes(self) -> int:
+        return 4 * self.T * self.H * self.hd
+
+
+#: the output-channel-splittable kinds — the paper's partitioning domain
+SplittableOp = Union[LinearOp, ConvOp]
 
 #: every schedulable op kind (graph IR node payloads)
 Op = Union[LinearOp, ConvOp, AttnOp, SSMOp]
+
+
+def op_with_cout(op: SplittableOp, c_out: int) -> SplittableOp:
+    return op.with_cout(c_out)

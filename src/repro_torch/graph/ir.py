@@ -1,15 +1,17 @@
 """The typed op graph a plan executes over.
 
-The port's copy of `repro.graph.ir`, cut to what execution needs:
+The port's copy of `repro.graph.ir`, cut to what planning and execution
+need:
 
   * `Node(id, kind, op, inputs)` — one scheduling unit.  `kind` is either
     a kernel-registry op kind ("conv", "linear", "attention", "ssm") with
     its `op` payload, or a structural kind: "pool" (carries `pool_bytes`)
     and "add" (elementwise residual join, >= 2 inputs).
   * `Graph` — validated, topologically ordered, shape-inferred and
-    JSON-decodable.  Edges are explicit, so the executor gathers a shared
-    split output once and elides the gather where the sole consumer is a
-    compatible split node (`Graph.elided`).
+    JSON-serializable (the reference's codec, key for key).  Edges are
+    explicit, so the executor gathers a shared split output once and
+    elides the gather where the sole consumer is a compatible split node
+    (`Graph.elided`).
   * `Graph.segments(coexec)` — the reference's segment partition: the
     topological order cut into maximal fused runs of channel-split nodes
     and residual adds, and pool/exclusive singletons
@@ -89,6 +91,20 @@ class Node:
         if len(self.inputs) > 1:
             raise ValueError(f"node {self.id!r}: op nodes take at most one "
                              f"input, got {len(self.inputs)}")
+
+    @property
+    def splittable(self) -> bool:
+        """Whether the partitioner may channel-split this node."""
+        return self.op is not None and registry.get(self.kind).splittable
+
+    def to_json(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"id": self.id, "kind": self.kind,
+                             "inputs": list(self.inputs)}
+        if self.op is not None:
+            d["op"] = registry.op_to_json(self.op)
+        if self.kind == "pool":
+            d["bytes"] = self.pool_bytes
+        return d
 
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "Node":
@@ -209,6 +225,10 @@ class Graph:
     def sources(self) -> Tuple[Node, ...]:
         return tuple(n for n in self.nodes if not n.inputs)
 
+    def splittable_nodes(self) -> List[Node]:
+        """The partitioner's domain: channel-splittable op nodes."""
+        return [n for n in self.nodes if n.splittable]
+
     # ----------------------------------------------------- shape inference
     def input_shape(self, node_id: str) -> Optional[Tuple[int, ...]]:
         """Declared input shape of an op node (None for pool/add)."""
@@ -240,6 +260,34 @@ class Graph:
             shape = shapes.pop()
         self._out_shapes[node_id] = shape
         return shape
+
+    def check_shapes(self) -> None:
+        """Strict edge validation, as the reference's: every op node's
+        declared input shape equals its producer's inferred output shape
+        (legacy unit chains are not held to it; `from_model` graphs pass
+        it).  Attention/ssm ops are charged per sequence, so an edge
+        touching one may carry a whole batch of rows: trailing dims must
+        match and the leading dims must divide."""
+        for n in self.nodes:
+            self.output_shape(n.id)             # forces add-join checks
+            declared = self.input_shape(n.id)
+            if declared is None or not n.inputs:
+                continue
+            src = self.node(n.inputs[0])
+            produced = self.output_shape(n.inputs[0])
+            if tuple(produced) == tuple(declared):
+                continue
+            per_seq = n.kind in ("attention", "ssm") or \
+                src.kind in ("attention", "ssm")
+            a, b = tuple(produced), tuple(declared)
+            if per_seq and len(a) == len(b) and a[1:] == b[1:] and \
+                    min(a[0], b[0]) > 0 and max(a[0], b[0]) % \
+                    min(a[0], b[0]) == 0:
+                continue
+            raise ValueError(
+                f"edge {n.inputs[0]!r} -> {n.id!r}: producer emits "
+                f"{tuple(produced)} but the consumer declares "
+                f"{tuple(declared)}")
 
     # ------------------------------------------- gather elision, segments
     def _chains_edge(self, producer: Node, consumer: Node) -> bool:
@@ -366,6 +414,10 @@ class Graph:
         return hashlib.blake2b(blob.encode(), digest_size=12).hexdigest()
 
     # -------------------------------------------------------------- codecs
+    def to_json(self) -> Dict[str, Any]:
+        return {"schema_version": GRAPH_SCHEMA_VERSION,
+                "nodes": [n.to_json() for n in self.nodes]}
+
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "Graph":
         return Graph([Node.from_json(n) for n in d["nodes"]])

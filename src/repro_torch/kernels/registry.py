@@ -1,7 +1,7 @@
 """Kernel registry of the port: one dispatch table for every op kind.
 
-The port's copy of the parts of `repro.kernels.registry` that execution
-needs.  It maps an op kind to
+The port's copy of `repro.kernels.registry`, less the Pallas lowerings.
+It maps an op kind to
 
   * its JSON codec (`op_to_json` / `op_from_json`) and label, so plan
     documents written by the JAX package decode to the same ops here,
@@ -14,19 +14,22 @@ needs.  It maps an op kind to
     it, registered lazily by `kernels/*/ops.py` so that importing the
     registry builds nothing,
   * its **typed partition axes** (attention: head / kv-block; ssm:
-    ssm-state), the split validation plans are decoded through, and the
-    **split lowerings** that co-execute a node along such an axis.
+    ssm-state) and kernel **modes**, the split validation plans are
+    decoded through, and the **split lowerings** that co-execute a node
+    along such an axis,
+  * its **base feature extractor**, what the latency predictors featurize
+    (`core/predictor/features.py` routes through here).
 
 It also holds the reference's TPU tile table (`TileSpec` per kind,
 `resolve_tile`, the tile JSON codec) as data: a decision's `tile` is the
 TPU blocking the plan was tuned for, which the static verifier
-(`repro_torch.analysis`) checks and no Hopper kernel applies.  Predictor
-features and the tile search stay with the planning half.
+(`repro_torch.analysis`) checks; no Hopper kernel applies it.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
@@ -48,9 +51,10 @@ _KIND_BY_TYPE = {LinearOp: "linear", ConvOp: "conv",
 
 #: per-kind kernel modes; the first entry is the default, which plan JSON
 #: omits
-_MODES = {"linear": (), "conv": (),
-          "attention": ("streaming", "materialized"),
-          "ssm": ("chunked", "recurrent")}
+_ATTN_MODES = ("streaming", "materialized")
+_SSM_MODES = ("chunked", "recurrent")
+_MODES = {"linear": (), "conv": (), "attention": _ATTN_MODES,
+          "ssm": _SSM_MODES}
 
 #: minimum output-channel count before the Winograd F(2x2,3x3) lowering is
 #: dispatched (the reference's threshold, so both packages pick one
@@ -188,6 +192,12 @@ _AXES: Dict[str, Tuple[AxisSpec, ...]] = {
                                        and op.hd % SSM_LANE_ALIGN == 0)),
     ),
 }
+
+
+def axes_for(op: Op) -> List[AxisSpec]:
+    """The partition axes offered for this specific op (availability
+    predicates applied — e.g. no kv-block axis for short caches)."""
+    return [a for a in entry_for(op).axes if a.available(op)]
 
 
 def axis_spec(kind: str, axis: str) -> AxisSpec:
@@ -552,6 +562,31 @@ def _ssm_param_count(op: SSMOp) -> int:
     return 2 * op.T * op.N + op.T * op.H + op.H + op.H * op.hd * op.N
 
 
+# the predictors' per-kind base features (the reference's, value for
+# value: the feature matrices, hence the trees, must agree)
+
+def _linear_base_features(op: LinearOp) -> List[float]:
+    return [op.L, op.C_in, op.C_out,
+            math.log(max(op.flops, 1)), math.log(max(op.weight_bytes, 1))]
+
+
+def _conv_base_features(op: ConvOp) -> List[float]:
+    return [op.H_in, op.W_in, op.C_in, op.C_out, op.K, op.S,
+            math.log(max(op.flops, 1)), math.log(max(op.weight_bytes, 1))]
+
+
+def _attn_base_features(op: AttnOp) -> List[float]:
+    return [op.H, op.S, op.KV, op.hd, op.window,
+            math.log(max(op.flops, 1)), math.log(max(op.weight_bytes, 1)),
+            float(_ATTN_MODES.index(op.mode))]
+
+
+def _ssm_base_features(op: SSMOp) -> List[float]:
+    return [op.T, op.H, op.hd, op.N,
+            math.log(max(op.flops, 1)), math.log(max(op.weight_bytes, 1)),
+            float(_SSM_MODES.index(op.mode))]
+
+
 def _fan_in(op: Op) -> int:
     if isinstance(op, LinearOp):
         return op.C_in
@@ -578,12 +613,14 @@ class KernelLowering:
 
 @dataclasses.dataclass(frozen=True)
 class KernelEntry:
-    """What the executor needs to know about a kind."""
+    """What the planner and the executor need to know about a kind."""
 
     kind: str
     input_shape: Callable[[Op], Tuple[int, ...]]
     weight_shape: Callable[[Op], Tuple[int, ...]]
     output_shape: Callable[[Op], Tuple[int, ...]]
+    #: the latency predictors' base feature vector of an op
+    base_features: Callable[[Op], List[float]]
     #: whether a plan may split the op's output channels across the two
     #: groups; kinds with ``splittable=False`` split along their typed
     #: ``axes`` instead
@@ -594,6 +631,12 @@ class KernelEntry:
         """The kind's typed partition axes (empty for channel-split
         kinds)."""
         return _AXES[self.kind]
+
+    @property
+    def modes(self) -> Tuple[str, ...]:
+        """Kernel modes the planner may choose between; the first is the
+        default (empty for kinds without a mode dimension)."""
+        return _MODES[self.kind]
 
     def init_weight(self, op: Op, rng: np.random.Generator) -> np.ndarray:
         """Seeded fan-in-scaled weights: the reference's draw, so one seed
@@ -609,18 +652,21 @@ _ENTRIES: Dict[str, KernelEntry] = {
         input_shape=lambda op: (op.L, op.C_in),
         weight_shape=lambda op: (op.C_in, op.C_out),
         output_shape=lambda op: (op.L, op.C_out),
+        base_features=_linear_base_features,
     ),
     "conv": KernelEntry(
         kind="conv",
         input_shape=lambda op: (op.H_in, op.W_in, op.C_in),
         weight_shape=lambda op: (op.K, op.K, op.C_in, op.C_out),
         output_shape=lambda op: (op.H_out, op.W_out, op.C_out),
+        base_features=_conv_base_features,
     ),
     "attention": KernelEntry(
         kind="attention",
         input_shape=lambda op: (1, op.H * op.hd),
         weight_shape=lambda op: (2, op.S, op.KV, op.hd),   # stacked K/V
         output_shape=lambda op: (1, op.H * op.hd),
+        base_features=_attn_base_features,
         splittable=False,
     ),
     "ssm": KernelEntry(
@@ -628,6 +674,7 @@ _ENTRIES: Dict[str, KernelEntry] = {
         input_shape=lambda op: (op.T, op.H * op.hd),
         weight_shape=lambda op: (_ssm_param_count(op),),
         output_shape=lambda op: (op.T, op.H * op.hd),
+        base_features=_ssm_base_features,
         splittable=False,
     ),
 }
@@ -645,6 +692,16 @@ def get(kind: str) -> KernelEntry:
     except KeyError:
         raise KeyError(f"unregistered op kind {kind!r}; "
                        f"known: {kinds()}") from None
+
+
+def entry_for(op: Op) -> KernelEntry:
+    return get(op_kind(op))
+
+
+def is_splittable(op: Op) -> bool:
+    """Whether the partitioner may channel-split this op (see
+    KernelEntry)."""
+    return entry_for(op).splittable
 
 
 def register_lowering(kind: str, *, kernel: Callable, oracle: Callable

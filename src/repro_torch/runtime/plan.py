@@ -1,12 +1,15 @@
-"""Compiled co-execution plans, as the port reads them.
+"""Compiled co-execution plans.
 
-The JAX package compiles a network offline into a `CoexecPlan`: the full
-per-node `PartitionDecision` schedule plus the provenance needed to know
-when it is safe to reuse (device, threads, sync mechanism, candidate-grid
-step, network fingerprint, predictor checksum).  The plan JSON is the
-contract between the two packages: this module is the port's copy of the
-decode side of `repro.runtime.plan`, so one plan document decodes to the
-same schedule, graph, provenance key and exec specs in both.
+A `CoexecPlan` is the compiled artifact: the full per-node
+`PartitionDecision` schedule of a network plus the provenance needed to
+know when it is safe to reuse (device, threads, sync mechanism,
+candidate-grid step, network fingerprint, predictor checksum).  The plan
+JSON is the contract between the two packages: this module is the port's
+copy of `repro.runtime.plan`, both halves.  The writer half
+(`build_graph_schedule`, `plan_from_graph_report`, `predictor_checksum`,
+`train_mux_predictors`) emits the reference's documents byte for byte, and
+the reader half decodes one plan document to the same schedule, graph,
+provenance key and exec specs in both packages.
 
 Loading is strict by default, as in the reference: `CoexecPlan.from_json`
 (and `loads`/`load`) statically verifies the document first
@@ -31,44 +34,29 @@ import dataclasses
 import hashlib
 import json
 from pathlib import Path
-from typing import Any, Dict, FrozenSet, List, Optional, Union
+from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Union
+
+import numpy as np
 
 from repro_torch.core.networks import Unit
-from repro_torch.core.planner import PlanReport
+from repro_torch.core.partitioner import PartitionDecision
+from repro_torch.core.planner import GraphPlanReport, PlanReport
+from repro_torch.core.sync import SyncMechanism
 from repro_torch.core.types import Op
 from repro_torch.graph.ir import Graph, Segment, from_units
 from repro_torch.kernels.registry import (TileConfig, op_from_json, op_kind,
-                                          op_label, resolve_tile,
-                                          tile_from_json, validate_axis_split)
+                                          op_label, op_to_json, resolve_tile,
+                                          tile_from_json, tile_to_json,
+                                          validate_axis_split)
 
 PLAN_SCHEMA_VERSION = 1
 
-#: the planner provenance records when it names none
-PLANNER_PREDICTOR = "predictor"
+#: planner identifiers recorded in provenance
+PLANNER_PREDICTOR = "predictor"      # GBDT-driven (deployable path)
+PLANNER_GRID = "grid"                # measurement-driven oracle
 
 
 # -------------------------------------------------------------- decisions
-
-@dataclasses.dataclass(frozen=True)
-class PartitionDecision:
-    """One node's planned split: `c_gpu` units on the fast group, `c_cpu`
-    on the slow group, with the planner's predicted latencies.  `tile` is
-    the TPU tile config the plan carries (validated against the
-    reference's TPU tile table, never applied to the port's kernels)."""
-
-    op: Op
-    c_cpu: int
-    c_gpu: int
-    pred_cpu_us: float
-    pred_gpu_us: float
-    pred_total_us: float
-    axis: str = "channel"
-    tile: Optional[TileConfig] = None
-
-    @property
-    def exclusive(self) -> bool:
-        return self.c_cpu == 0 or self.c_gpu == 0
-
 
 def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
     if dec.c_cpu < 0 or dec.c_gpu < 0:
@@ -90,6 +78,20 @@ def _validate_decision(dec: PartitionDecision) -> PartitionDecision:
     return dec
 
 
+def decision_to_json(dec: PartitionDecision) -> Dict[str, Any]:
+    _validate_decision(dec)
+    d = {"op": op_to_json(dec.op), "c_cpu": dec.c_cpu, "c_gpu": dec.c_gpu,
+         "pred_cpu_us": dec.pred_cpu_us, "pred_gpu_us": dec.pred_gpu_us,
+         "pred_total_us": dec.pred_total_us}
+    # the axis and tile keys are omitted at their defaults, as the
+    # reference writes them
+    if dec.axis != "channel":
+        d["axis"] = dec.axis
+    if dec.tile is not None:
+        d["tile"] = tile_to_json(dec.tile)
+    return d
+
+
 def decision_from_json(d: Dict[str, Any]) -> PartitionDecision:
     op = op_from_json(d["op"])
     tile = (tile_from_json(op_kind(op), d["tile"])
@@ -102,6 +104,64 @@ def decision_from_json(d: Dict[str, Any]) -> PartitionDecision:
 
 
 # ------------------------------------------------------------- provenance
+
+def network_fingerprint(units: Sequence[Unit]) -> str:
+    """Stable digest of a network's op graph (the plan's input contract)."""
+    canon = []
+    for kind, payload in units:
+        if kind == "pool":
+            canon.append(["pool", int(payload)])
+        else:
+            canon.append([kind, op_to_json(payload)])
+    blob = json.dumps(canon, sort_keys=True, separators=(",", ":"))
+    return hashlib.blake2b(blob.encode(), digest_size=12).hexdigest()
+
+
+def _hash_array(h, arr) -> None:
+    a = np.ascontiguousarray(arr)
+    h.update(str(a.dtype).encode())
+    h.update(str(a.shape).encode())
+    h.update(a.tobytes())
+
+
+def _hash_gbdt(h, model) -> None:
+    h.update(repr(dataclasses.astuple(model.params)).encode())
+    h.update(repr(model.base_).encode())
+    for edges in model.bin_edges_ or []:
+        _hash_array(h, edges)
+    for tree in model.trees:
+        _hash_array(h, tree.feature)
+        _hash_array(h, tree.threshold_bin)
+        _hash_array(h, tree.left)
+        _hash_array(h, tree.right)
+        _hash_array(h, tree.value)
+
+
+def predictor_checksum(*predictors) -> str:
+    """Structural digest of one or more (possibly Mux) latency predictors,
+    the reference's byte for byte: two predictors trained from identical
+    data and seeds hash identically across processes and packages, and any
+    retraining that changes a tree invalidates dependent plans."""
+    h = hashlib.blake2b(digest_size=12)
+    for p in predictors:
+        if hasattr(p, "models"):                     # LatencyPredictor
+            h.update(f"{p.device}/{p.backend}/{p.whitebox}".encode())
+            for kern in sorted(p.models):
+                h.update(kern.encode())
+                _hash_gbdt(h, p.models[kern])
+        elif hasattr(p, "linear") and hasattr(p, "conv"):   # MuxPredictor
+            # decode-kind members are appended only when present, so
+            # conv/linear-only bundles keep their checksums
+            members = [p.linear, p.conv]
+            for extra in (getattr(p, "attention", None),
+                          getattr(p, "ssm", None)):
+                if extra is not None:
+                    members.append(extra)
+            h.update(predictor_checksum(*members).encode())
+        else:
+            raise TypeError(f"cannot checksum predictor {type(p).__name__}")
+    return h.hexdigest()
+
 
 @dataclasses.dataclass(frozen=True)
 class PlanProvenance:
@@ -396,3 +456,153 @@ class CoexecPlan:
     @staticmethod
     def load(path: Union[str, Path], *, verify: bool = True) -> "CoexecPlan":
         return CoexecPlan.loads(Path(path).read_text(), verify=verify)
+
+
+# ----------------------------------------------------------------- writer
+
+def build_schedule(units: Sequence[Unit],
+                   decisions: Sequence[PartitionDecision]
+                   ) -> List[Dict[str, Any]]:
+    """Zip a unit list with its op decisions into the plan schedule."""
+    schedule: List[Dict[str, Any]] = []
+    it = iter(decisions)
+    for kind, payload in units:
+        if kind == "pool":
+            schedule.append({"unit": "pool", "bytes": int(payload)})
+        else:
+            schedule.append({"unit": kind,
+                             "decision": decision_to_json(next(it))})
+    return schedule
+
+
+def build_graph_schedule(graph: Graph,
+                         decisions: Dict[str, PartitionDecision],
+                         opaque_us: Dict[str, float]
+                         ) -> List[Dict[str, Any]]:
+    """Lower a planned graph into the schedule entry list.
+
+    Unit-chain graphs emit the legacy entry format (no "id" keys: their
+    node ids canonicalize to positions on reload); everything else carries
+    explicit node ids (and the caller embeds the graph via `graph_json`).
+    """
+    legacy = graph.is_unit_chain()
+    schedule: List[Dict[str, Any]] = []
+    for node in graph:
+        if node.kind == "pool":
+            entry: Dict[str, Any] = {"unit": "pool",
+                                     "bytes": int(node.pool_bytes)}
+        elif node.kind == "add":
+            entry = {"unit": "add"}
+        elif node.id in decisions:
+            entry = {"unit": node.kind,
+                     "decision": decision_to_json(decisions[node.id])}
+        else:                # no decision: legacy opaque exclusive-GPU node
+            entry = {"unit": node.kind, "op": op_to_json(node.op),
+                     "pred_us": float(opaque_us[node.id])}
+        if not legacy:
+            entry["id"] = node.id
+        schedule.append(entry)
+    return schedule
+
+
+def segments_json(graph: Graph,
+                  decisions: Dict[str, PartitionDecision]
+                  ) -> List[Dict[str, Any]]:
+    """The plan's embedded segment-partition metadata: `graph.segments`
+    over the co-executed channel-split nodes of `decisions`.  Unit-chain
+    graphs name segment nodes by position ("n{i}"), the ids a reload of
+    their id-free schedule reconstructs."""
+    coexec = {nid for nid, d in decisions.items()
+              if d.c_cpu > 0 and d.c_gpu > 0 and d.axis == "channel"}
+    canon = {n.id: f"n{i}" for i, n in enumerate(graph)} \
+        if graph.is_unit_chain() else {n.id: n.id for n in graph}
+    return [{"kind": s.kind, "nodes": [canon[nid] for nid in s.node_ids]}
+            for s in graph.segments(coexec)]
+
+
+def plan_from_graph_report(graph: Graph, report: GraphPlanReport, *,
+                           mechanism: SyncMechanism, step: int, seed: int,
+                           pred_checksum: str,
+                           planner: str = PLANNER_PREDICTOR,
+                           bucket: str = "",
+                           with_totals: bool = True) -> CoexecPlan:
+    """Assemble the compiled plan of a `plan_graph`/`grid_plan_graph` run
+    (provenance fingerprint = the graph's content-addressed digest)."""
+    prov = PlanProvenance(device=report.device, threads=report.threads,
+                          mechanism=mechanism.value, step=step, seed=seed,
+                          network_fingerprint=graph.fingerprint(),
+                          predictor_checksum=pred_checksum,
+                          planner=planner, bucket=bucket)
+    return CoexecPlan(
+        provenance=prov,
+        schedule=build_graph_schedule(graph, report.decisions,
+                                      report.opaque_us),
+        baseline_us=report.baseline_us if with_totals else None,
+        individual_us=report.individual_us if with_totals else None,
+        end_to_end_us=report.end_to_end_us if with_totals else None,
+        graph_json=None if graph.is_unit_chain() else graph.to_json(),
+        segments=segments_json(graph, report.decisions))
+
+
+def plan_from_report(units: Sequence[Unit], report: PlanReport, *,
+                     mechanism: SyncMechanism, step: int, seed: int,
+                     pred_checksum: str) -> CoexecPlan:
+    """Assemble the compiled plan of a unit-list `plan_network` run."""
+    prov = PlanProvenance(device=report.device, threads=report.threads,
+                          mechanism=mechanism.value, step=step, seed=seed,
+                          network_fingerprint=network_fingerprint(units),
+                          predictor_checksum=pred_checksum,
+                          planner=PLANNER_PREDICTOR)
+    graph = from_units(units)
+    decisions = {nid: dec for nid, dec in zip(
+        (n.id for n in graph if n.kind != "pool"), report.decisions)}
+    return CoexecPlan(provenance=prov,
+                      schedule=build_schedule(units, report.decisions),
+                      baseline_us=report.baseline_us,
+                      individual_us=report.individual_us,
+                      end_to_end_us=report.end_to_end_us,
+                      segments=segments_json(graph, decisions))
+
+
+def train_mux_predictors(device: str, threads: int, *, samples: int = 400,
+                         estimators: int = 60,
+                         kinds: Sequence[str] = ("linear", "conv")):
+    """Train the (cpu, gpu) MuxPredictor pair `compile` plans with.
+    Deterministic (fixed data seeds), so two trainings with the same knobs,
+    in either package, give checksum-identical predictors.
+
+    `kinds` adds optional decode-kind members ("attention", "ssm") on top
+    of the always-present linear/conv pair; conv/linear-only bundles keep
+    their checksum."""
+    from repro_torch.core.predictor import (sample_attn_ops, sample_conv_ops,
+                                            sample_linear_ops,
+                                            sample_ssm_ops, train_predictor)
+    from repro_torch.core.predictor.gbdt import GBDTParams
+    from repro_torch.core.predictor.train import MuxPredictor
+
+    params = GBDTParams(n_estimators=estimators)
+    lt = sample_linear_ops(samples, seed=1)
+    ct = sample_conv_ops(samples, seed=1)
+    gp = MuxPredictor(
+        train_predictor(lt, device, "gpu", whitebox=True, params=params),
+        train_predictor(ct, device, "gpu", whitebox=True, params=params))
+    cp = MuxPredictor(
+        train_predictor(lt, device, f"cpu{threads}",
+                        whitebox=False, params=params),
+        train_predictor(ct, device, f"cpu{threads}",
+                        whitebox=False, params=params))
+    # decode kinds have no dispatch-table white-box features: both
+    # backends train black-box on the configuration (+ mode index)
+    if "attention" in kinds:
+        at = sample_attn_ops(samples, seed=1)
+        gp.attention = train_predictor(at, device, "gpu",
+                                       whitebox=False, params=params)
+        cp.attention = train_predictor(at, device, f"cpu{threads}",
+                                       whitebox=False, params=params)
+    if "ssm" in kinds:
+        st = sample_ssm_ops(samples, seed=1)
+        gp.ssm = train_predictor(st, device, "gpu",
+                                 whitebox=False, params=params)
+        cp.ssm = train_predictor(st, device, f"cpu{threads}",
+                                 whitebox=False, params=params)
+    return cp, gp

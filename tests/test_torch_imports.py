@@ -55,6 +55,31 @@ def test_the_scan_covers_the_verifier_and_the_planner_report():
         assert m in mods
 
 
+#: the planning half's modules (the simulator, the predictors, the
+#: partitioner and planner, the plan writer and cache, the model configs
+#: and the graph frontends)
+PLANNING_MODULES = [
+    "repro_torch.core.simulator", "repro_torch.core.simulator.devices",
+    "repro_torch.core.simulator.gpu_model",
+    "repro_torch.core.simulator.cpu_model",
+    "repro_torch.core.simulator.decode_model",
+    "repro_torch.core.simulator.measure", "repro_torch.core.sync",
+    "repro_torch.core.predictor", "repro_torch.core.predictor.gbdt",
+    "repro_torch.core.predictor.features",
+    "repro_torch.core.predictor.dataset",
+    "repro_torch.core.predictor.train", "repro_torch.core.partitioner",
+    "repro_torch.runtime.cache", "repro_torch.models",
+    "repro_torch.models.config", "repro_torch.models.registry",
+    "repro_torch.configs", "repro_torch.configs.zamba2_7b",
+    "repro_torch.graph.frontends",
+]
+
+
+@pytest.mark.parametrize("module", PLANNING_MODULES)
+def test_the_scan_covers_the_planning_half(module):
+    assert module in _port_modules()
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
