@@ -12,7 +12,8 @@ the port cannot be imported, and otherwise runs, in order:
    cuDNN, so every fp32 comparison is a full-fp32 one;
 2. the build of every kernel from `src/repro_torch/csrc` (one nvcc per
    source, all at once), with ptxas's register/shared-memory report;
-3. one phase per kernel at the main paths' shapes plus off-path ones:
+3. one phase per kernel at the main paths' shapes plus off-path ones
+   (each case through that kernel's `hold_*`):
    the kernel against its plain PyTorch version in float32 and bfloat16,
    with kernel, plain and library (`torch.matmul`, `torch.bmm`,
    `scaled_dot_product_attention`; none for the SSD scan) device times
@@ -50,18 +51,47 @@ the port cannot be imported, and otherwise runs, in order:
    segment captured once as a CUDA graph (each printed with its kind, its
    nodes and the kernel launches its graph holds), then the same seeded
    requests, each output `torch.equal` to the per-node walk's and within
-   `E2E_RTOL` of `run_oracle`, with the launch counts (credited at each
-   replay), reshard and elided counts of the per-node walk and one sync
-   per segment; the two walks' median walls from one alternating run
-   (per-node, fused, per-node, fused, ...); two fused requests under
+   `E2E_RTOL` of `run_oracle`, with the per-node walk's launch counts
+   (credited at each replay), the reshard and elided counts over its
+   channel splits (`fused_reshard_counts`) and one sync per segment; the
+   two walks' median walls from one alternating run (per-node, fused,
+   per-node, fused, ...); two fused requests under
    torch.profiler, with each kernel's launches in the trace beside its
    credited counter and the graph launches the trace shows;
 8. a bfloat16 run of VGG16 and the zamba2-7b step (`BF16_PATHS`):
    `executor(dtype="bfloat16")`, per-node and fused, `BF16_REQUESTS`
    requests each, held against the float32 `run_oracle` at `BF16_RTOL`
    of its largest |value|, with the same launch counts;
-9. a JSON line of per-kernel numbers, then the result line.  Each phase
-   prints its seconds.
+9. the `calibrate` phase, on VGG16 and the zamba2-7b step
+   (`CALIBRATE_PATHS`, the networks phase 4 compiled, which carry their
+   predictors): `RECORD_RUNS` per-node runs and one fused run recorded
+   into a fresh measurement store (each kernel launched that many times
+   the plan's count), `recalibrate()` with its corrections, record count,
+   the fidelity error before and after the fit over the card's records
+   (after <= before) and the calibrator's version; `replan()` with its
+   `PlanDiff`, the nodes that moved their axis or boundary and the host
+   seconds; the replanned plan saved and loaded back strictly, then run
+   per node and fused as a main path is (`REPLAN_REQUESTS` requests each,
+   within `E2E_RTOL` of its own `run_oracle`, fused `torch.equal` to
+   per-node, counts `expected_counts` of the replanned plan), every
+   kernel call of one more request captured (`kernel_calls`) and each
+   distinct call held against its plain version in float32 and bfloat16
+   with its times and bound (`hold_walk_calls`); and the original and
+   replanned plans' walls in turns, with no claim;
+10. the `portfolio` phase: the committed zamba2-7b portfolio
+   (`PORTFOLIO`) compiled on this host by `compile_portfolio` into fresh
+   caches, its document equal to the committed one (checksum included),
+   compiled again as all warm hits, cold and warm seconds printed; then
+   the file loaded strictly and each of its three entries (batch 1 and 4,
+   64- and 256-position caches), picked by `select`, run per node and
+   fused as a main path is (`PORTFOLIO_REQUESTS` requests each), its
+   kernel calls held as in phase 9; then the in-process portfolio's entry
+   for the live step `PORTFOLIO_STEP` taken through phase 9's loop and
+   swapped in with `replace`, the new document loaded back strictly;
+11. a JSON line of per-kernel numbers (launches summed over every walk
+   above, `by_path` per walk with the float32 times of one request where
+   the walk's calls were held), then the result line.  Each phase prints
+   its seconds.
 """
 from __future__ import annotations
 
@@ -109,6 +139,7 @@ R18, R34, INC = "resnet18", "resnet34", "inception_v3"
 #: inception_v3: the same fp32 reorderings (split and unsplit direct convs,
 #: inception's one Winograd node), held to the VGG16 bound.
 E2E_RTOL = {VGG: 2e-3, ZAMBA: 1e-4, R18: 2e-3, R34: 2e-3, INC: 2e-3}
+
 
 #: per-node/fused request pairs of the alternating wall measurement
 WALL_PAIRS = 8
@@ -275,7 +306,8 @@ def check(label: str, got: torch.Tensor, want: torch.Tensor,
 
 class Tally:
     """One kernel's numbers: max errors, and times summed over the
-    launches of one request of each main path (float32)."""
+    launches of one request of each walk that holds its cases (float32),
+    keyed by that walk's times key."""
 
     def __init__(self, library: bool = True):
         self.library = library
@@ -294,10 +326,12 @@ class Tally:
                 if times.get(key) is not None:
                     agg[key] += times[key] * n
 
-    def total(self, key: str):
+    def total(self, key: str, paths):
+        """`key` summed over one request of each of `paths`."""
         if key == "library_ms" and not self.library:
             return None
-        return sum(p[key] for p in self.by_path.values())
+        return sum(p[key] for name, p in self.by_path.items()
+                   if name in paths)
 
 
 def _report(kernel: str, label: str, dtype, err: float, times: dict,
@@ -318,116 +352,172 @@ def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
             "bound_ms": bnd, "t_bytes": tb, "t_ops": to}
 
 
-def split_matmul_phase(peaks: dict) -> Tally:
+# Each `hold_*` takes one call's arguments, in its wrapper's order, on the
+# card: it holds the kernel against its plain version, times kernel, plain
+# and library call beside the bound, prints the case and returns
+# (max_abs_err, times).  The kernel phases give them seeded tensors at the
+# shapes of `*_CASES`; `hold_walk_calls` gives them the calls a walk made.
+
+def hold_split_matmul(label: str, args: tuple, peaks: dict):
     from repro_torch.kernels.split_matmul.split_matmul import (
         plan_call, split_matmul, split_matmul_plain)
+    x, w, c0, width = args
+    (m, k), n, dtype = x.shape, w.shape[1], x.dtype
+    got = split_matmul(x, w, c0, width)
+    err = check(f"split_matmul {label} {dtype}", got,
+                split_matmul_plain(x, w, c0, width), KERNEL_RTOL[dtype])
+    if not torch.equal(got, split_matmul(x, w, c0, width)):
+        raise AssertionError(f"split_matmul {label} {dtype}: two calls on "
+                             f"the same inputs differ")
+    plan = plan_call(x, w, c0, width)
+    times = _times(lambda: split_matmul(x, w, c0, width),
+                   lambda: split_matmul_plain(x, w, c0, width),
+                   lambda: torch.matmul(x, w[:, c0:c0 + width]),
+                   x.element_size() * (m * k + k * width + m * width),
+                   2 * m * k * width, dtype, peaks)
+    _report("split_matmul", label, dtype, err, times,
+            f"M={m} K={k} N={n} c0={c0} width={width} [variant "
+            f"{plan.variant} {plan.col_tiles}x{plan.splits} blocks, k_chunk "
+            f"{plan.k_chunk}]")
+    return err, times
+
+
+def hold_hadamard_matmul(label: str, args: tuple, peaks: dict):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.winograd_conv.winograd_conv import (
+        hadamard_matmul, hadamard_matmul_plain, plan_hadamard)
+    u, v = args
+    (g, p, k), n, dtype = u.shape, v.shape[2], u.dtype
+    got = hadamard_matmul(u, v)
+    err = check(f"hadamard_matmul {label} {dtype}", got,
+                hadamard_matmul_plain(u, v), KERNEL_RTOL[dtype])
+    plan = plan_hadamard(g, p, k, n, u.element_size(),
+                         (u.data_ptr(), v.data_ptr(), got.data_ptr()),
+                         build.sm_count(0))
+    times = _times(lambda: hadamard_matmul(u, v),
+                   lambda: hadamard_matmul_plain(u, v),
+                   lambda: torch.bmm(u, v),
+                   u.element_size() * g * (p * k + k * n + p * n),
+                   2 * g * p * k * n, dtype, peaks)
+    _report("hadamard_matmul", label, dtype, err, times,
+            f"P={p} K={k} N={n} [{plan.bm}x{plan.bn} tile, {plan.blocks} "
+            f"blocks, vec {int(plan.vec)}]")
+    return err, times
+
+
+def hold_decode_attention(label: str, args: tuple, peaks: dict):
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain, plan_call, valid_range)
+    q, k, v, pos, window = args
+    (h, hd), (s, kv, _), dtype = q.shape, k.shape, q.dtype
+    out, lse = decode_attention(q, k, v, pos, window=window)
+    want, want_lse = decode_attention_plain(q, k, v, pos, window=window)
+    err = check(f"decode_attention {label} {dtype}", out, want,
+                KERNEL_RTOL[dtype])
+    check(f"decode_attention {label} {dtype} lse", lse, want_lse,
+          KERNEL_RTOL[torch.float32])                # fp32 sums in both
+    again = decode_attention(q, k, v, pos, window=window)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"decode_attention {label} {dtype}: two calls "
+                             f"on the same inputs differ")
+    plan = plan_call(q, k, v, pos, window)
+    lo, hi = valid_range(s, pos, window)
+    n = hi - lo + 1
+    # the library call: the attended positions, (1, heads, S, hd)
+    q4 = q[None, :, None, :]
+    k4 = k[lo:hi + 1].permute(1, 0, 2)[None]
+    v4 = v[lo:hi + 1].permute(1, 0, 2)[None]
+    times = _times(
+        lambda: decode_attention(q, k, v, pos, window=window),
+        lambda: decode_attention_plain(q, k, v, pos, window=window),
+        lambda: sdpa(q4, k4, v4, enable_gqa=h != kv),
+        q.element_size() * (2 * h * hd + 2 * n * kv * hd) + 4 * h,
+        4 * h * n * hd, dtype, peaks)
+    _report("decode_attention", label, dtype, err, times,
+            f"H={h} KV={kv} hd={hd} S={s} pos={pos} window={window} "
+            f"[variant {plan.variant}, {plan.nsplit} runs of "
+            f"{plan.run_len} over {lo}..{hi}, tile {plan.tile}, "
+            f"{plan.stages} stages, {plan.blocks} blocks]")
+    return err, times
+
+
+def hold_ssd_chunk_scan(label: str, args: tuple, peaks: dict):
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+        plan_call, ssd_chunk_scan, ssd_chunk_scan_plain)
+    x = args[0]
+    (b, t, h, hd), n, dtype = x.shape, args[1].shape[2], x.dtype
+    sf, y = ssd_chunk_scan(*args)
+    sf_p, y_p = ssd_chunk_scan_plain(*args)
+    err = max(check(f"ssd_chunk_scan {label} {dtype} y", y, y_p,
+                    KERNEL_RTOL[dtype]),
+              check(f"ssd_chunk_scan {label} {dtype} state", sf, sf_p,
+                    KERNEL_RTOL[dtype]))
+    plan = plan_call(*args, sf)
+    times = _times(lambda: ssd_chunk_scan(*args),
+                   lambda: ssd_chunk_scan_plain(*args), None,
+                   nbytes(*args, y, sf), 6 * b * t * h * hd * n, dtype,
+                   peaks)
+    _report("ssd_chunk_scan", label, dtype, err, times,
+            f"B={b} T={t} H={h} hd={hd} N={n} [variant {plan.variant}, "
+            f"{plan.blocks} blocks of {plan.rows} rows, {plan.lanes} lanes "
+            f"per row, chunk {plan.chunk}]")
+    return err, times
+
+
+HOLDS = {"split_matmul": hold_split_matmul,
+         "hadamard_matmul": hold_hadamard_matmul,
+         "decode_attention": hold_decode_attention,
+         "ssd_chunk_scan": hold_ssd_chunk_scan}
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def split_matmul_phase(peaks: dict) -> Tally:
     gen = torch.Generator(device="cuda").manual_seed(11)
     tally = Tally()
     for label, m, k, n, c0, width, per_path in SPLIT_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             w = (torch.randn((k, n), generator=gen, device="cuda")
                  / k ** 0.5).to(dtype)
-            got = split_matmul(x, w, c0, width)
-            err = check(f"split_matmul {label} {dtype}", got,
-                        split_matmul_plain(x, w, c0, width),
-                        KERNEL_RTOL[dtype])
-            if not torch.equal(got, split_matmul(x, w, c0, width)):
-                raise AssertionError(f"split_matmul {label} {dtype}: two "
-                                     f"calls on the same inputs differ")
-            plan = plan_call(x, w, c0, width)
-            size = x.element_size()
-            times = _times(lambda: split_matmul(x, w, c0, width),
-                           lambda: split_matmul_plain(x, w, c0, width),
-                           lambda: torch.matmul(x, w[:, c0:c0 + width]),
-                           size * (m * k + k * width + m * width),
-                           2 * m * k * width, dtype, peaks)
-            _report("split_matmul", label, dtype, err, times,
-                    f"M={m} K={k} N={n} c0={c0} width={width} "
-                    f"[variant {plan.variant} {plan.col_tiles}x"
-                    f"{plan.splits} blocks, k_chunk {plan.k_chunk}]")
+            err, times = hold_split_matmul(label, (x, w, c0, width), peaks)
             tally.add(dtype, err, per_path, times)
     return tally
 
 
 def hadamard_phase(peaks: dict) -> Tally:
-    from repro_torch.kernels import build
-    from repro_torch.kernels.winograd_conv.winograd_conv import (
-        hadamard_matmul, hadamard_matmul_plain, plan_hadamard)
     gen = torch.Generator(device="cuda").manual_seed(12)
     tally = Tally()
     for label, p, k, n, per_path in HADAMARD_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             u = torch.randn((16, p, k), generator=gen, device="cuda").to(dtype)
             v = (torch.randn((16, k, n), generator=gen, device="cuda")
                  / k ** 0.5).to(dtype)
-            got = hadamard_matmul(u, v)
-            err = check(f"hadamard_matmul {label} {dtype}", got,
-                        hadamard_matmul_plain(u, v), KERNEL_RTOL[dtype])
-            plan = plan_hadamard(16, p, k, n, u.element_size(),
-                                 (u.data_ptr(), v.data_ptr(),
-                                  got.data_ptr()), build.sm_count(0))
-            times = _times(lambda: hadamard_matmul(u, v),
-                           lambda: hadamard_matmul_plain(u, v),
-                           lambda: torch.bmm(u, v),
-                           u.element_size() * 16 * (p * k + k * n + p * n),
-                           2 * 16 * p * k * n, dtype, peaks)
-            _report("hadamard_matmul", label, dtype, err, times,
-                    f"P={p} K={k} N={n} [{plan.bm}x{plan.bn} tile, "
-                    f"{plan.blocks} blocks, vec {int(plan.vec)}]")
+            err, times = hold_hadamard_matmul(label, (u, v), peaks)
             tally.add(dtype, err, per_path, times)
     return tally
 
 
 def decode_attention_phase(peaks: dict) -> Tally:
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention, decode_attention_plain, plan_call, valid_range)
     gen = torch.Generator(device="cuda").manual_seed(13)
     tally = Tally()
     for label, h, kv, hd, s, pos, window, per_path in ATTN_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for shape in ((h, hd), (s, kv, hd),
                                                 (s, kv, hd)))
-            out, lse = decode_attention(q, k, v, pos, window=window)
-            want, want_lse = decode_attention_plain(q, k, v, pos,
-                                                    window=window)
-            err = check(f"decode_attention {label} {dtype}", out, want,
-                        KERNEL_RTOL[dtype])
-            check(f"decode_attention {label} {dtype} lse", lse, want_lse,
-                  KERNEL_RTOL[torch.float32])        # fp32 sums in both
-            again = decode_attention(q, k, v, pos, window=window)
-            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-                raise AssertionError(f"decode_attention {label} {dtype}: two "
-                                     f"calls on the same inputs differ")
-            plan = plan_call(q, k, v, pos, window)
-            lo, hi = valid_range(s, pos, window)
-            n = hi - lo + 1
-            # the library call: the attended positions, (1, heads, S, hd)
-            q4 = q[None, :, None, :]
-            k4 = k[lo:hi + 1].permute(1, 0, 2)[None]
-            v4 = v[lo:hi + 1].permute(1, 0, 2)[None]
-            times = _times(
-                lambda: decode_attention(q, k, v, pos, window=window),
-                lambda: decode_attention_plain(q, k, v, pos, window=window),
-                lambda: sdpa(q4, k4, v4, enable_gqa=h != kv),
-                q.element_size() * (2 * h * hd + 2 * n * kv * hd) + 4 * h,
-                4 * h * n * hd, dtype, peaks)
-            _report("decode_attention", label, dtype, err, times,
-                    f"H={h} KV={kv} hd={hd} S={s} pos={pos} window={window} "
-                    f"[variant {plan.variant}, {plan.nsplit} runs of "
-                    f"{plan.run_len} over {lo}..{hi}, tile {plan.tile}, "
-                    f"{plan.stages} stages, {plan.blocks} blocks]")
+            err, times = hold_decode_attention(label, (q, k, v, pos, window),
+                                               peaks)
             tally.add(dtype, err, per_path, times)
     return tally
 
 
 def ssd_phase(peaks: dict) -> Tally:
     from repro_torch.kernels.ssd_chunk.ssd_chunk import (
-        CHUNK, CHUNKED, DECODE_T_MAX, SsdPlan, launch_uncounted, plan_call,
-        smem_bytes, ssd_chunk_scan, ssd_chunk_scan_plain)
+        CHUNK, CHUNKED, DECODE_T_MAX, SsdPlan, launch_uncounted, smem_bytes,
+        ssd_chunk_scan_plain)
     if DECODE_T_MAX not in {case[2] for case in SSD_CASES}:
         raise AssertionError(f"SSD_CASES has no case at DECODE_T_MAX = "
                              f"{DECODE_T_MAX}")
@@ -437,7 +527,7 @@ def ssd_phase(peaks: dict) -> Tally:
     print(f"ssd_chunk_scan floor: time_ms of an empty kernel "
           f"(torch.cuda._sleep(0)) {floor:.4f} ms", flush=True)
     for label, b, t, h, hd, n, per_path in SSD_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             def rand(*shape):
                 return torch.randn(shape, generator=gen, device="cuda")
             # the ssm lowering's operands: stabilized dt and a, fan-in
@@ -447,29 +537,16 @@ def ssd_phase(peaks: dict) -> Tally:
                 rand(b, t, n) / n ** 0.5,
                 0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
                 -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5)]
-            sf, y = ssd_chunk_scan(*ins)
-            sf_p, y_p = ssd_chunk_scan_plain(*ins)
-            err = max(check(f"ssd_chunk_scan {label} {dtype} y", y, y_p,
-                            KERNEL_RTOL[dtype]),
-                      check(f"ssd_chunk_scan {label} {dtype} state", sf,
-                            sf_p, KERNEL_RTOL[dtype]))
-            plan = plan_call(*ins, sf)
-            times = _times(lambda: ssd_chunk_scan(*ins),
-                           lambda: ssd_chunk_scan_plain(*ins), None,
-                           nbytes(*ins, y, sf), 6 * b * t * h * hd * n,
-                           dtype, peaks)
-            _report("ssd_chunk_scan", label, dtype, err, times,
-                    f"B={b} T={t} H={h} hd={hd} N={n} [variant "
-                    f"{plan.variant}, {plan.blocks} blocks of {plan.rows} "
-                    f"rows, {plan.lanes} lanes per row, chunk {plan.chunk}]")
+            err, times = hold_ssd_chunk_scan(label, tuple(ins), peaks)
             tally.add(dtype, err, per_path, times)
             if t <= DECODE_T_MAX and dtype == torch.float32:
                 # the chunk kernel on the same inputs, launched directly
                 # (not counted), against the decode kernel's time
+                sf_p, y_p = ssd_chunk_scan_plain(*ins)
                 length = min(CHUNK, t)
                 chunked = SsdPlan(CHUNKED, 0, hd, b * h, length,
                                   smem_bytes(hd, n, length))
-                y_c, sf_c = torch.empty_like(y), torch.empty_like(sf)
+                y_c, sf_c = torch.empty_like(y_p), torch.empty_like(sf_p)
                 launch_uncounted(chunked, ins, y_c, sf_c)
                 check(f"ssd_chunk_scan {label} chunk kernel y", y_c, y_p,
                       KERNEL_RTOL[dtype])
@@ -482,6 +559,73 @@ def ssd_phase(peaks: dict) -> Tally:
                       f"empty kernel {floor:.4f} ms, bound "
                       f"{times['bound_ms']:.4f} ms", flush=True)
     return tally
+
+
+def _copy_aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` on its device at an address of the same
+    alignment modulo 256 bytes (the kernels pick their vector variants
+    from it)."""
+    pad = t.data_ptr() % 256 // t.element_size()
+    out = torch.empty(pad + t.numel(), dtype=t.dtype,
+                      device=t.device)[pad:].view(t.shape)
+    return out.copy_(t)
+
+
+def kernel_calls(exe, x) -> dict:
+    """Every kernel call one request of `exe`'s per-node walk makes on
+    `x`, by kernel: {signature: [calls, arguments]}.  A profile hook sees
+    each wrapper's call as it is made; a signature is the arguments'
+    shapes, dtypes, scalars and each tensor's address modulo 16 bytes, and
+    the first call of each keeps its arguments, copied on the caller's
+    stream (`_copy_aligned`), for `hold_walk_calls`.  The request is not
+    one a launch count is read from."""
+    import inspect
+    wrappers = kernel_counters()
+    codes = {fn.__code__: (name, list(inspect.signature(fn).parameters))
+             for name, fn in wrappers.items()}
+    calls = {name: {} for name in wrappers}
+
+    def hook(frame, event, _arg):
+        if event != "call" or frame.f_code not in codes:
+            return
+        name, params = codes[frame.f_code]
+        args = tuple(frame.f_locals[p] for p in params)
+        sig = tuple((tuple(a.shape), a.dtype, a.data_ptr() % 16)
+                    if torch.is_tensor(a) else a for a in args)
+        entry = calls[name].setdefault(sig, [0, None])
+        entry[0] += 1
+        if entry[1] is None:
+            entry[1] = tuple(_copy_aligned(a) if torch.is_tensor(a) else a
+                             for a in args)
+
+    sys.setprofile(hook)
+    try:
+        exe.run(x)
+    finally:
+        sys.setprofile(None)
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+    return calls
+
+
+def hold_walk_calls(label: str, calls: dict, want: dict, peaks: dict,
+                    tallies: dict) -> None:
+    """Hold each distinct kernel call of one request of a walk
+    (`kernel_calls`) against its plain version in float32 and bfloat16,
+    as the kernel phases hold their cases, and add it to its kernel's
+    tally under `label` with its calls per request; those calls must add
+    up to the plan's counts `want`."""
+    for name, sigs in calls.items():
+        made = sum(n for n, _ in sigs.values())
+        if made != want[name]:
+            raise AssertionError(f"{label}: the walk called {name} {made} "
+                                 f"times, the plan gives {want[name]}")
+        for i, (n, args) in enumerate(sigs.values()):
+            for dtype in DTYPES:
+                cast = tuple(a.to(dtype) if torch.is_tensor(a)
+                             and a.is_floating_point() else a for a in args)
+                err, times = HOLDS[name](f"{label} #{i} x{n}", cast, peaks)
+                tallies[name].add(dtype, err, {label: n}, times)
 
 
 def kernel_counters() -> dict:
@@ -515,6 +659,19 @@ def expected_counts(plan) -> dict:
     counts["reshard"] = len(coexec - merged - elided)
     counts["elided"] = len(elided)
     return counts
+
+
+def fused_reshard_counts(plan) -> tuple:
+    """(reshard points, elided gathers) of one request of the fused walk.
+    Its segments are cut over the channel splits alone, and a typed-axis
+    split runs as a singleton that gathers or merges its own sides, so the
+    counts are the graph's materialization points and elided edges over
+    the channel splits: the per-node walk's unless a head or ssm-state
+    split chains with its neighbours there."""
+    coexec = plan.coexec_node_ids()
+    graph = plan.graph_ir()
+    return (len(graph.materialization_points(coexec)),
+            len(graph.elided(coexec)))
 
 
 def _node_kind(spec) -> str:
@@ -614,13 +771,14 @@ def compile_phase(paths) -> dict:
     return compiled
 
 
-def main_path(name: str, compiled, make_input, out_shape, requests: int):
+def main_path(name: str, compiled, make_input, out_shape, requests: int,
+              rtol: float):
     """One main path: the network the port compiled, on two CUDA-stream
-    groups, `requests` seeded inputs, each held against run_oracle, launch
-    counts checked per request against its plan; returns the launch counts
-    (counters set to 0 just before the path, read just after), its float32
-    executor, the expected counts and each request's (input, output,
-    oracle)."""
+    groups, `requests` seeded inputs, each held against run_oracle within
+    `rtol` of its largest |value|, launch counts checked per request
+    against its plan; returns the launch counts (counters set to 0 just
+    before the path, read just after), its float32 executor, the expected
+    counts and each request's (input, output, oracle)."""
     from repro_torch.analysis import errors, verify_plan
 
     t0 = time.perf_counter()
@@ -630,7 +788,7 @@ def main_path(name: str, compiled, make_input, out_shape, requests: int):
                              f"verifier: {bad[0]}")
     exe = compiled.executor(device="cuda")
     want = expected_counts(compiled.plan)
-    print(f"{name}: the port's compiled plan (key {compiled.key}), weights "
+    print(f"{name}: the plan (key {compiled.key}), weights "
           f"on {exe.device} in {time.perf_counter() - t0:.1f} s; groups "
           f"{len(exe.groups)}; per request the plan gives {want}",
           flush=True)
@@ -664,10 +822,10 @@ def main_path(name: str, compiled, make_input, out_shape, requests: int):
                                  f"{out_shape} tensor")
         err = float((y - oracle).abs().max())
         scale = max(1.0, float(oracle.abs().max()))
-        if err > E2E_RTOL[name] * scale:
+        if err > rtol * scale:
             raise AssertionError(f"{name} request {r}: max |run - "
                                  f"run_oracle| = {err:.3e} > "
-                                 f"{E2E_RTOL[name]} x {scale:.3g}")
+                                 f"{rtol} x {scale:.3g}")
         for k in KERNEL_NAMES:
             if launched[k] != want[k]:
                 raise AssertionError(f"{name} request {r}: {launched[k]} "
@@ -698,15 +856,18 @@ def main_path(name: str, compiled, make_input, out_shape, requests: int):
     return counts, exe, want, refs
 
 
-def fused_path(name: str, exe, want: dict, refs: list) -> dict:
+def fused_path(name: str, exe, want: dict, refs: list,
+               rtol: float) -> dict:
     """The fused segment walk of a main path: capture every fused segment
     as a CUDA graph, then run the per-node walk's requests again, each
-    output bit-identical to that walk's and within E2E_RTOL of run_oracle,
-    with the same launch, reshard and elided counts and one sync per
-    segment; returns the launch counts (counters set to 0 just before the
-    requests, read just after)."""
+    output bit-identical to that walk's and within `rtol` of run_oracle,
+    with the same launch counts, the reshard and elided counts of
+    `fused_reshard_counts` and one sync per segment; returns the launch
+    counts (counters set to 0 just before the requests, read just
+    after)."""
     from repro_torch.graph.ir import SEGMENT_FUSED
 
+    reshard, elided = fused_reshard_counts(exe.plan)
     partition = exe.plan.segment_partition()
     specs = {s.node_id: s for s in exe.specs}
     t = time.perf_counter()
@@ -751,21 +912,19 @@ def fused_path(name: str, exe, want: dict, refs: list) -> dict:
                                  f"{diff:.3e})")
         err = float((y - oracle).abs().max())
         scale = max(1.0, float(oracle.abs().max()))
-        if not err <= E2E_RTOL[name] * scale:
+        if not err <= rtol * scale:
             raise AssertionError(f"{name} fused request {r}: max |run - "
                                  f"run_oracle| = {err:.3e} > "
-                                 f"{E2E_RTOL[name]} x {scale:.3g}")
+                                 f"{rtol} x {scale:.3g}")
         for k in KERNEL_NAMES:
             if launched[k] != want[k]:
                 raise AssertionError(f"{name} fused request {r}: "
                                      f"{launched[k]} {k} launches, want "
                                      f"{want[k]}")
-        if (rep.reshard_points, rep.elided) != (want["reshard"],
-                                                want["elided"]):
+        if (rep.reshard_points, rep.elided) != (reshard, elided):
             raise AssertionError(
                 f"{name} fused request {r}: {rep.reshard_points} reshard "
-                f"points, {rep.elided} elided; want {want['reshard']} and "
-                f"{want['elided']}")
+                f"points, {rep.elided} elided; want {reshard} and {elided}")
         if not rep.fused or rep.sync_points != len(partition):
             raise AssertionError(f"{name} fused request {r}: "
                                  f"{rep.sync_points} syncs, want one per "
@@ -787,21 +946,28 @@ def fused_path(name: str, exe, want: dict, refs: list) -> dict:
     return counts
 
 
-def alternating_walls(name: str, exe, x, pairs: int) -> None:
-    """Request walls of the per-node and fused walks on one input, run in
-    turns (per-node, fused, per-node, fused, ...), so both see the same
-    card and host state."""
-    walls = {False: [], True: []}
+def alternating_walls(exes: dict, x, pairs: int) -> None:
+    """Request walls of the per-node and fused walks of one or more plans'
+    executors (`exes`, by label) on one input, run in turns (per-node,
+    fused, then the next plan's, ...), so all see the same card and host
+    state."""
+    walls = {}
     for _ in range(pairs):
-        for fused in (False, True):
-            t = time.perf_counter()
-            exe.run(x, fused=fused)
-            walls[fused].append((time.perf_counter() - t) * 1e3)
-    node, fused = (sorted(walls[f]) for f in (False, True))
-    print(f"{name} walls, {pairs} alternating pairs: per-node median "
-          f"{statistics.median(node):.3f} ms (min {node[0]:.3f}, max "
-          f"{node[-1]:.3f}); fused median {statistics.median(fused):.3f} ms "
-          f"(min {fused[0]:.3f}, max {fused[-1]:.3f})", flush=True)
+        for label, exe in exes.items():
+            for fused in (False, True):
+                t = time.perf_counter()
+                exe.run(x, fused=fused)
+                walls.setdefault((label, fused), []).append(
+                    (time.perf_counter() - t) * 1e3)
+    parts = []
+    for (label, fused), ms in walls.items():
+        ms = sorted(ms)
+        walk = "fused" if fused else "per-node"
+        parts.append(f"{label} {walk} median "
+                     f"{statistics.median(ms):.3f} ms (min {ms[0]:.3f}, max "
+                     f"{ms[-1]:.3f})")
+    print(f"walls, {pairs} alternating rounds: " + "; ".join(parts),
+          flush=True)
 
 
 def bf16_path(name: str, compiled, want: dict, refs: list) -> dict:
@@ -862,6 +1028,197 @@ def bf16_path(name: str, compiled, want: dict, refs: list) -> dict:
     return counts
 
 
+def changed_nodes(old, new) -> list:
+    """Each node whose decision moved its axis or its boundary between two
+    plans, as "node axis cpu/gpu -> axis cpu/gpu"."""
+    moved = []
+    after = new.plan.decisions_by_node
+    for nid, o in old.plan.decisions_by_node.items():
+        n = after[nid]
+        if (o.axis, o.c_cpu, o.c_gpu) != (n.axis, n.c_cpu, n.c_gpu):
+            moved.append(f"{nid} {o.axis} {o.c_cpu}/{o.c_gpu} -> {n.axis} "
+                         f"{n.c_cpu}/{n.c_gpu}")
+    return moved
+
+
+def calibrate_path(name: str, net: str, compiled, make_input, out_shape,
+                   peaks: dict, tallies: dict):
+    """The measurement loop on the card for a compiled network of `net`
+    that carries the predictors it planned with: `RECORD_RUNS` per-node
+    runs and one fused run recorded into a fresh store (each kernel
+    launched 3x the plan's count), `recalibrate()` (the fidelity error
+    over the card's records may not grow), `replan()` and its diff, the
+    replanned plan saved and loaded back strictly, then run per node and
+    fused against its own `run_oracle` and `expected_counts`, each kernel
+    call of one of its requests held against the plain version
+    (`hold_walk_calls`), and the two plans' walls in turns.  Returns the
+    walks as {walk: (times key, launch counts)} and the replanned
+    network."""
+    from repro_torch.api import CompiledNetwork
+    from repro_torch.measure import MeasurementStore, fidelity_error
+
+    walks = {}
+    exe = compiled.executor(device="cuda")
+    want = expected_counts(compiled.plan)
+    x = make_input(REQUESTS)
+    # kernel builds and the fused segments' captures (whose warm-up runs
+    # launch kernels) stay out of the records and the counted runs
+    exe.run(x, warmup=True)
+    exe.run(x, fused=True, warmup=True)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_calibrate_") as tmp:
+        store = MeasurementStore(Path(tmp, "measurements"))
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        for fused in (False,) * RECORD_RUNS + (True,):
+            rep = compiled.record(x, store=store, device="cuda",
+                                  warmup=False, fused=fused)
+            print(f"{name} record{' fused' if fused else ''}: "
+                  f"{rep.fidelity_summary()}", flush=True)
+        recorded = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in counters.items()}
+        walks[f"{name} calibrate"] = (None, counts)
+        for k in KERNEL_NAMES:
+            runs = RECORD_RUNS + 1
+            if counts[k] != runs * want[k]:
+                raise AssertionError(
+                    f"{name} calibrate: {counts[k]} {k} launches over "
+                    f"{runs} recorded runs, want {runs * want[k]}")
+        records = store.load(compiled.key)
+        cal = compiled.recalibrate(store)
+        pre, post = fidelity_error(records), cal.fidelity_error(records)
+        if not post <= pre:
+            raise AssertionError(f"{name} calibrate: the fit raised the "
+                                 f"fidelity error {pre} -> {post}")
+        print(f"{name} calibrate: {len(records)} records ({cal.n_records} "
+              f"usable) from {RECORD_RUNS} per-node runs and 1 fused run in "
+              f"{recorded:.2f} s; fidelity error (sum |log wall/pred|) "
+              f"{pre:.3f} -> {post:.3f} over the card's records; calibrator "
+              f"{cal.version}", flush=True)
+        for line in cal.summary().splitlines():
+            print(f"  {line.strip()}", flush=True)
+        t = time.perf_counter()
+        new, diff = compiled.replan(cal, store=store,
+                                    cache=Path(tmp, "plans"))
+        replan_s = time.perf_counter() - t
+        for line in diff.summary().splitlines():
+            print(f"{name} {line.strip()}", flush=True)
+        moved = changed_nodes(compiled, new)
+        print(f"{name} replan: {replan_s:.3f} s on the host; nodes that "
+              f"moved their axis or boundary: "
+              f"{'; '.join(moved) if moved else 'none (an empty diff)'}",
+              flush=True)
+        loaded = CompiledNetwork.load(new.save(Path(tmp, "replanned.json")))
+        if loaded.to_json() != new.to_json():
+            raise AssertionError(f"{name} replan: the saved plan does not "
+                                 f"load back as it was")
+        print(f"{name} replanned: saved and loaded strictly (key "
+              f"{loaded.key}, calibration {loaded.provenance.calibration})",
+              flush=True)
+    label = f"{name} replanned"
+    counts, exe_new, want_new, refs = main_path(
+        label, loaded, make_input, out_shape, REPLAN_REQUESTS, E2E_RTOL[net])
+    walks[label] = (label, counts)
+    walks[f"{label} fused"] = (label, fused_path(label, exe_new, want_new,
+                                                 refs, E2E_RTOL[net]))
+    hold_walk_calls(label, kernel_calls(exe_new, make_input(0)), want_new,
+                    peaks, tallies)
+    alternating_walls({f"{name} original": exe, label: exe_new}, x,
+                      WALL_PAIRS)
+    return walks, new
+
+
+def portfolio_phase(peaks: dict, tallies: dict) -> dict:
+    """The committed zamba2-7b portfolio: compiled on this host by
+    `compile_portfolio` into fresh caches (its document equal to the
+    committed one, checksum included; a second compile all warm hits);
+    the file loaded strictly and each entry, picked by `select`, run on
+    the card per node and fused against its `run_oracle` with its
+    `expected_counts`, each kernel call of one of its requests held
+    against the plain version; then the replan path of a server: the
+    in-process portfolio's entry for the live step `PORTFOLIO_STEP`
+    recorded, recalibrated and replanned (`calibrate_path`) and swapped in
+    with `replace`, the bucket tag kept, the new document loaded back
+    strictly.  Returns the walks as {walk: (times key, launch counts)}."""
+    import repro_torch
+
+    doc = json.loads(PORTFOLIO.read_text())
+    target = repro_torch.Target.from_json(doc["target"])
+    buckets = [(e["batch"], e["seq"]) for e in doc["entries"]]
+    with tempfile.TemporaryDirectory(prefix="repro_torch_portfolio_") as tmp:
+        kw = dict(buckets=buckets, blocks=ZAMBA_GRAPH["blocks"],
+                  cache=Path(tmp, "plans"),
+                  predictor_cache=Path(tmp, "predictors"))
+        t = time.perf_counter()
+        pf = repro_torch.compile_portfolio(doc["model"], target, **kw)
+        cold = time.perf_counter() - t
+        got = pf.to_json()
+        if any(c.from_cache for c in pf.entries.values()) or got != doc:
+            raise AssertionError(
+                f"portfolio: the port's portfolio differs from "
+                f"{PORTFOLIO.name} (checksum {got['checksum']}, committed "
+                f"{doc['checksum']})")
+        t = time.perf_counter()
+        again = repro_torch.compile_portfolio(doc["model"], target, **kw)
+        warm = time.perf_counter() - t
+        if (not all(c.from_cache for c in again.entries.values())
+                or again.to_json() != doc):
+            raise AssertionError("portfolio: the second compile was not all "
+                                 "warm hits of the committed document")
+    print(f"portfolio {doc['model']}: buckets "
+          f"{', '.join(b.tag for b in pf.buckets)}; cold {cold:.3f} s, warm "
+          f"{warm:.3f} s; equal to {PORTFOLIO.name} (checksum "
+          f"{got['checksum']}); keys "
+          f"{', '.join(c.key for c in pf.entries.values())}", flush=True)
+    walks = {}
+    loaded = repro_torch.PlanPortfolio.load(PORTFOLIO)
+    for b in loaded.buckets:
+        picked, compiled = loaded.select(b.batch, b.seq)
+        if picked != b:
+            raise AssertionError(f"portfolio: select({b.batch}, {b.seq}) "
+                                 f"picked {picked.tag}, not {b.tag}")
+        label = f"{ZAMBA} {b.tag}"
+        make = decode_input(b.batch)
+        counts, exe, want, refs = main_path(
+            label, compiled, make, (b.batch, ZAMBA_D), PORTFOLIO_REQUESTS,
+            E2E_RTOL[ZAMBA])
+        walks[label] = (label, counts)
+        walks[f"{label} fused"] = (label, fused_path(label, exe, want, refs,
+                                                     E2E_RTOL[ZAMBA]))
+        hold_walk_calls(label, kernel_calls(exe, make(0)), want, peaks,
+                        tallies)
+        del compiled, exe, refs
+        torch.cuda.empty_cache()
+
+    if not pf.can_replan() or loaded.can_replan():
+        raise AssertionError("portfolio: an in-process portfolio must be "
+                             "able to replan and a loaded one must not")
+    b, entry = pf.select(*PORTFOLIO_STEP)
+    print(f"portfolio: the live step (batch, seq) = {PORTFOLIO_STEP} is "
+          f"served by {b.tag}", flush=True)
+    cal_walks, new = calibrate_path(
+        f"{ZAMBA} {b.tag}", ZAMBA, entry, decode_input(b.batch),
+        (b.batch, ZAMBA_D), peaks, tallies)
+    walks.update(cal_walks)
+    pf.replace(b, new)
+    doc_new = pf.to_json()
+    back = repro_torch.PlanPortfolio.from_json(doc_new)
+    others_kept = all(e == o for e, o in zip(doc_new["entries"],
+                                              doc["entries"])
+                      if (o["batch"], o["seq"]) != (b.batch, b.seq))
+    if (pf.select(*PORTFOLIO_STEP)[1] is not new
+            or new.provenance.bucket != b.tag or not others_kept
+            or back.entries[b].to_json() != new.to_json()):
+        raise AssertionError(f"portfolio: {b.tag} was not replaced by its "
+                             f"replanned plan")
+    print(f"portfolio: {b.tag} replaced by its replanned plan (key "
+          f"{new.key}, bucket tag {new.provenance.bucket}); checksum "
+          f"{doc['checksum']} -> {doc_new['checksum']}, the new document "
+          f"loads strictly", flush=True)
+    return walks
+
+
 def image_input(size: int):
     """Seeded (1, size, size, 3) requests of a CNN path."""
     def make(r: int) -> np.ndarray:
@@ -873,9 +1230,14 @@ def image_input(size: int):
 vgg16_input = image_input(224)
 
 
-def zamba_input(r: int) -> np.ndarray:
-    return np.random.default_rng(300 + r).standard_normal(
-        (1, 3584)).astype(np.float32)
+def decode_input(batch: int):
+    """Seeded (batch, ZAMBA_D) requests of a zamba2-7b decode step."""
+    def make(r: int) -> np.ndarray:
+        return np.random.default_rng(300 + r).standard_normal(
+            (batch, ZAMBA_D)).astype(np.float32)
+    return make
+
+
 
 
 #: the device-kernel name of each wrapper's main pass on the main paths
@@ -960,14 +1322,29 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
                   f"{k} launches the counter holds", flush=True)
 
 
-#: the zamba2-7b path's graph: 9 blocks, a 4096-position KV cache
+#: the zamba2-7b path's graph: 9 blocks, a 4096-position KV cache; its
+#: model width (d_model)
 ZAMBA_GRAPH = dict(blocks=9, cache_len=4096)
+ZAMBA_D = 3584
+
+#: the calibrate phase: its paths, the per-node runs it records (then one
+#: fused run), and the requests each replanned walk runs
+CALIBRATE_PATHS = (VGG, ZAMBA)
+RECORD_RUNS = 2
+REPLAN_REQUESTS = 2
+
+#: the portfolio phase: the committed zamba2-7b portfolio, the requests
+#: each of its entries runs per walk, and the live step (batch, seq) whose
+#: entry it recalibrates, replans and replaces (`select` gives b4s256)
+PORTFOLIO = ARTIFACTS / "zamba2-7b_b9_moto2022_t1.portfolio.json"
+PORTFOLIO_REQUESTS = 2
+PORTFOLIO_STEP = (4, 200)
 
 #: the main paths: (name, committed artifact, request maker, output shape);
 #: the compile phase compiles each and must reproduce its artifact
 PATHS = [
     (VGG, ARTIFACT, vgg16_input, (1, 1000)),
-    (ZAMBA, ZAMBA_ARTIFACT, zamba_input, (1, 3584)),
+    (ZAMBA, ZAMBA_ARTIFACT, decode_input(1), (1, ZAMBA_D)),
     (R18, ARTIFACTS / "resnet18_moto2022.coexec.json", image_input(224),
      (1, 1000)),
     (R34, ARTIFACTS / "resnet34_moto2022.coexec.json", image_input(224),
@@ -1041,60 +1418,80 @@ def main() -> int:
     compiled_nets = compile_phase(PATHS)
     phases.done("compile")
 
-    # launch counts per walk: "<path>", "<path> fused", "<path> bf16", ...
+    # each walk ("<path>", "<path> fused", "<path> bf16", ...) with the
+    # key of its float32 times in the tallies (None: no times) and its
+    # launch counts
     walks = {}
+    kept = {}                  # the calibrate phase's compiled networks
     for name, _, make_input, out_shape in PATHS:
         compiled = compiled_nets.pop(name)
         counts, exe, want, refs = main_path(name, compiled, make_input,
-                                            out_shape, REQUESTS)
-        walks[name] = counts
+                                            out_shape, REQUESTS,
+                                            E2E_RTOL[name])
+        walks[name] = (name, counts)
         device_breakdown(name, exe, make_input(REQUESTS))
         phases.done(f"{name} per-node")
-        walks[f"{name} fused"] = fused_path(name, exe, want, refs)
-        alternating_walls(name, exe, make_input(REQUESTS), WALL_PAIRS)
+        walks[f"{name} fused"] = (name, fused_path(name, exe, want, refs,
+                                                   E2E_RTOL[name]))
+        alternating_walls({name: exe}, make_input(REQUESTS), WALL_PAIRS)
         device_breakdown(name, exe, make_input(REQUESTS), fused=True)
         phases.done(f"{name} fused")
         if name in BF16_PATHS:
-            walks.update(bf16_path(name, compiled, want, refs))
+            walks.update((walk, (None, c)) for walk, c in
+                         bf16_path(name, compiled, want, refs).items())
             phases.done(f"{name} bf16")
+        if name in CALIBRATE_PATHS:
+            kept[name] = (compiled, make_input, out_shape)
         del compiled, exe, refs
         torch.cuda.empty_cache()
     for k in KERNEL_NAMES:
         for suffix in ("", " fused"):
-            if sum(walks[f"{p[0]}{suffix}"][k] for p in PATHS) == 0:
+            if sum(walks[f"{p[0]}{suffix}"][1][k] for p in PATHS) == 0:
                 raise AssertionError(f"{k} was not launched on a main "
                                      f"path's{suffix or ' per-node'} walk")
 
+    for name in CALIBRATE_PATHS:
+        cal_walks, _ = calibrate_path(name, name, *kept.pop(name), peaks,
+                                      results)
+        walks.update(cal_walks)
+        phases.done(f"{name} calibrate")
+        torch.cuda.empty_cache()
+    walks.update(portfolio_phase(peaks, results))
+    phases.done("portfolio")
+
     def by_path(name: str, t: Tally) -> dict:
         """Each walk's launches of kernel `name`, with the float32 times
-        of one request where the walk is a float32 one."""
+        of one request where the walk has them."""
         out = {}
-        for walk, counts in walks.items():
-            path = walk.split(" ")[0]
-            if not counts[name] and path not in t.by_path:
+        for walk, (key, counts) in walks.items():
+            if not counts[name] and key not in t.by_path:
                 continue
             out[walk] = {"launches": counts[name]}
-            if "bf16" not in walk and path in t.by_path:
+            if key in t.by_path:
                 out[walk].update(
                     {k: (None if k == "library_ms" and not t.library else v)
-                     for k, v in t.by_path[path].items()})
+                     for k, v in t.by_path[key].items()})
         return out
 
+    mains = [p[0] for p in PATHS]
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
-        "launches": sum(c[name] for c in walks.values()),
+        "launches": sum(c[name] for _, c in walks.values()),
         "max_abs_err": t.max_abs_err,
         "max_abs_err_bf16": t.max_abs_err_bf16,
-        "ms": t.total("ms"), "plain_ms": t.total("plain_ms"),
-        "bound_ms": t.total("bound_ms"),
-        "bound_by": ("bytes" if t.total("t_bytes") >= t.total("t_ops")
-                     else "operations"),
-        "library_ms": t.total("library_ms"),
+        "ms": t.total("ms", mains), "plain_ms": t.total("plain_ms", mains),
+        "bound_ms": t.total("bound_ms", mains),
+        "bound_by": ("bytes" if t.total("t_bytes", mains)
+                     >= t.total("t_ops", mains) else "operations"),
+        "library_ms": t.total("library_ms", mains),
         "per": (f"launches: the {REQUESTS} requests of each main path's "
-                f"per-node and fused walks and the {BF16_REQUESTS} of each "
-                f"bf16 walk; times: one request of each main path, "
-                f"float32"),
+                f"per-node and fused walks, the {BF16_REQUESTS} of each "
+                f"bf16 walk, the {RECORD_RUNS + 1} recorded runs of each "
+                f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
+                f"replanned walk and the {PORTFOLIO_REQUESTS} of each "
+                f"portfolio entry's walks; times: one request of each main "
+                f"path, float32 (by_path: one request of each walk)"),
         "by_path": by_path(name, t)}
         for name, t in results.items()]}
     phases.done("paths")

@@ -12,15 +12,21 @@ attention on `decode_attention` and the SSD scan on `ssd_chunk_scan`:
     y = compiled.run()               # CUDA by default; device="cpu" too
 
 Plans compiled here are byte-identical to the JAX package's (`repro`), and
-`CompiledNetwork.load` reads an artifact either package saved.  The package
-imports torch and numpy, never jax and nothing from `repro`: it keeps its
-own copy of what it needs.  CLI: `python -m repro_torch plan ...`,
-`python -m repro_torch execute --artifact PATH`.
+`CompiledNetwork.load` reads an artifact either package saved.
+`compile_portfolio` compiles one plan per (batch, seq) serving bucket of a
+model graph (`PlanPortfolio`, the reference's document byte for byte), and
+`compiled.record()`, `recalibrate()` and `replan()` close the measurement
+loop: executed walls fit a calibrator, which re-plans the network.  The
+package imports torch and numpy, never jax and nothing from `repro`: it
+keeps its own copy of what it needs.  CLI: `python -m repro_torch plan
+...`, `python -m repro_torch execute --artifact PATH`, `python -m
+repro_torch calibrate ...`.
 """
-from repro_torch.api import (CompiledNetwork, Target, available_networks,
-                             compile)
+from repro_torch.api import (Bucket, CompiledNetwork, PlanPortfolio, Target,
+                             available_networks, compile, compile_portfolio)
 
 __version__ = "0.1.0"
 
-__all__ = ["CompiledNetwork", "Target", "available_networks", "compile",
+__all__ = ["Bucket", "CompiledNetwork", "PlanPortfolio", "Target",
+           "available_networks", "compile", "compile_portfolio",
            "__version__"]

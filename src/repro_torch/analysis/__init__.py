@@ -16,13 +16,13 @@ from repro_torch.analysis.verify import (RULES, SEV_ERROR, SEV_INFO,
                                          VerificationError, errors,
                                          plan_stats, raise_on_error,
                                          verify_artifact, verify_path,
-                                         verify_plan)
+                                         verify_plan, verify_portfolio)
 
 __all__ = [
     "RULES", "SEV_ERROR", "SEV_INFO", "SEV_WARNING",
     "Diagnostic", "PlanStats", "VerificationError",
     "errors", "plan_stats", "raise_on_error",
-    "verify_artifact", "verify_path", "verify_plan",
+    "verify_artifact", "verify_path", "verify_plan", "verify_portfolio",
     "RejectionLog", "rejections",
 ]
 

@@ -11,9 +11,11 @@ by default and raise `VerificationError` on error diagnostics.
 
 Everything here is pure Python over `graph.ir`, `kernels.registry` and
 `runtime.plan`, and executes nothing: `python -m repro_torch verify`
-never imports jax (subprocess-tested).  Portfolio, tune-cache and bench-report documents come
-with the modules that produce them (the planning half, autotune); until
-then `verify_path` names them as unsupported (`artifact.format`).
+never imports jax (subprocess-tested).  `verify_portfolio` checks plan
+portfolios (each entry's artifact and its bucket tag).  Tune-cache and
+bench-report documents come with the modules that produce them
+(autotune, the bench command); until then `verify_path` names them as
+unsupported (`artifact.format`).
 
 Checks, by rule family:
 
@@ -705,9 +707,50 @@ def verify_artifact(doc: Dict[str, Any], *, stats: bool = True,
     return diags
 
 
+def verify_portfolio(doc: Dict[str, Any], *, stats: bool = False,
+                     plan: bool = True) -> List[Diagnostic]:
+    """Verify a `repro.plan_portfolio` document: its format, version and
+    checksum, every entry's artifact (tagged with the entry's bucket), and
+    that each entry's bucket tag is its plan's provenance bucket
+    (`portfolio.bucket`).  ``plan=False`` checks only the formats, versions
+    and checksums of the document and its entries (what a load with
+    ``verify=False`` still checks)."""
+    from repro_torch.api import (PORTFOLIO_FORMAT, PORTFOLIO_VERSION,
+                                 _portfolio_checksum)
+    diags: List[Diagnostic] = []
+    if doc.get("format") != PORTFOLIO_FORMAT:
+        diags.append(_err("artifact.format", "",
+                          f"not a {PORTFOLIO_FORMAT} artifact "
+                          f"(format={doc.get('format')!r})"))
+        return diags
+    if doc.get("version") != PORTFOLIO_VERSION:
+        diags.append(_err("artifact.format", "",
+                          f"unsupported portfolio version "
+                          f"{doc.get('version')!r}"))
+    if doc.get("checksum") != _portfolio_checksum(doc):
+        diags.append(_err("artifact.checksum", "",
+                          "recomputed portfolio checksum does not match",
+                          "the file was modified after it was saved"))
+    for e in doc.get("entries", []):
+        tag = f"b{e.get('batch')}s{e.get('seq')}"
+        sub = verify_artifact(e.get("artifact", {}), stats=stats, plan=plan)
+        diags.extend(dataclasses.replace(
+            d, node=f"{tag}/{d.node}" if d.node else tag) for d in sub)
+        if not plan:
+            continue
+        prov = (e.get("artifact", {}).get("plan", {}) or {}) \
+            .get("provenance", {})
+        if isinstance(prov, dict) and prov.get("bucket", "") != tag:
+            diags.append(_err(
+                "portfolio.bucket", tag,
+                f"entry bucket tag {tag!r} != plan provenance bucket "
+                f"{prov.get('bucket', '')!r}"))
+    return diags
+
+
 def _unsupported(kind: str, path: Path) -> List[Diagnostic]:
     """A document the reference verifies but the port produces no module
-    for yet (portfolio, tune entry, bench report)."""
+    for yet (tune entry, bench report)."""
     return [_err("artifact.format", "",
                  f"{path}: {kind} documents are not verified by the port "
                  f"yet (they come with the module that produces them)")]
@@ -720,8 +763,8 @@ def verify_path(path: Path, *,
     Returns ``(kind, diagnostics)`` where kind is one of "plan",
     "artifact", "portfolio", "tune", "bench", or "unknown".  Plan cache
     files named by a 32-hex digest get their digest recomputed against
-    the filename (`provenance.digest`).  Portfolio, tune and bench
-    documents are recognized and refused as unsupported in the port.
+    the filename (`provenance.digest`).  Tune and bench documents are
+    recognized and refused as unsupported in the port.
     """
     path = Path(path)
     try:
@@ -736,7 +779,7 @@ def verify_path(path: Path, *,
         return "unknown", [_err("schema.malformed", "",
                                 f"{path}: not a JSON object")]
     if doc.get("format") == "repro.plan_portfolio":
-        return "portfolio", _unsupported("portfolio", path)
+        return "portfolio", verify_portfolio(doc, stats=stats)
     if doc.get("format") == "repro.compiled_network":
         return "artifact", verify_artifact(doc, stats=stats)
     if "provenance" in doc and "schedule" in doc:

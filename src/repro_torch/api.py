@@ -12,6 +12,9 @@ with no JAX anywhere:
     y = compiled.run(fused=True)         # the segment walk: CUDA graphs
     print(compiled.explain())            # the per-node decision table
     compiled.save("vgg16.coexec.json")   # the shippable artifact
+    compiled.record(); compiled.record() # walls into the measurement store
+    replanned, diff = compiled.replan()  # calibrated predictors, new plan
+    pf = repro_torch.compile_portfolio("zamba2-7b", target, blocks=9)
 
 `compile` is the port's copy of `repro.compile`: it resolves the network
 (a `Graph`, a registered network or model name, a unit list, or a bare op
@@ -22,6 +25,11 @@ reference's order, so the plan, its key, its predictor checksum and the
 saved artifact are the reference's byte for byte, and the two packages
 share one on-disk plan cache.  Predictor caches are the port's own
 (pickles of the port's classes, `port_mux_*` files).
+
+`record()` / `recalibrate()` / `replan()` close the measurement loop
+(`repro_torch.measure`), and `compile_portfolio` compiles one plan per
+(batch, seq) serving bucket (`PlanPortfolio`); both give the reference's
+documents byte for byte for the same inputs.
 
 `CompiledNetwork.load` reads an artifact either package saved.  Loading is
 strict, as in the reference: the artifact's format, version and checksum
@@ -64,6 +72,7 @@ ARTIFACT_FORMAT = "repro.compiled_network"
 ARTIFACT_VERSION = 1
 
 DEFAULT_CACHE_DIR = "reports/plans"
+DEFAULT_MEASUREMENTS_DIR = "reports/measurements"
 
 #: Target.mesh policies
 MESH_AUTO = "auto"               # split when 2 groups exist (always here)
@@ -346,7 +355,9 @@ class CompiledNetwork:
     (one per torch device, dtype and weight seed).  `mode` is the planning
     mode; `from_cache` says whether `compile` read the plan back from the
     plan cache; `predictors` is the (cpu, gpu) pair it planned with (None
-    for grid plans and loaded artifacts)."""
+    for grid plans and loaded artifacts); `calibration` is the
+    `Calibrator` of the last `recalibrate()` (or the one a `replan()`
+    planned with)."""
 
     def __init__(self, plan: CoexecPlan, target: Target, *,
                  mode: str = MODE_PREDICTED, from_cache: bool = False,
@@ -357,6 +368,7 @@ class CompiledNetwork:
         self.from_cache = from_cache
         self.predictors = predictors
         self.last_report = None
+        self.calibration = None
         self._executors: Dict[Tuple[str, str, int], Any] = {}
 
     @property
@@ -442,6 +454,74 @@ class CompiledNetwork:
         _, self.last_report = exe.run(x, chain=chain, warmup=warmup,
                                       fused=fused)
         return self.last_report
+
+    # ------------------------------------- measurement & adaptive replan
+    def _store(self, store):
+        from repro_torch.measure.store import MeasurementStore
+        if isinstance(store, MeasurementStore):
+            return store
+        return MeasurementStore(Path(store))
+
+    def record(self, x=None, *, store=DEFAULT_MEASUREMENTS_DIR,
+               device: Union[str, torch.device, None] = None,
+               dtype: Union[str, torch.dtype] = "float32", seed: int = 0,
+               chain: bool = True, warmup: bool = True,
+               fused: bool = False):
+        """Execute the plan (`profile`, on CUDA unless `device` says
+        otherwise) and append its per-node `MeasurementRecord`s to the
+        measurement store, keyed by this plan's provenance digest.
+
+        Returns the `ExecutionReport`; the accumulated records are what
+        `recalibrate()` fits on.  Fused runs record with `source="fused"`
+        (segment wall attributed pro rata) and feed the same fit."""
+        report = self.profile(x, device=device, dtype=dtype, seed=seed,
+                              chain=chain, warmup=warmup, fused=fused)
+        self._store(store).append(report)
+        return report
+
+    def recalibrate(self, store=DEFAULT_MEASUREMENTS_DIR):
+        """Fit a `Calibrator` from every execution recorded for this plan
+        and keep it on `self.calibration` (replan() uses it).
+
+        Raises ValueError when nothing was recorded yet: call `record()`
+        (ideally >= 2 runs) first."""
+        from repro_torch.measure.calibrate import Calibrator
+        records = self._store(store).load(self.key)
+        if not records:
+            raise ValueError(
+                f"no recorded executions for plan {self.key}; call "
+                f"record() first (>= 2 runs give a stable fit)")
+        self.calibration = Calibrator.fit(records)
+        return self.calibration
+
+    def replan(self, calibrator=None, *, store=DEFAULT_MEASUREMENTS_DIR,
+               cache: Union[PlanCache, str, Path] = DEFAULT_CACHE_DIR):
+        """Re-plan with calibrated predictors; returns (new
+        CompiledNetwork, PlanDiff).
+
+        Uses `calibrator`, falling back to `self.calibration`, falling back
+        to `recalibrate(store)`.  The new plan lands in the plan cache
+        under a new provenance digest (calibration version folded in); the
+        old entry is untouched."""
+        if self.mode != MODE_PREDICTED or self.predictors is None:
+            raise ValueError(
+                "replan() needs the (cpu, gpu) predictors of a "
+                "mode='predicted' compile; grid plans are "
+                "measurement-driven and artifacts carry no predictors")
+        cal = calibrator or self.calibration or self.recalibrate(store)
+        if not isinstance(cache, PlanCache):
+            cache = PlanCache(Path(cache))
+        from repro_torch.measure.replan import replan as _replan
+        cpu_pred, gpu_pred = self.predictors
+        hits_before = cache.hits
+        new_plan, diff = _replan(self.plan, cpu_pred, gpu_pred, cal,
+                                 cache=cache)
+        compiled = CompiledNetwork(plan=new_plan, target=self.target,
+                                   mode=self.mode,
+                                   from_cache=cache.hits > hits_before,
+                                   predictors=self.predictors)
+        compiled.calibration = cal
+        return compiled, diff
 
     # ------------------------------------------------------------ explain
     def explain(self) -> str:
@@ -557,3 +637,188 @@ class CompiledNetwork:
         inspect a quarantined artifact anyway)."""
         return CompiledNetwork.from_json(json.loads(Path(path).read_text()),
                                          verify=verify)
+
+
+# ---------------------------------------------------------- plan portfolio
+
+PORTFOLIO_FORMAT = "repro.plan_portfolio"
+PORTFOLIO_VERSION = 1
+
+#: default (batch, seq) buckets for `compile_portfolio`
+DEFAULT_BUCKETS = ((1, 64), (4, 64), (4, 256))
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class Bucket:
+    """One (batch, seq) serving shape a portfolio holds a plan for.
+
+    Ordering is lexicographic (batch, then seq): `select` relies on it to
+    pick the *smallest* bucket that covers a step."""
+
+    batch: int
+    seq: int
+
+    @property
+    def tag(self) -> str:
+        """The provenance tag folded into the plan digest."""
+        return f"b{self.batch}s{self.seq}"
+
+    def covers(self, batch: int, seq: int) -> bool:
+        return self.batch >= batch and self.seq >= seq
+
+
+class PlanPortfolio:
+    """One compiled plan per (batch, seq) bucket, as the reference's.
+
+    `select(batch, seq)` returns the smallest bucket that covers the
+    step's live shape (the largest bucket when nothing covers it) with its
+    `CompiledNetwork`, whose memoized executors make repeated selections
+    free.  `replace()` swaps one bucket's entry in place (the replan
+    path).  Serializes like `CompiledNetwork` (one checksummed JSON
+    document embedding every entry, byte for byte the reference's);
+    loaded portfolios carry no predictors, so they can run but not
+    replan."""
+
+    def __init__(self, model: str, target: Target,
+                 entries: Dict[Bucket, CompiledNetwork], *,
+                 mode: str = MODE_PREDICTED):
+        if not entries:
+            raise ValueError("a portfolio needs at least one bucket")
+        self.model = model
+        self.target = target
+        self.mode = mode
+        self.entries = dict(sorted(entries.items()))
+
+    @property
+    def buckets(self) -> List[Bucket]:
+        return list(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __repr__(self) -> str:
+        tags = ",".join(b.tag for b in self.buckets)
+        return (f"PlanPortfolio(model={self.model!r}, "
+                f"device={self.target.device!r}, buckets=[{tags}])")
+
+    def select(self, batch: int, seq: int) -> Tuple[Bucket, CompiledNetwork]:
+        """Smallest bucket covering (batch, seq); the largest bucket when
+        none covers (an oversized step is served by the biggest plan
+        rather than refused)."""
+        for b in self.buckets:                   # sorted ascending
+            if b.covers(batch, seq):
+                return b, self.entries[b]
+        b = self.buckets[-1]
+        return b, self.entries[b]
+
+    def replace(self, bucket: Bucket, compiled: CompiledNetwork) -> None:
+        """Swap one bucket's compiled plan in place (post-replan)."""
+        if bucket not in self.entries:
+            raise KeyError(f"unknown bucket {bucket.tag}")
+        self.entries[bucket] = compiled
+
+    def can_replan(self) -> bool:
+        """Whether entries carry predictors (in-process compiles do;
+        portfolios loaded from disk do not)."""
+        return all(c.predictors is not None for c in self.entries.values())
+
+    # ------------------------------------------------------------- codecs
+    def to_json(self) -> Dict[str, Any]:
+        doc = {"format": PORTFOLIO_FORMAT, "version": PORTFOLIO_VERSION,
+               "model": self.model, "mode": self.mode,
+               "target": self.target.to_json(),
+               "entries": [{"batch": b.batch, "seq": b.seq,
+                            "artifact": c.to_json()}
+                           for b, c in self.entries.items()]}
+        doc["checksum"] = _portfolio_checksum(doc)
+        return doc
+
+    @staticmethod
+    def from_json(doc: Dict[str, Any], *,
+                  verify: bool = True) -> "PlanPortfolio":
+        """Decode a portfolio document.  Its format, version, checksum and
+        every entry's artifact checks are always applied; ``verify=True``
+        (default) also statically verifies every embedded plan and the
+        entries' bucket tags.  Raises `VerificationError` (a ValueError)
+        with the reference's rule ids on any error."""
+        from repro_torch.analysis import raise_on_error, verify_portfolio
+        raise_on_error(verify_portfolio(doc, stats=False, plan=verify),
+                       "portfolio")
+        entries = {
+            Bucket(e["batch"], e["seq"]):
+                CompiledNetwork.from_json(e["artifact"], verify=False)
+            for e in doc["entries"]}
+        return PlanPortfolio(model=doc["model"],
+                             target=Target.from_json(doc["target"]),
+                             entries=entries, mode=doc["mode"])
+
+    def save(self, path: Union[str, Path]) -> Path:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.to_json(), indent=1))
+        return path
+
+    @staticmethod
+    def load(path: Union[str, Path], *,
+             verify: bool = True) -> "PlanPortfolio":
+        """Load a saved portfolio (see `from_json`; ``verify=False`` skips
+        the static verification of the embedded plans)."""
+        return PlanPortfolio.from_json(json.loads(Path(path).read_text()),
+                                       verify=verify)
+
+
+def _portfolio_checksum(doc: Dict[str, Any]) -> str:
+    # the reference's digest, key for key
+    body = {k: doc.get(k) for k in ("format", "version", "model", "mode",
+                                    "target", "entries")}
+    blob = json.dumps(body, sort_keys=True, separators=(",", ":"))
+    return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
+
+
+def compile_portfolio(model, target: Target, *,
+                      buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+                      blocks: int = 1,
+                      cache: Union[PlanCache, str, Path] = DEFAULT_CACHE_DIR,
+                      predictors=None,
+                      samples: int = 400, estimators: int = 60,
+                      predictor_cache: Optional[Union[str, Path]] = None
+                      ) -> PlanPortfolio:
+    """Compile one `CoexecPlan` per (batch, seq) bucket of a model graph,
+    as `repro.compile_portfolio` does (the same document, byte for byte).
+
+    `model` is a model-graph name or `ModelConfig` (legacy unit networks
+    have no batch/seq knobs).  Each bucket lowers through
+    `graph.from_model(model, blocks=blocks, cache_len=seq, batch=batch)`
+    and compiles through the cached path with the bucket tag folded into
+    provenance, so compiling the same portfolio again, in either package,
+    is all warm hits.  The predictor pair is trained (or loaded) once and
+    shared across buckets."""
+    from repro_torch.graph.frontends import from_model, resolve_config
+    cfg = resolve_config(model)
+    seen = set()
+    parsed: List[Bucket] = []
+    for batch, seq in buckets:
+        b = Bucket(int(batch), int(seq))
+        if b.batch < 1 or b.seq < 1:
+            raise ValueError(f"bucket {b.tag}: batch and seq must be >= 1")
+        if b in seen:
+            raise ValueError(f"duplicate bucket {b.tag}")
+        seen.add(b)
+        parsed.append(b)
+    if predictors is None:
+        kinds: Tuple[str, ...] = ("linear", "conv")
+        probe = from_model(cfg, blocks=blocks, cache_len=parsed[0].seq,
+                           batch=parsed[0].batch)
+        kinds += tuple(sorted({n.kind for n in probe if n.op is not None
+                               and n.kind in ("attention", "ssm")}))
+        predictors = _trained_mux_predictors(
+            target.device, target.threads, samples=samples,
+            estimators=estimators, cache_dir=predictor_cache, kinds=kinds)
+    entries = {}
+    for b in parsed:
+        graph = from_model(cfg, blocks=blocks, cache_len=b.seq,
+                           batch=b.batch)
+        entries[b] = compile(graph, target, mode=MODE_PREDICTED,
+                             cache=cache, predictors=predictors,
+                             bucket=b.tag)
+    return PlanPortfolio(model=cfg.name, target=target, entries=entries)

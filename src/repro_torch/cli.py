@@ -1,6 +1,6 @@
 """`python -m repro_torch` — the port's CLI.
 
-Three subcommands so far:
+Four subcommands so far:
 
   * `plan` — compile (or fetch from the plan cache) a co-execution plan
     with the port's planning half, as `python -m repro plan` does, with
@@ -29,17 +29,30 @@ Three subcommands so far:
     same input as the per-node walk, prints both walls and whether the
     outputs are bit-identical, and exits 1 if they are not.
 
-  * `verify` — statically verify plan documents and artifacts on disk
-    with the port's verifier, never importing jax; exit 0 when clean, 1
-    on any error diagnostic, 2 when there is nothing to verify.
+  * `calibrate` — compile (as `plan` does), record `--runs` executions
+    into the measurement store, fit a latency calibrator, replan with the
+    corrected predictors and print the plan diff, with the reference's
+    flags and output lines.  `--torch-device` names the torch device the
+    executions run on (`--device` is the simulated phone).
+
+        python -m repro_torch calibrate --network vgg16 --threads 3
+                                        [--runs 2] [--store-dir DIR]
+                                        [--save-calibration PATH]
+                                        [--torch-device cpu]
+
+  * `verify` — statically verify plan documents, artifacts and plan
+    portfolios on disk with the port's verifier, never importing jax;
+    exit 0 when clean, 1 on any error diagnostic, 2 when there is nothing
+    to verify.
 
         python -m repro_torch verify PATHS [--all-artifacts] [-v]
 
     `--all-artifacts` adds the port's committed artifacts
     (`src/repro_torch/artifacts/`) and the plan cache `reports/plans/`.
 
-The device defaults to CUDA; without CUDA `execute` fails unless
-`--device cpu` is given.
+Executions run on CUDA by default; without CUDA `execute` and `calibrate`
+fail unless `--device cpu` (`execute`) or `--torch-device cpu`
+(`calibrate`) is given.
 """
 from __future__ import annotations
 
@@ -145,15 +158,18 @@ def _compile(args):
     return compiled, time.time() - t0
 
 
+def _cache_status(compiled) -> str:
+    return "HIT" if compiled.from_cache else "MISS (compiled)"
+
+
 def _cmd_plan(args) -> int:
     from repro_torch.runtime.cache import PlanCache
     compiled, dt = _compile(args)
     plan = compiled.plan
     n_co = sum(1 for d in plan.decisions if not d.exclusive)
     name = args.model or args.network
-    status = "HIT" if compiled.from_cache else "MISS (compiled)"
     print(f"plan {name} on {args.device} (cpu{args.threads}, "
-          f"{args.mechanism}, {args.mode}): cache {status}")
+          f"{args.mechanism}, {args.mode}): cache {_cache_status(compiled)}")
     print(f"  compiled in {dt:.1f}s (predictors + planning; a warm hit is "
           f"a pure JSON read)")
     print(f"  key {plan.key} -> "
@@ -222,6 +238,48 @@ def _cmd_execute(args) -> int:
         print(f"  fused: {rep_fused.fidelity_summary()}")
         if not identical:
             return 1
+    return 0
+
+
+def _cmd_calibrate(args) -> int:
+    from repro_torch.measure import MeasurementStore, fidelity_error
+    from repro_torch.runtime.cache import PlanCache
+
+    if args.mode != "predicted":
+        print("error: calibrate needs mode='predicted' (grid plans are "
+              "measurement-driven; there are no predictors to calibrate)",
+              file=sys.stderr)
+        return 2
+    compiled, dt = _compile(args)
+    print(f"calibrate {args.model or args.network} on {args.device} "
+          f"(cpu{args.threads}, {args.mechanism}): plan {compiled.key} "
+          f"(cache {_cache_status(compiled)}, {dt:.1f}s)")
+    store = MeasurementStore(Path(args.store_dir))
+    for i in range(args.runs):
+        rep = compiled.record(store=store, device=args.torch_device,
+                              warmup=not args.no_warmup)
+        print(f"  run {i + 1}/{args.runs}: {rep.fidelity_summary()}")
+    records = store.load(compiled.key)
+    cal = compiled.recalibrate(store)
+    pre = fidelity_error(records)
+    post = cal.fidelity_error(records)
+    print(f"  {cal.summary()}" if args.verbose else
+          f"  calibrator {cal.version}: {len(cal.corrections)} corrections "
+          f"from {cal.n_records} records")
+    shrink = f" ({pre / post:.1f}x smaller)" if post > 0 else ""
+    print(f"  fidelity error {pre:.2f} -> {post:.2f} "
+          f"(sum |log wall/pred| over {cal.n_records} usable records)"
+          f"{shrink}")
+    if args.save_calibration:
+        path = cal.save(Path(args.save_calibration))
+        print(f"  wrote calibrator {path}")
+    recompiled, diff = compiled.replan(cal, store=store,
+                                       cache=args.cache_dir)
+    print(diff.summary())
+    print(f"  new plan cached at "
+          f"{PlanCache(Path(args.cache_dir)).path_for(recompiled.provenance)}")
+    print(f"  measurements {store.path_for(compiled.key)} "
+          f"({len(records)} records)")
     return 0
 
 
@@ -307,12 +365,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="also run the segment walk (CUDA graphs) on "
                              "the same input; exit 1 unless its output is "
                              "bit-identical to the per-node walk's")
+    p_cal = sub.add_parser(
+        "calibrate", help="record executions, fit a latency calibrator, "
+                          "replan with corrected predictors, and show the "
+                          "plan diff")
+    _add_compile_args(p_cal)
+    p_cal.add_argument("--runs", type=int, default=2,
+                       help="timed executions to record before fitting")
+    p_cal.add_argument("--store-dir", default="reports/measurements",
+                       help="measurement store directory (append-only "
+                            "JSONL per plan)")
+    p_cal.add_argument("--save-calibration", default=None,
+                       help="also write the fitted calibrator JSON here")
+    p_cal.add_argument("--no-warmup", action="store_true",
+                       help="skip the untimed warmup before the first "
+                            "recorded run")
+    p_cal.add_argument("--verbose", action="store_true",
+                       help="print per-(kind, mode) correction lines")
+    p_cal.add_argument("--torch-device", default=None,
+                       help="torch device the recorded executions run on "
+                            "(default: cuda)")
     p_verify = sub.add_parser(
-        "verify", help="statically verify plan documents and artifacts "
-                       "without importing jax or executing anything")
+        "verify", help="statically verify plan documents, artifacts and "
+                       "plan portfolios without importing jax or "
+                       "executing anything")
     p_verify.add_argument("paths", nargs="*",
-                          help="plan or CompiledNetwork artifact JSON files "
-                               "(dispatched by document shape)")
+                          help="plan, CompiledNetwork artifact or plan "
+                               "portfolio JSON files (dispatched by "
+                               "document shape)")
     p_verify.add_argument("--all-artifacts", action="store_true",
                           help="also scan src/repro_torch/artifacts and "
                                "reports/plans")
@@ -322,9 +402,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "verify":
         return _cmd_verify(args)
-    if args.cmd == "plan":
+    if args.cmd in ("plan", "calibrate"):
         try:
-            return _cmd_plan(args)
+            return (_cmd_plan if args.cmd == "plan" else _cmd_calibrate)(args)
         except _UserInputError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

@@ -10,17 +10,45 @@ Evaluation sets reproduce Section 5.3 exactly:
              (2,039 operations in the paper; the same construction here);
   * conv:    the 4-stage hierarchy with per-stage resolutions/channels,
              K in {1,3,5,7}, S in {1,2}, FLOPs in [4e6, 1e9].
+
+`training_from_records` closes the measurement loop: any batch of
+`repro_torch.measure.MeasurementRecord`s (executed plan runs or simulator
+sweeps) converts into an `(ops, y_us)` training set for
+`train_predictor(ops, ..., y_us=y)`.
 """
 from __future__ import annotations
 
 import itertools
-from typing import List
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.types import AttnOp, ConvOp, LinearOp, Op, SSMOp
 
 FLOPS_MIN, FLOPS_MAX = 4e6, 1e9
+
+
+def training_from_records(records: Iterable, kind: Optional[str] = None
+                          ) -> Tuple[List[Op], np.ndarray]:
+    """(ops, measured µs) training pairs from measurement records.
+
+    Pool units (no op), non-positive measurements and co-executed records
+    are dropped: a co-executed wall times a channel-split run (max of two
+    shards + gather) of the full op, not a per-backend (op, latency) pair.
+    `kind="linear"`/`"conv"`/... selects one kind's pairs (predictors are
+    per kind).  Records are duck-typed (`.op`, `.wall_us`, `.mode`,
+    `.unit`), so this module stays a leaf.
+    """
+    ops: List[Op] = []
+    y: List[float] = []
+    for r in records:
+        if r.op is None or r.wall_us <= 0.0 or r.mode == "coexec":
+            continue
+        if kind is not None and r.unit != kind:
+            continue
+        ops.append(r.op)
+        y.append(float(r.wall_us))
+    return ops, np.asarray(y)
 
 
 def _structured_dim(rng: np.random.Generator) -> int:

@@ -35,6 +35,19 @@ class GBDTParams:
     subsample: float = 0.9
     max_bins: int = _MAX_BINS
 
+    @staticmethod
+    def random(rng: np.random.Generator) -> "GBDTParams":
+        """Optuna-style random draw over the paper's hyperparameter ranges
+        (the reference's draw order, so one seed gives the same params)."""
+        return GBDTParams(
+            n_estimators=int(rng.integers(100, 500)),
+            learning_rate=float(10 ** rng.uniform(-2, np.log10(0.2))),
+            max_depth=int(rng.integers(5, 11)),
+            min_child_samples=int(rng.integers(2, 16)),
+            reg_lambda=float(10 ** rng.uniform(-4, 0)),
+            subsample=float(rng.uniform(0.5, 1.0)),
+        )
+
 
 class _Tree:
     """One level-wise regression tree over pre-binned features."""

@@ -9,13 +9,13 @@ Targets are log-latencies: squared loss on logs optimizes relative error,
 which is what MAPE (Table 1) scores.
 
 The port's copy of `repro.core.predictor.train`, less what only the
-reference's measurement loop and tile autotuner call: no `y_us=`, no
-hyperparameter search and no tile-aware predictors.  A saved predictor is a
-pickle of the port's classes; `LatencyPredictor.load` unpickles through
-`_PortUnpickler`, which resolves only the few globals such a pickle names
-(the port's predictor classes and numpy's array reconstructors), so a file
-that names anything else, the reference's predictor cache among them, fails
-to load instead of importing or calling it.
+reference's tile autotuner calls: no tile-aware predictors.  A saved
+predictor is a pickle of the port's classes; `LatencyPredictor.load`
+unpickles through `_PortUnpickler`, which resolves only the few globals
+such a pickle names (the port's predictor classes and numpy's array
+reconstructors), so a file that names anything else, the reference's
+predictor cache among them, fails to load instead of importing or calling
+it.
 """
 from __future__ import annotations
 
@@ -109,18 +109,46 @@ def measure_ops(ops: Sequence[Op], device: str, backend: str,
 def train_predictor(ops: Sequence[Op], device: str, backend: str, *,
                     whitebox: bool = True,
                     params: Optional[GBDTParams] = None,
-                    seed: int = 0) -> LatencyPredictor:
-    """Fit a predictor on simulated latencies of `ops`."""
+                    y_us: Optional[np.ndarray] = None,
+                    hpo_trials: int = 0, seed: int = 0) -> LatencyPredictor:
+    """Fit a predictor on measured latencies of `ops`: the simulator's,
+    or `y_us` (e.g. `dataset.training_from_records` of executed runs).
+
+    hpo_trials > 0 runs the reference's random hyperparameter search
+    (`GBDTParams.random`) with a held-out validation split (20 %), as in
+    the paper's Section 5.2; `params` overrides it.
+    """
     ops = list(ops)
-    y = measure_ops(ops, device, backend, seed=seed)
+    y = measure_ops(ops, device, backend, seed=seed) if y_us is None \
+        else np.asarray(y_us)
     logy = np.log(np.maximum(y, 1e-3))
 
     gpu_wb = whitebox and backend == "gpu"
     X = whitebox_features(ops, device) if gpu_wb else blackbox_features(ops)
-    prm = params if params is not None else GBDTParams()
 
-    def fit_group(Xg, yg):
+    def fit_group(Xg, yg, prm):
         return GBDTRegressor(prm, seed=seed).fit(Xg, yg)
+
+    def choose_params(Xg, yg) -> GBDTParams:
+        if params is not None:
+            return params
+        if hpo_trials <= 0:
+            return GBDTParams()
+        rng = np.random.default_rng(seed + 17)
+        n = len(yg)
+        idx = rng.permutation(n)
+        cut = max(1, int(0.8 * n))
+        tr, va = idx[:cut], idx[cut:]
+        best, best_err = GBDTParams(), np.inf
+        for _ in range(hpo_trials):
+            cand = GBDTParams.random(rng)
+            m = GBDTRegressor(cand, seed=seed).fit(Xg[tr], yg[tr])
+            err = float(np.mean(np.abs(np.exp(m.predict(Xg[va]))
+                                       - np.exp(yg[va]))
+                                / np.exp(yg[va])))
+            if err < best_err:
+                best, best_err = cand, err
+        return best
 
     models: Dict[str, GBDTRegressor] = {}
     if gpu_wb:
@@ -129,11 +157,14 @@ def train_predictor(ops: Sequence[Op], device: str, backend: str, *,
             sel = kernels == kern
             if sel.sum() < 30:       # too few samples: fall through to '*'
                 continue
-            models[kern] = fit_group(X[sel], logy[sel])
+            prm = choose_params(X[sel], logy[sel])
+            models[kern] = fit_group(X[sel], logy[sel], prm)
         # global fallback model over all samples
-        models["*"] = fit_group(X, logy)
+        prm = choose_params(X, logy)
+        models["*"] = fit_group(X, logy, prm)
     else:
-        models["*"] = fit_group(X, logy)
+        prm = choose_params(X, logy)
+        models["*"] = fit_group(X, logy, prm)
 
     return LatencyPredictor(device=device, backend=backend,
                             whitebox=gpu_wb, models=models)

@@ -9,13 +9,15 @@ numbers are only meaningful against noisy observations.
 The port's copy of `repro.core.simulator.measure`, float for float: the
 noise stream of an op is seeded by `_stable_seed`, a digest of the op's
 `repr`, so both packages observe the same jitter and train the same trees.
-The records spelling (`measure_records`) comes with the port's
-measurement loop.
+`measure_records(...)` emits the same observations as measurement records
+(wall = noisy measurement, pred = noise-free oracle), so simulator
+measurements, executed plan runs and predictor training sets all flow
+through one record type.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence
+from typing import TYPE_CHECKING, List, Sequence
 
 import numpy as np
 
@@ -27,6 +29,9 @@ from repro_torch.core.simulator.decode_model import (attn_cpu_latency_us,
 from repro_torch.core.simulator.devices import DEVICES
 from repro_torch.core.simulator.gpu_model import gpu_latency_us
 from repro_torch.core.types import AttnOp, Op, SSMOp
+
+if TYPE_CHECKING:
+    from repro_torch.measure.record import MeasurementRecord
 
 _NOISE_SIGMA = 0.030
 
@@ -95,3 +100,19 @@ def measure_latency_us_batch(ops: Sequence[Op], device: str, backend: str,
     """
     return _measure_batch_with_base(list(ops), device, backend, repeats,
                                     seed)[0]
+
+
+def measure_records(ops: Sequence[Op], device: str, backend: str,
+                    repeats: int = 5, seed: int = 0
+                    ) -> List["MeasurementRecord"]:
+    """Batched measurement as records: one `MeasurementRecord` per op,
+    `wall_us` = the noisy observation (bit-identical to
+    `measure_latency_us_batch`), `pred_us` = the noise-free oracle."""
+    from repro_torch.measure.record import record_for_op
+    ops = list(ops)
+    walls, oracle = _measure_batch_with_base(ops, device, backend, repeats,
+                                             seed)
+    return [record_for_op(op, index=i, wall_us=float(walls[i]),
+                          pred_us=float(oracle[i]),
+                          device=device, backend=backend)
+            for i, op in enumerate(ops)]

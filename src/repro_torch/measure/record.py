@@ -2,45 +2,49 @@
 
 The port's copy of `repro.measure.record.MeasurementRecord`, field for
 field, so an executed run of the port serializes to the same JSON record
-shape as the reference's: what ran (op kind and shape through the
-registry codec, the split, the mode, the chain/gather flags), the
-measurement (`wall_us` observed against the plan's `pred_us`), and its
-provenance.  On the port, `device` keeps the plan's simulated target
-device, `backend` names the torch device that ran the unit and `host` the
-machine.
+as the reference's: what ran (op kind and shape through the registry
+codec, the split, the mode, the chain/gather flags), the measurement
+(`wall_us` observed against the plan's `pred_us`), and its provenance.
+On the port, `device` keeps the plan's simulated target device, `backend`
+names the torch device that ran the unit (or the simulated backend of a
+simulator record) and `host` the machine.  Records round-trip through
+JSON unchanged (floats in repr-shortest form), so a JSONL file either
+package's `MeasurementStore` wrote loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Optional
 
 from repro_torch.core.types import Op
-from repro_torch.kernels.registry import op_from_json, op_to_json
+from repro_torch.kernels.registry import (op_from_json, op_kind, op_label,
+                                          op_to_json)
 
 MEASUREMENT_SCHEMA_VERSION = 1
 
 #: record sources
 SOURCE_EXECUTOR = "executor"      # wall-clock timed plan execution
+SOURCE_SIMULATOR = "simulator"    # analytic device-model measurement
 SOURCE_FUSED = "fused"            # segment-walk execution: per-node wall is
                                   # the segment wall attributed pro-rata by
                                   # predicted latency
 
-#: execution modes
+#: execution modes (executor) + the simulator's pseudo-mode
 MODE_COEXEC = "coexec"
 MODE_EXCLUSIVE = "exclusive"
 MODE_POOL = "pool"
 MODE_ADD = "add"
+MODE_SIMULATED = "simulated"
 
 
 @dataclasses.dataclass
 class MeasurementRecord:
-    """Executed-vs-predicted record for one measured unit."""
+    """Executed (or simulated) vs predicted record for one measured unit."""
 
-    index: int                   # schedule position
+    index: int                   # schedule position (or batch index)
     unit: str                    # "conv"|"linear"|"attention"|"ssm"|"pool"|"add"
     label: str
-    mode: str                    # coexec | exclusive | pool | add
+    mode: str                    # coexec | exclusive | pool | add | simulated
     c_fast: int                  # GPU-analogue channel share (0 = unsplit)
     c_slow: int                  # CPU-analogue channel share
     chained_input: bool          # consumed the producer's group-local parts
@@ -78,8 +82,16 @@ def usable_for_fidelity(record: MeasurementRecord) -> bool:
             and record.unit != "pool")
 
 
-def fidelity_error(records: Iterable[MeasurementRecord]) -> float:
-    """Σ |log(wall/pred)| over usable records (the reference's
-    uncalibrated `repro.measure.calibrate.fidelity_error`)."""
-    return sum(abs(math.log(r.wall_us / r.pred_us)) for r in records
-               if usable_for_fidelity(r))
+
+def record_for_op(op: Op, *, index: int = 0, wall_us: float, pred_us: float,
+                  mode: str = MODE_SIMULATED, source: str = SOURCE_SIMULATOR,
+                  device: str = "", backend: str = "", host: str = "",
+                  plan_key: str = "", network_fingerprint: str = ""
+                  ) -> MeasurementRecord:
+    """Build a record for a bare op (kind and label via the registry)."""
+    return MeasurementRecord(
+        index=index, unit=op_kind(op), label=op_label(op), mode=mode,
+        c_fast=0, c_slow=0, chained_input=False, gathered_output=True,
+        wall_us=float(wall_us), pred_us=float(pred_us), op=op,
+        source=source, device=device, backend=backend, host=host,
+        plan_key=plan_key, network_fingerprint=network_fingerprint)

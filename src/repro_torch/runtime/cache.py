@@ -28,6 +28,7 @@ from repro_torch.core.types import Op
 from repro_torch.graph.ir import Graph, from_units
 from repro_torch.runtime.plan import (PLANNER_GRID, PLANNER_PREDICTOR,
                                       CoexecPlan, PlanProvenance, build_schedule,
+                                      calibration_version,
                                       network_fingerprint,
                                       plan_from_graph_report, predictor_checksum)
 
@@ -95,20 +96,23 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
 
     Provenance (and therefore the cache key) covers the graph's
     content-addressed fingerprint, the target (device, threads), the sync
-    mechanism, the candidate-grid step, the measurement seed and a
-    structural checksum of both predictors.  `bucket` tags the (batch, seq)
-    serving bucket a portfolio entry was compiled for; it folds into the
-    digest (omitted when empty, so unbucketed keys are unchanged) and lets
-    portfolio compiles warm-hit across processes.  The port plans neither
-    calibrated nor tuned: its provenance leaves `calibration` and `tune`
-    empty, as the reference's does for such plans.
+    mechanism, the candidate-grid step, the measurement seed, a structural
+    checksum of both predictors and, when the predictors are calibrated
+    (`repro_torch.measure.Calibrator.wrap`), the calibration version, so
+    refit calibrators never alias stale plans.  `bucket` tags the (batch,
+    seq) serving bucket a portfolio entry was compiled for; it folds into
+    the digest (omitted when empty, so unbucketed keys are unchanged) and
+    lets portfolio compiles warm-hit across processes.  The port does not
+    tune: its provenance leaves `tune` empty, as the reference's does for
+    untuned plans.
     """
     prov = PlanProvenance(
         device=gpu_pred.device, threads=threads, mechanism=mechanism.value,
         step=step, seed=seed,
         network_fingerprint=graph.fingerprint(),
         predictor_checksum=predictor_checksum(cpu_pred, gpu_pred),
-        planner=PLANNER_PREDICTOR, bucket=bucket)
+        planner=PLANNER_PREDICTOR,
+        calibration=calibration_version(cpu_pred, gpu_pred), bucket=bucket)
     hit = cache.get(prov)
     if hit is not None:
         return hit
@@ -117,6 +121,7 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
     plan = plan_from_graph_report(graph, report, mechanism=mechanism,
                                   step=step, seed=seed,
                                   pred_checksum=prov.predictor_checksum,
+                                  calibration=prov.calibration,
                                   bucket=bucket)
     cache.put(plan)
     return plan
@@ -160,7 +165,8 @@ def partition_ops_plan_cached(ops: Sequence[Op], cpu_pred, gpu_pred, *,
         device=gpu_pred.device, threads=0, mechanism=mechanism.value,
         step=step, seed=0, network_fingerprint=network_fingerprint(units),
         predictor_checksum=predictor_checksum(cpu_pred, gpu_pred),
-        planner=PLANNER_PREDICTOR)
+        planner=PLANNER_PREDICTOR,
+        calibration=calibration_version(cpu_pred, gpu_pred))
     hit = cache.get(prov)
     if hit is not None:
         return hit

@@ -73,7 +73,7 @@ from repro_torch.kernels import registry
 from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MODE_EXCLUSIVE, MODE_POOL,
                                         SOURCE_EXECUTOR, SOURCE_FUSED,
-                                        MeasurementRecord, fidelity_error,
+                                        MeasurementRecord,
                                         usable_for_fidelity)
 from repro_torch.runtime.plan import CoexecPlan, ExecSpec, spec_label
 
@@ -109,7 +109,10 @@ class ExecutionReport:
         return sum(1 for t in self.timings if t.mode == mode)
 
     def fidelity_error(self) -> float:
-        """Σ |log(wall/pred)| over the usable records."""
+        """Σ |log(wall/pred)| over the usable records: the one metric
+        implementation (`repro_torch.measure.fidelity_error`), also what
+        the Calibrator and `python -m repro_torch calibrate` report."""
+        from repro_torch.measure.calibrate import fidelity_error
         return fidelity_error(self.timings)
 
     def mean_log_ratio(self) -> Optional[float]:

@@ -144,6 +144,11 @@ def predictor_checksum(*predictors) -> str:
     retraining that changes a tree invalidates dependent plans."""
     h = hashlib.blake2b(digest_size=12)
     for p in predictors:
+        # a CalibratedPredictor is checksum-transparent: structurally it IS
+        # the wrapped predictor, and the calibration invalidates plans
+        # through the provenance `calibration` field instead
+        while hasattr(p, "inner") and hasattr(p, "calibration"):
+            p = p.inner
         if hasattr(p, "models"):                     # LatencyPredictor
             h.update(f"{p.device}/{p.backend}/{p.whitebox}".encode())
             for kern in sorted(p.models):
@@ -161,6 +166,15 @@ def predictor_checksum(*predictors) -> str:
         else:
             raise TypeError(f"cannot checksum predictor {type(p).__name__}")
     return h.hexdigest()
+
+
+def calibration_version(*predictors) -> str:
+    """The calibration digest a set of predictors carries ("" when none is
+    calibrated).  Folded into `PlanProvenance.calibration` by the cached
+    planners so a refit calibrator invalidates dependent plans."""
+    versions = sorted({p.calibration.version for p in predictors
+                       if getattr(p, "calibration", None) is not None})
+    return "+".join(versions)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -524,6 +538,7 @@ def plan_from_graph_report(graph: Graph, report: GraphPlanReport, *,
                            mechanism: SyncMechanism, step: int, seed: int,
                            pred_checksum: str,
                            planner: str = PLANNER_PREDICTOR,
+                           calibration: str = "",
                            bucket: str = "",
                            with_totals: bool = True) -> CoexecPlan:
     """Assemble the compiled plan of a `plan_graph`/`grid_plan_graph` run
@@ -532,7 +547,8 @@ def plan_from_graph_report(graph: Graph, report: GraphPlanReport, *,
                           mechanism=mechanism.value, step=step, seed=seed,
                           network_fingerprint=graph.fingerprint(),
                           predictor_checksum=pred_checksum,
-                          planner=planner, bucket=bucket)
+                          planner=planner, calibration=calibration,
+                          bucket=bucket)
     return CoexecPlan(
         provenance=prov,
         schedule=build_graph_schedule(graph, report.decisions,
@@ -546,13 +562,14 @@ def plan_from_graph_report(graph: Graph, report: GraphPlanReport, *,
 
 def plan_from_report(units: Sequence[Unit], report: PlanReport, *,
                      mechanism: SyncMechanism, step: int, seed: int,
-                     pred_checksum: str) -> CoexecPlan:
+                     pred_checksum: str, calibration: str = "") -> CoexecPlan:
     """Assemble the compiled plan of a unit-list `plan_network` run."""
     prov = PlanProvenance(device=report.device, threads=report.threads,
                           mechanism=mechanism.value, step=step, seed=seed,
                           network_fingerprint=network_fingerprint(units),
                           predictor_checksum=pred_checksum,
-                          planner=PLANNER_PREDICTOR)
+                          planner=PLANNER_PREDICTOR,
+                          calibration=calibration)
     graph = from_units(units)
     decisions = {nid: dec for nid, dec in zip(
         (n.id for n in graph if n.kind != "pool"), report.decisions)}

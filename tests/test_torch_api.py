@@ -23,7 +23,7 @@ from repro_torch.kernels.registry import op_to_json
 
 from test_torch_support import ROOT, VGG16_ARTIFACT, compile_small
 
-COMMITTED = sorted((ROOT / "src/repro_torch/artifacts").glob("*.json"))
+COMMITTED = sorted((ROOT / "src/repro_torch/artifacts").glob("*.coexec.json"))
 
 
 @pytest.fixture(scope="module")

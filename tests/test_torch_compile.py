@@ -5,8 +5,6 @@ planning modes, the plan cache shared both ways, the errors `compile`
 raises, and the CLI round trip with jax and `repro` kept from import."""
 import dataclasses
 import json
-import subprocess
-import sys
 
 import pytest
 
@@ -19,7 +17,7 @@ import repro_torch
 from repro_torch.core.types import ConvOp, LinearOp
 from repro_torch.graph.frontends import from_model
 
-from test_torch_support import ROOT, small_units
+from test_torch_support import ROOT, blocked_cli, small_units
 
 ARTIFACTS = ROOT / "src/repro_torch/artifacts"
 
@@ -192,32 +190,6 @@ def test_target_validates_against_the_simulator_tables():
             _error(lambda: repro.Target(**bad))
 
 
-#: a blocker that keeps jax and the JAX package from import, then runs the
-#: port's CLI as `python -m repro_torch`
-_BLOCKED_CLI = """
-import runpy, sys
-class Block:
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
-            raise ImportError("blocked: " + name)
-sys.meta_path.insert(0, Block())
-sys.argv = ["repro_torch"] + sys.argv[1:]
-try:
-    runpy.run_module("repro_torch", run_name="__main__")
-finally:
-    bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-    assert not bad, bad
-"""
-
-
-def _cli(args, tmp_path):
-    return subprocess.run(
-        [sys.executable, "-c", _BLOCKED_CLI, *args], capture_output=True,
-        text=True, cwd=tmp_path, timeout=600,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
-
-
 @pytest.mark.parametrize("stem", ["vgg16_moto2022",
                                   "zamba2-7b_b9_s4096_moto2022_t1"])
 def test_cli_plan_saves_the_committed_artifact_byte_for_byte(
@@ -229,12 +201,12 @@ def test_cli_plan_saves_the_committed_artifact_byte_for_byte(
     args = ["plan", *net, "--device", "moto2022", "--cache-dir",
             str(tmp_path / "plans"), "--predictor-cache",
             str(predictor_cache), "--save", str(out)]
-    proc = _cli(args, tmp_path)
+    proc = blocked_cli(args, tmp_path)
     assert proc.returncode == 0, proc.stderr
     assert "cache MISS (compiled)" in proc.stdout
     assert out.read_bytes() == (ARTIFACTS / f"{stem}.coexec.json"
                                 ).read_bytes()
-    proc = _cli(args, tmp_path)
+    proc = blocked_cli(args, tmp_path)
     assert proc.returncode == 0 and "cache HIT" in proc.stdout
 
 
@@ -243,6 +215,6 @@ def test_cli_plan_saves_the_committed_artifact_byte_for_byte(
     (["--network", "resnet19"], "unknown network 'resnet19'"),
 ])
 def test_cli_plan_refuses_bad_input_with_exit_2(args, message, tmp_path):
-    proc = _cli(["plan", *args, "--cache-dir", str(tmp_path)], tmp_path)
+    proc = blocked_cli(["plan", *args, "--cache-dir", str(tmp_path)], tmp_path)
     assert proc.returncode == 2
     assert message in proc.stderr and "Traceback" not in proc.stderr

@@ -10,11 +10,15 @@ their plain PyTorch versions, and small split runs on two CUDA streams
 (a conv/linear network; a decoder graph with head, kv-block and
 ssm-state splits) against the same runs on the CPU.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # kernel vs plain, relative to the largest |plain| value: fp32 sums in
 # another order (~sqrt(K) * 2^-24); bf16 outputs one 2^-8 rounding apart
@@ -492,3 +496,136 @@ def test_fused_walk_replays_cuda_graphs(cuda, which):
     assert exe.segment_programs() is not programs
     assert torch.equal(y2, fresh.run(x0)[0])
     assert not torch.equal(y2, y0)
+
+
+def _portfolio_panels():
+    """(K, C_out, c_fast) of every channel split in the batch-4 entries of
+    the committed zamba2-7b portfolio: the GEMV's M = 4 panels."""
+    import repro_torch
+    pf = repro_torch.PlanPortfolio.load(
+        ROOT / "src/repro_torch/artifacts/zamba2-7b_b9_moto2022_t1"
+               ".portfolio.json")
+    panels = set()
+    for b, compiled in pf.entries.items():
+        for d in compiled.decisions:
+            if b.batch == 4 and d.axis == "channel" and d.c_cpu and d.c_gpu:
+                assert d.op.L == 4
+                panels.add((d.op.C_in, d.op.C_out, d.c_gpu))
+    return sorted(panels)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_matmul_takes_the_batch4_panels_on_its_gemv(cuda, dtype):
+    """A batch-4 bucket folds its rows into the projections: each side of
+    every channel split runs the 16-byte GEMV at M = 4 on its panel."""
+    from repro_torch.core.coexec import SplitPlan, pack_weights
+    from repro_torch.kernels.split_matmul import (split_matmul,
+                                                  split_matmul_plain)
+    from repro_torch.kernels.split_matmul.split_matmul import (VECTOR,
+                                                               plan_call)
+    panels = _portfolio_panels()
+    assert panels
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for k, c_out, c_fast in panels:
+        x = torch.randn((4, k), generator=g, device=cuda).to(dtype)
+        w = (torch.randn((k, c_out), generator=g, device=cuda) / k ** 0.5
+             ).to(dtype)
+        split = SplitPlan(c_out=c_out, c_fast=c_fast)
+        packed = pack_weights(w, split)
+        for side in range(2):
+            launch = plan_call(x, packed[side], 0, split.width(side))
+            assert (launch.variant, launch.mt) == (VECTOR, 4)
+            before = split_matmul.launches
+            got = split_matmul(x, packed[side], 0, split.width(side))
+            assert split_matmul.launches == before + 1
+            _close(got, split_matmul_plain(x, packed[side], 0,
+                                           split.width(side)), dtype)
+
+
+def _zamba_width_plan(splits):
+    """A two-block decode graph at zamba2-7b's published widths (a Mamba2
+    block, then the attention block), batch 4, a 64-position cache,
+    compiled by the grid planner with `splits` forced on, built from the
+    port's own codecs (no JAX): `splits` maps a node id to the fast side's
+    channels, or to (axis, units) for a typed axis."""
+    import dataclasses
+    import json
+    import tempfile
+
+    import repro_torch
+    from repro_torch.api import _artifact_checksum
+    from repro_torch.configs.zamba2_7b import CONFIG
+    from repro_torch.graph.frontends import from_model
+    graph = from_model(dataclasses.replace(CONFIG, attn_every=2), blocks=2,
+                       cache_len=64, batch=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        compiled = repro_torch.compile(
+            graph, repro_torch.Target(device="moto2022", threads=1),
+            mode="grid", cache=tmp)
+    doc = json.loads(json.dumps(compiled.to_json()))
+    for entry in doc["plan"]["schedule"]:
+        share = splits.get(entry.get("id"))
+        if share is None:
+            continue
+        dec = entry["decision"]
+        axis, n_fast = share if isinstance(share, tuple) else \
+            ("channel", share)
+        size = {"channel": "C_out", "head": "H", "ssm-state": "H",
+                "kv-block": "S"}[axis]
+        dec.pop("axis", None)
+        if axis != "channel":
+            dec["axis"] = axis
+        dec["c_gpu"], dec["c_cpu"] = n_fast, dec["op"][size] - n_fast
+    doc["plan"].pop("segments")            # re-derived from the splits
+    doc["checksum"] = _artifact_checksum(doc)
+    return repro_torch.CompiledNetwork.from_json(doc)
+
+
+@pytest.mark.parametrize("variant", ["head", "ssm-state"])
+def test_typed_split_lowerings_at_zamba_widths_on_batch4(cuda, variant):
+    """The head split of the 32-head attention and the ssm-state split of
+    the 112-head SSD scan at zamba2-7b's widths, with the batch-4 rows of
+    a portfolio bucket around them: on two CUDA streams, per node and
+    fused, against the same plan on the CPU and its oracle, with the
+    launch, reshard and elision counts `chip_smoke.py` derives."""
+    import importlib.util
+
+    from repro_torch.runtime.executor import PlanExecutor
+    from repro_torch.runtime.segments import launch_counters
+    splits = ({"b1.q_proj": 2536, "b1.attn": ("head", 16),
+               "b1.o_proj": 2536} if variant == "head" else
+              {"b0.in_proj": 4096, "b0.ssm": ("ssm-state", 64),
+               "b0.out_proj": 2048})
+    compiled = _zamba_width_plan(splits)
+    spec = importlib.util.spec_from_file_location("chip_smoke_cuda",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = smoke.expected_counts(compiled.plan)
+    exe = compiled.executor(device=cuda)
+    x = exe.input_template()
+    cpu = PlanExecutor(compiled.plan, device="cpu")
+    y_cpu, rep_cpu = cpu.run(x.cpu())
+    # the CPU walks' counts are the reference executor's
+    # (tests/test_torch_portfolio.py)
+    _, fused_cpu = cpu.run(x.cpu(), fused=True)
+    counters = launch_counters()
+    for fused in (False, True):
+        exe.run(x, fused=fused, warmup=True)
+        before = {k: c.launches for k, c in counters.items()}
+        y, rep = exe.run(x, fused=fused)
+        assert {k: counters[k].launches - before[k] for k in counters} == \
+            {k: want[k] for k in counters}
+        # the fused walk gathers the typed splits in their singletons
+        assert (rep.reshard_points, rep.elided) == (
+            smoke.fused_reshard_counts(compiled.plan) if fused else
+            (want["reshard"], want["elided"]))
+        on_cpu = fused_cpu if fused else rep_cpu
+        assert (rep.reshard_points, rep.elided) == \
+            (on_cpu.reshard_points, on_cpu.elided)
+        assert tuple(y.shape) == (4, 3584)
+        np.testing.assert_allclose(y.cpu().numpy(), y_cpu.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(y.cpu().numpy(),
+                                   exe.run_oracle(x).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)

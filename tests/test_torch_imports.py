@@ -80,6 +80,23 @@ def test_the_scan_covers_the_planning_half(module):
     assert module in _port_modules()
 
 
+#: the measurement loop's modules (records, the store, the calibrator and
+#: the replanner)
+MEASURE_MODULES = [
+    "repro_torch.measure", "repro_torch.measure.record",
+    "repro_torch.measure.store", "repro_torch.measure.calibrate",
+    "repro_torch.measure.replan",
+]
+
+
+@pytest.mark.parametrize("module", MEASURE_MODULES)
+def test_the_scan_covers_the_measurement_loop(module):
+    assert module in _port_modules()
+    path = PORT.joinpath(*module.split(".")[1:])
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    assert path in sorted(PORT.rglob("*.py"))
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -96,6 +96,36 @@ def test_no_block_streams_less_than_the_floor(case, dtype):
     assert plan.mt * plan.k_chunk * 4 <= X_STAGE_BYTES
 
 
+def _batch4_panels():
+    """(K, C_out, c_fast) of every channel split in the batch-4 entries of
+    the committed zamba2-7b portfolio, whose GEMVs run at M = 4."""
+    import repro_torch
+    pf = repro_torch.PlanPortfolio.load(
+        Path(__file__).resolve().parents[1] / "src/repro_torch/artifacts"
+        / "zamba2-7b_b9_moto2022_t1.portfolio.json")
+    return sorted({(d.op.C_in, d.op.C_out, d.c_gpu)
+                   for b, c in pf.entries.items() if b.batch == 4
+                   for d in c.decisions
+                   if d.axis == "channel" and d.c_cpu and d.c_gpu})
+
+
+@pytest.mark.parametrize("dtype", list(ELTS))
+@pytest.mark.parametrize("panel", _batch4_panels(), ids=str)
+def test_batch4_panels_take_the_gemv(panel, dtype):
+    """Both sides of every batch-4 channel split of the committed
+    portfolio run the vector GEMV with four rows of X per block."""
+    k, c_out, c_fast = panel
+    split = SplitPlan(c_out=c_out, c_fast=c_fast)
+    for side in range(2):
+        width = split.width(side)
+        plan = plan_launch(4, k, split.c_pad, 0, width, ELTS[dtype],
+                           ALIGNED, SMS, RESIDENT)
+        assert (plan.variant, plan.mt) == (VECTOR, 4)
+        ranges = plan.k_ranges(k)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert plan.mt * plan.k_chunk * 4 <= X_STAGE_BYTES
+
+
 @pytest.mark.parametrize("resident", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("k,width", [(25088, 3368), (4096, 4096),
                                      (3584, 1472), (14336, 2296)])

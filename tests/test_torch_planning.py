@@ -49,7 +49,6 @@ from repro.runtime.plan import PlanProvenance as JaxProvenance
 from repro.runtime.plan import predictor_checksum as jax_predictor_checksum
 from repro.runtime.plan import train_mux_predictors as jax_train_mux
 
-import repro_torch.core.types as pt
 from repro_torch.analysis import rejections
 from repro_torch.core.networks import NETWORKS
 from repro_torch.core.partitioner import (
@@ -75,13 +74,10 @@ from repro_torch.runtime.plan import (_hash_gbdt, decision_to_json,
                                       predictor_checksum,
                                       train_mux_predictors)
 
+from test_torch_support import to_port
+
 #: the zamba2-7b step of the committed artifact
 ZAMBA = dict(blocks=9, cache_len=4096)
-
-
-def to_port(op):
-    """The port's op equal to a reference op, field for field."""
-    return getattr(pt, type(op).__name__)(**dataclasses.asdict(op))
 
 
 def _network_ops(make_graph, networks):

@@ -8,11 +8,16 @@ re-materialized from the 8x8 activation (`_adapt`), and two linears.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import repro
 from repro.core.types import ConvOp, LinearOp
+
+import repro_torch.core.types as port_types
 
 ROOT = Path(__file__).resolve().parents[1]
 VGG16_ARTIFACT = ROOT / "src/repro_torch/artifacts/vgg16_moto2022.coexec.json"
@@ -70,3 +75,36 @@ def forced_split_doc(compiled, splits):
     doc.pop("checksum")
     doc["checksum"] = _artifact_checksum(doc)
     return doc
+
+
+def to_port(op):
+    """The port's op equal to a reference op, field for field."""
+    return getattr(port_types, type(op).__name__)(**dataclasses.asdict(op))
+
+
+#: a blocker that keeps jax and the JAX package from import, then runs the
+#: port's CLI as `python -m repro_torch`
+_BLOCKED_CLI = """
+import runpy, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.argv = ["repro_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("repro_torch", run_name="__main__")
+finally:
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
+"""
+
+
+def blocked_cli(args, cwd):
+    """`python -m repro_torch ARGS` in `cwd`, with jax and `repro` kept
+    from import."""
+    return subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CLI, *args], capture_output=True,
+        text=True, cwd=cwd, timeout=600,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
