@@ -88,13 +88,50 @@ the port cannot be imported, and otherwise runs, in order:
    kernel calls held as in phase 9; then the in-process portfolio's entry
    for the live step `PORTFOLIO_STEP` taken through phase 9's loop and
    swapped in with `replace`, the new document loaded back strictly;
-11. a JSON line of per-kernel numbers (launches summed over every walk
+11. the `serve` phase (`serve_phase`): codeqwen1.5-7b (`SERVE_ARCH`) at
+   its published widths and full depth (32 layers, d_model 4096, 32 heads
+   of 128, d_ff 13440, vocab 92416: 8.2 B parameters), its weights seeded
+   draws made on the card.  A portfolio (`SERVE_BUCKETS`, b1s64 and
+   b4s64) compiled on this host, cold then warm; each entry's plan run as
+   a main path is (`main_path`: its `split_matmul` and `decode_attention`
+   calls at H = KV = 32, hd = 128) and every kernel call of one of its
+   requests held against its plain version in float32 and bfloat16
+   (`hold_walk_calls`); the reduced model's prefill and decode logits on
+   the card within `SERVE_LOGIT_RTOL` of the same weights on the CPU; in
+   fp32, `ContinuousScheduler` on the virtual clock over `SERVE_TRAFFIC`
+   greedy Poisson requests (0.33 / the b4s64 plan's cost, the reference's
+   acceptance rate), its plans executed every `SERVE_FIDELITY_EVERY`
+   steps, each completion equal token for token to the request served
+   alone by the fixed-batch engine (on a mismatch the solo run's top-2
+   logit gap there is printed); in bf16, the fixed-batch `ServingEngine`
+   on `SERVE_FIXED_REQUESTS` requests (greedy and T = 0.7 in turns)
+   shipping the b4s64 entry (`compiled=`, one `execute_plan`), then the
+   scheduler on the wall clock: tokens/s, TTFT p50, latency p50/p99 and
+   peak memory beside the card's name and power limit, and its offered
+   load against the slots the card served (`offered_load`: that traffic
+   is paced by the phone's plan cost, so on the card it overloads the
+   scheduler and the wall figures are a backlog's); a decode step at
+   batch 1 and 4 timed bare and under torch.profiler (device time by
+   kernel, idle share, host launch calls); then the scheduler again on
+   the virtual clock with a `ThrottleSim` (x2.5 from 100 steps' cost on):
+   at least one drift-triggered in-place replan must be committed, with
+   a lower fidelity error.  Every plan those runs executed
+   (`executed_plans`: fidelity runs, replan candidates committed or not,
+   the engine's `execute_plan`, on any of the three scheduler runs) that
+   the entries did not hold runs as a main path with its kernel calls
+   held.  Each serve walk's launch counts are set
+   to 0 just before it and read just after, and `split_matmul` and
+   `decode_attention` must launch in each;
+12. a JSON line of per-kernel numbers (launches summed over every walk
    above, `by_path` per walk with the float32 times of one request where
    the walk's calls were held), then the result line.  Each phase prints
    its seconds.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -1219,6 +1256,476 @@ def portfolio_phase(peaks: dict, tallies: dict) -> dict:
     return walks
 
 
+# ------------------------------------------------------------------- serve
+
+def _to_device(tree, device):
+    """A model's params (nested dicts and lists of tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def serve_reduced_check(cfg) -> None:
+    """Reduced `cfg` in fp32: the same seeded weights on the CPU and on the
+    card, a left-padded prefill then decode steps at a shared position
+    and at per-row positions; every logit within `SERVE_LOGIT_RTOL` of the
+    largest |CPU logit| (the CPU tests tie the CPU path to the
+    reference's)."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    model = build_model(small)
+    params = {"cpu": model.init(torch.Generator().manual_seed(0))}
+    params["cuda"] = _to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(500)
+    b, t = 3, 12
+    toks = torch.from_numpy(rng.integers(1, small.vocab_size, (b, t)))
+    steps = torch.from_numpy(rng.integers(1, small.vocab_size, (4, b, 1)))
+    start = torch.tensor([0, 4, 7])
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        cache = model.init_cache(b, 32, device=dev)
+        out, cache = model.prefill(params[dev], toks.to(dev), cache,
+                                   start=start.to(dev))
+        logits[dev] = [out]
+        for i, tok in enumerate(steps):
+            pos = (t + i if i < 2 else
+                   torch.tensor([t + i, t + i + 2, t + i + 1], device=dev))
+            out, cache = model.decode_step(params[dev], tok.to(dev), cache,
+                                           pos, start=start.to(dev))
+            logits[dev].append(out)
+    worst = 0.0
+    for i, (want, got) in enumerate(zip(logits["cpu"], logits["cuda"])):
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / scale)
+        if not err <= SERVE_LOGIT_RTOL * scale:
+            raise AssertionError(f"serve reduced: step {i} logits on the "
+                                 f"card differ from the CPU's by {err:.3e} "
+                                 f"> {SERVE_LOGIT_RTOL} x {scale:.3g}")
+    print(f"serve reduced {small.name} (d_model {small.d_model}, "
+          f"{small.n_layers} layers, fp32): prefill + 4 decode steps on the "
+          f"card within {worst:.2e} of the CPU's largest |logit| (limit "
+          f"{SERVE_LOGIT_RTOL:g})", flush=True)
+
+
+def _first_divergence(model, params, req, got, want) -> str:
+    """Where the scheduler's tokens for `req` leave the solo run's: the
+    step, both tokens, and the top-2 logit gap of the solo run there."""
+    step = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+    cache = model.init_cache(1, SERVE_MAX_LEN, device="cuda")
+    prompt = torch.from_numpy(req.prompt.astype(np.int64))[None].cuda()
+    logits, cache = model.prefill(params, prompt, cache)
+    for i in range(step):
+        logits, cache = model.decode_step(
+            params, torch.tensor([[want[i]]], device="cuda"), cache,
+            len(req.prompt) + i)
+    top = logits[0].float().topk(2).values
+    return (f"request {req.rid} step {step}: scheduler "
+            f"{got[step] if step < len(got) else None}, solo "
+            f"{want[step] if step < len(want) else None}; the solo run's "
+            f"top-2 logit gap there {float(top[0] - top[1]):.3e}")
+
+
+def _profile(label: str, fn, n: int):
+    """`n` calls of `fn` under torch.profiler: the CUDA kernels' rows
+    (device ms per call, launches over the `n` calls, name) by falling
+    device time, their device ms per call, the wall per call in ms (host
+    clock around the calls and a sync), and per call the host calls that
+    put work on the card (kernel launches, copies and graph launches: the
+    CUDA runtime's API events in the trace), by name.  Raises if the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.count, e.key)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0.0:
+        raise AssertionError(f"profile {label}: the trace holds no device "
+                             f"time")
+    calls = {}
+    for e in events:
+        if e.key.startswith(HOST_LAUNCH_CALLS):
+            calls[e.key] = calls.get(e.key, 0) + e.count / n
+    return rows, busy, wall, calls
+
+
+def decode_breakdown(label: str, model, params, batch: int,
+                     steps: int = 4, top: int = 8) -> None:
+    """Where a decode step's time goes: `steps` steps of `batch` slots at
+    per-slot positions (the scheduler's call), timed bare (host clock
+    around the steps and a sync), then under torch.profiler: device time
+    by kernel against the step wall, and the host calls that put work on
+    the card.  Raises if the trace holds no device time."""
+    cache = model.init_cache(batch, SERVE_MAX_LEN, device="cuda")
+    tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.arange(batch, device="cuda")
+
+    def step():
+        model.decode_step(params, tok, cache, pos)
+
+    step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t) * 1e3 / steps
+    rows, busy, wall, calls = _profile(label, step, steps)
+    print(f"profile {label}: decode step of {batch} slots, wall {bare:.3f} "
+          f"ms bare, {wall:.3f} ms under the profiler; kernels {busy:.3f} "
+          f"ms of device time in {sum(r[1] for r in rows) / steps:g} "
+          f"launches (idle >= {1 - busy / wall:.1%} of the profiled wall); "
+          f"host launch calls per step {sum(calls.values()):g}", flush=True)
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:8.3f} ms {count / steps:6g}x {key[:100]}", flush=True)
+
+
+@contextlib.contextmanager
+def executed_plans():
+    """Every CompiledNetwork whose plan is executed inside the block, by
+    plan key: each execution takes its executor from
+    `CompiledNetwork.executor` (the scheduler's `profile` runs, its replan
+    candidates', and `ServingEngine.execute_plan`)."""
+    from repro_torch.api import CompiledNetwork
+
+    seen = {}
+    real = CompiledNetwork.executor
+
+    def executor(self, **kw):
+        seen.setdefault(self.key, self)
+        return real(self, **kw)
+
+    CompiledNetwork.executor = executor
+    try:
+        yield seen
+    finally:
+        CompiledNetwork.executor = real
+
+
+def offered_load(label: str, traffic, rep) -> str:
+    """The wall-clock run's offered load against what the card served:
+    slot-steps (the scheduler prefills one prompt token a step, and the
+    last prompt step emits the first token, so a request holds a slot
+    prompt + new - 1 steps) per second of arrivals, against the slots
+    over the run's mean step."""
+    need = sum(len(r.prompt) + r.max_new_tokens - 1 for r in traffic)
+    span = max(r.arrival_s for r in traffic)
+    step = rep.duration_s / rep.steps
+    capacity = SERVE_MAX_BATCH / step
+    ratio = need / span / capacity
+    verdict = (f"{ratio:.2f}x overloaded: its TTFT and latency measure a "
+               f"backlog draining, not serving latency" if ratio > 1 else
+               f"{ratio:.2f} of capacity")
+    return (f"{label}: offered {need} slot-steps over {span:.4f} s of "
+            f"arrivals ({need / span:.1f}/s); the card served at most "
+            f"{capacity:.1f}/s ({SERVE_MAX_BATCH} slots / the run's mean "
+            f"step {step * 1e3:.3f} ms, plan executions included): "
+            f"{verdict}; TTFT includes each prompt's token-by-token prefill")
+
+
+def _report_line(label: str, rep, host_s: float) -> str:
+    return (f"{label}: {len(rep.stats)} requests, {rep.total_tokens} tokens "
+            f"in {rep.steps} steps; {rep.clock} clock {rep.duration_s:.4f} "
+            f"s, {rep.tokens_per_s:.1f} tok/s; TTFT p50 "
+            f"{rep.ttft_p(50) * 1e3:.2f} ms, latency p50 "
+            f"{rep.latency_p(50) * 1e3:.2f} ms p99 "
+            f"{rep.latency_p(99) * 1e3:.2f} ms; bucket steps "
+            f"{dict(sorted(rep.bucket_steps.items()))}, switches "
+            f"{rep.bucket_switches}, replans {len(rep.replan_events)}; host "
+            f"wall {host_s:.3f} s ({rep.total_tokens / host_s:.1f} tok/s)")
+
+
+def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
+    """The serving path at codeqwen1.5-7b's published widths and full
+    depth (`SERVE_ARCH`), its weights seeded draws made on the card:
+
+    - a portfolio (`SERVE_BUCKETS`) compiled on this host, cold then warm;
+      each entry's plan run as a main path is (`main_path`) and every
+      kernel call of one of its requests held against its plain version
+      (`hold_walk_calls`);
+    - the reduced model on the card against the CPU (`serve_reduced_check`);
+    - in fp32: `ContinuousScheduler` over `SERVE_TRAFFIC` greedy Poisson
+      requests on the virtual clock, its plans executed every
+      `SERVE_FIDELITY_EVERY` steps, each completion equal to the request
+      served alone by the fixed-batch engine, token for token;
+    - in bf16: the fixed-batch `ServingEngine` on `SERVE_FIXED_REQUESTS`
+      requests shipping the b4 entry (`compiled=`, one `execute_plan`), and
+      the scheduler again on the wall clock, whose tokens/s, TTFT and
+      latency percentiles are printed beside the card's name and limit,
+      with its offered load against the card's service (`offered_load`);
+      then a profiled decode step at batch 1 and 4 (`decode_breakdown`);
+    - the scheduler once more with a simulated throttle: at least one
+      validated in-place replan must be committed;
+    - every plan the runs above executed (`executed_plans`: replanned
+      entries and rejected candidates alike, and the plan the engine
+      shipped) that the entries did not hold: run and its kernel calls
+      held as above.
+
+    Returns the walks as {walk: (times key, launch counts)}: counters set
+    to 0 just before each walk, read just after."""
+    import repro_torch
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import (ContinuousScheduler,
+                                     FixedBatchReference, Request,
+                                     SchedulerConfig, ServingEngine,
+                                     ThrottleSim, poisson_requests)
+
+    # earlier phases' executors and CUDA graphs may sit in reference
+    # cycles: collect them, so the peaks below are this phase's
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(SERVE_ARCH)
+    name = cfg.name
+    n = cfg.param_count()
+    print(f"serve {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim} (kv {cfg.n_kv_heads}), "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n / 1e9:.3f} B "
+          f"parameters ({2 * n / 1e9:.1f} GB bf16, {4 * n / 1e9:.1f} GB "
+          f"fp32); {held:.1f} GB allocated on the card before the phase",
+          flush=True)
+    walks = {}
+    counters = kernel_counters()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_serve_") as tmp:
+        target = repro_torch.Target(device="moto2022")
+        kw = dict(buckets=SERVE_BUCKETS, cache=Path(tmp, "plans"),
+                  predictor_cache=Path(tmp, "predictors"))
+        t = time.perf_counter()
+        pf = repro_torch.compile_portfolio(cfg, target, **kw)
+        cold = time.perf_counter() - t
+        t = time.perf_counter()
+        again = repro_torch.compile_portfolio(cfg, target, **kw)
+        warm = time.perf_counter() - t
+        if not all(c.from_cache for c in again.entries.values()):
+            raise AssertionError("serve: the second portfolio compile was "
+                                 "not all warm hits")
+        print(f"serve portfolio {pf}: cold {cold:.3f} s, warm {warm:.3f} s; "
+              f"checksum {pf.to_json()['checksum']}", flush=True)
+        for b, c in pf.entries.items():
+            splits = ", ".join(
+                f"{nid} {d.axis} {d.c_cpu}/{d.c_gpu}"
+                for nid, d in c.plan.decisions_by_node.items()
+                if not d.exclusive)
+            print(f"  {b.tag}: key {c.key}, end-to-end "
+                  f"{c.plan.end_to_end_us / 1e3:.3f} ms on the simulated "
+                  f"phone; splits: {splits or 'none'}", flush=True)
+            label = f"{name} {b.tag}"
+            make = decode_input(b.batch, cfg.d_model)
+            counts, exe, _, _ = main_path(label, c, make,
+                                          (b.batch, cfg.d_model),
+                                          PORTFOLIO_REQUESTS, SERVE_E2E_RTOL)
+            walks[label] = (label, counts)
+            hold_walk_calls(label, kernel_calls(exe, make(0)),
+                            expected_counts(c.plan), peaks, tallies)
+        serve_reduced_check(cfg)
+
+        largest = pf.entries[pf.buckets[-1]]
+        cost = largest.plan.end_to_end_us * 1e-6
+        traffic = poisson_requests(
+            SERVE_TRAFFIC, rate=0.33 / cost, vocab_size=cfg.vocab_size,
+            prompt_lens=(4, 8, 16), max_new=(4, 8, 12), temperatures=(0.0,),
+            seed=19)
+        fixed = FixedBatchReference(largest, max_batch=SERVE_MAX_BATCH)
+        print(f"serve traffic: {SERVE_TRAFFIC} greedy Poisson requests at "
+              f"{0.33 / cost:.2f} req/s (0.33 / the {pf.buckets[-1].tag} "
+              f"plan's {cost * 1e3:.3f} ms); the fixed-batch reference on "
+              f"that plan: {fixed.run(traffic).summary()}", flush=True)
+
+        def scheduler(model, params, clock, store, throttle=None, **conf):
+            conf = {"fidelity_every": SERVE_FIDELITY_EVERY, **conf}
+            return ContinuousScheduler(
+                cfg, model, params, portfolio=pf, device="cuda",
+                measurement_store=Path(tmp, store),
+                plan_cache=Path(tmp, "plans"), throttle=throttle,
+                config=SchedulerConfig(max_batch=SERVE_MAX_BATCH,
+                                       max_len=SERVE_MAX_LEN, clock=clock,
+                                       **conf))
+
+        # every plan the runs below execute: the scheduler's fidelity runs,
+        # its replan candidates (committed or not) and the fixed batch's
+        # execute_plan; the entries above are held already
+        held = {c.key for c in pf.entries.values()}
+        events = []
+        with executed_plans() as executed:
+            # fp32 (TF32 off): the scheduler's completions against solo
+            # runs
+            model = build_model(dataclasses.replace(cfg, dtype="float32"))
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params = model.init(
+                torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            print(f"serve fp32 weights: drawn on the card in "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+            label = f"{name} serve fp32 virtual"
+            zero()
+            t = time.perf_counter()
+            rep = scheduler(model, params, "virtual",
+                            "meas_fp32").run(traffic)
+            host = time.perf_counter() - t
+            walks[label] = (None, read())
+            events += rep.replan_events
+            print(_report_line(label, rep, host) + f"; {smi}", flush=True)
+            got = {c.rid: c.tokens for c in rep.completions}
+            t = time.perf_counter()
+            for r in traffic:
+                solo = ServingEngine(cfg, model, params, max_batch=1,
+                                     max_len=SERVE_MAX_LEN, device="cuda")
+                want = solo.run([dataclasses.replace(r, arrival_s=0.0)]
+                                )[0].tokens
+                if got.get(r.rid) != want:
+                    raise AssertionError(
+                        "serve fp32: the scheduler's tokens differ from the "
+                        "solo run's: " + _first_divergence(
+                            model, params, r, got.get(r.rid, []), want))
+            print(f"serve fp32: all {len(traffic)} scheduler completions "
+                  f"equal the requests served alone by the fixed-batch "
+                  f"engine, token for token ({sum(map(len, got.values()))} "
+                  f"tokens; solo runs {time.perf_counter() - t:.1f} s); peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+                  flush=True)
+            del model, params, solo
+            torch.cuda.empty_cache()
+
+            # bf16, the configuration's serving dtype
+            model = build_model(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init(
+                torch.Generator(device="cuda").manual_seed(0))
+            rng = np.random.default_rng(0)
+            reqs = [Request(rid=i, prompt=rng.integers(
+                        0, cfg.vocab_size, size=rng.integers(4, 17)
+                    ).astype(np.int32), max_new_tokens=SERVE_MAX_NEW,
+                        temperature=(0.0, 0.7)[i % 2])
+                    for i in range(SERVE_FIXED_REQUESTS)]
+            engine = ServingEngine(cfg, model, params,
+                                   max_batch=SERVE_MAX_BATCH,
+                                   max_len=64 + SERVE_MAX_NEW,
+                                   compiled=pf.entries[pf.buckets[-1]],
+                                   device="cuda")
+            engine.run(reqs[:1])                   # warm the allocator
+            label = f"{name} serve bf16 fixed"
+            zero()
+            t = time.perf_counter()
+            done = engine.run(reqs)
+            host = time.perf_counter() - t
+            _, report = engine.execute_plan()
+            walks[label] = (None, read())
+            tokens = sum(len(c.tokens) for c in done)
+            if (tokens != SERVE_FIXED_REQUESTS * SERVE_MAX_NEW or not all(
+                    0 <= v < cfg.vocab_size for c in done
+                    for v in c.tokens)):
+                raise AssertionError(
+                    f"serve bf16 fixed: {tokens} tokens, want "
+                    f"{SERVE_FIXED_REQUESTS * SERVE_MAX_NEW} in [0, "
+                    f"{cfg.vocab_size})")
+            print(f"{label}: {len(done)} requests (greedy and T=0.7 in "
+                  f"turns) in batches of {SERVE_MAX_BATCH}, {tokens} tokens "
+                  f"in {host:.3f} s ({tokens / host:.1f} tok/s on {smi}); "
+                  f"execute_plan: {report.fidelity_summary()}", flush=True)
+            label = f"{name} serve bf16 wall"
+            zero()
+            t = time.perf_counter()
+            rep = scheduler(model, params, "wall", "meas_bf16").run(traffic)
+            host = time.perf_counter() - t
+            walks[label] = (None, read())
+            events += rep.replan_events
+            if (len(rep.completions) != len(traffic)
+                    or rep.total_tokens != sum(r.max_new_tokens
+                                               for r in traffic)):
+                raise AssertionError(f"{label}: {len(rep.completions)} "
+                                     f"completions, {rep.total_tokens} "
+                                     f"tokens")
+            print(_report_line(label, rep, host) + f"; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}",
+                  flush=True)
+            print(offered_load(label, traffic, rep), flush=True)
+            for batch in (1, SERVE_MAX_BATCH):
+                decode_breakdown(f"{name} bf16", model, params, batch)
+
+            # the drift-triggered in-place replan: a simulated throttle
+            # scales the recorded plan walls from 100 steps' cost on (the
+            # reference's acceptance test), the bucket's monitor fires, and
+            # the scheduler replans it, verifies the new plan, executes it
+            # on the card and commits it only if its fidelity error is lower
+            label = f"{name} serve bf16 throttled"
+            zero()
+            t = time.perf_counter()
+            rep = scheduler(model, params, "virtual", "meas_throttle",
+                            throttle=ThrottleSim(at_s=100 * cost, scale=2.5),
+                            fidelity_every=4, fidelity_window=4,
+                            drift_cooldown=2).run(traffic)
+            host = time.perf_counter() - t
+            walks[label] = (None, read())
+            print(_report_line(label, rep, host), flush=True)
+            if not rep.replan_events:
+                raise AssertionError(f"{label}: the throttle triggered no "
+                                     f"committed replan")
+            events += rep.replan_events
+            del model, params, engine
+            torch.cuda.empty_cache()
+
+        for ev in events:
+            print(f"  replan [{ev.bucket}] at step {ev.step} ({ev.time_s:.3f}"
+                  f" s): {ev.changes} nodes moved, fidelity error "
+                  f"{ev.pre_fidelity:.3f} -> {ev.post_fidelity:.3f}, key "
+                  f"{ev.old_key} -> {ev.new_key}", flush=True)
+            if not ev.post_fidelity < ev.pre_fidelity:
+                raise AssertionError(f"serve: a committed replan did not "
+                                     f"lower the fidelity error")
+        # hold every executed plan the entries above did not hold: its run
+        # against run_oracle and every kernel call of one of its requests
+        if not executed:
+            raise AssertionError("serve: no plan execution was recorded")
+        committed = {ev.new_key for ev in events}
+        for key, c in executed.items():
+            if key in held:
+                continue
+            shape = tuple(c.executor(device="cuda").input_template().shape)
+            tag = (f"{name} b{shape[0]} plan {key[:8]} "
+                   f"{'replanned' if key in committed else 'not committed'}")
+            make = decode_input(*shape)
+            counts, exe, _, _ = main_path(tag, c, make, shape,
+                                          PORTFOLIO_REQUESTS, SERVE_E2E_RTOL)
+            walks[tag] = (tag, counts)
+            hold_walk_calls(tag, kernel_calls(exe, make(0)),
+                            expected_counts(c.plan), peaks, tallies)
+            held.add(key)
+        print(f"serve: {len(executed)} distinct plans executed by the "
+              f"scheduler and the engine, each held against its plain "
+              f"version ({len(committed)} committed replans): "
+              + ", ".join(sorted(executed)), flush=True)
+    for k in ("split_matmul", "decode_attention"):
+        for walk in ("fp32 virtual", "bf16 fixed", "bf16 wall",
+                     "bf16 throttled"):
+            walk = f"{name} serve {walk}"
+            if not walks[walk][1][k]:
+                raise AssertionError(f"{k} was not launched on the {walk} "
+                                     f"walk")
+    return walks
+
+
 def image_input(size: int):
     """Seeded (1, size, size, 3) requests of a CNN path."""
     def make(r: int) -> np.ndarray:
@@ -1230,11 +1737,12 @@ def image_input(size: int):
 vgg16_input = image_input(224)
 
 
-def decode_input(batch: int):
-    """Seeded (batch, ZAMBA_D) requests of a zamba2-7b decode step."""
+def decode_input(batch: int, d: int = None):
+    """Seeded (batch, d) requests of a decode step (d: zamba2-7b's
+    width unless given)."""
     def make(r: int) -> np.ndarray:
         return np.random.default_rng(300 + r).standard_normal(
-            (batch, ZAMBA_D)).astype(np.float32)
+            (batch, d or ZAMBA_D)).astype(np.float32)
     return make
 
 
@@ -1263,35 +1771,13 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
     the fused walk, the launches credited at the graphs' replays) and the
     graph launches the trace shows.  Raises if the trace holds no device
     time at all."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     counters = kernel_counters()
     exe.run(x, fused=fused)
     before = {k: fn.launches for k, fn in counters.items()}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(requests):
-            exe.run(x, fused=fused)
-        wall = (time.perf_counter() - t) * 1e3 / requests
     if fused:
         name = f"{name} fused"
-    rows = sorted(((e.self_device_time_total / 1e3 / requests, e.count,
-                    e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    if busy <= 0.0:
-        raise AssertionError(f"profile {name}: the trace holds no device "
-                             f"time")
-    # host calls that put work on the card: kernel launches, copies and
-    # graph launches (the CUDA runtime's API events in the trace)
-    calls = {}
-    for e in prof.key_averages():
-        if e.key.startswith(HOST_LAUNCH_CALLS):
-            calls[e.key] = calls.get(e.key, 0) + e.count / requests
+    rows, busy, wall, calls = _profile(name, lambda: exe.run(x, fused=fused),
+                                       requests)
     print(f"profile {name}: {requests} requests; per request wall "
           f"{wall:.3f} ms under the profiler, kernels {busy:.3f} ms of "
           f"device time in {sum(r[1] for r in rows) / requests:g} launches "
@@ -1305,8 +1791,7 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
             for k in KERNEL_NAMES}
     second = {k: sum(c for _, c, key in rows if pattern in key)
               for k, pattern in SECOND_PASSES.items()}
-    graphs = sum(e.count for e in prof.key_averages()
-                 if e.key == "cudaGraphLaunch")
+    graphs = round(calls.get("cudaGraphLaunch", 0) * requests)
     print(f"profile {name}: launches in the trace / by the counters over "
           f"the {requests} requests: " + ", ".join(
               f"{k} {seen[k]}/{counters[k].launches - before[k]}"
@@ -1339,6 +1824,25 @@ REPLAN_REQUESTS = 2
 PORTFOLIO = ARTIFACTS / "zamba2-7b_b9_moto2022_t1.portfolio.json"
 PORTFOLIO_REQUESTS = 2
 PORTFOLIO_STEP = (4, 200)
+
+#: the serve phase: the model (codeqwen1.5-7b at its published widths and
+#: full depth), its portfolio's (batch, seq) buckets, the fixed-batch
+#: engine's requests, new tokens per request and batch, the scheduler's
+#: per-slot cache length, its Poisson requests and plan-execution cadence
+SERVE_ARCH = "codeqwen15_7b"
+SERVE_BUCKETS = ((1, 64), (4, 64))
+SERVE_FIXED_REQUESTS = 8
+SERVE_MAX_NEW = 12
+SERVE_MAX_BATCH = 4
+SERVE_MAX_LEN = 64
+SERVE_TRAFFIC = 24
+SERVE_FIDELITY_EVERY = 8
+#: the reduced model's logits on the card against the CPU's, relative to
+#: the largest |CPU logit| (fp32 sums in another order through 2 layers);
+#: a serve plan's run against its run_oracle, as zamba2-7b's (fp32 GEMV
+#: sums to K = 13440 and the split attention's merge)
+SERVE_LOGIT_RTOL = 1e-4
+SERVE_E2E_RTOL = 1e-4
 
 #: the main paths: (name, committed artifact, request maker, output shape);
 #: the compile phase compiles each and must reproduce its artifact
@@ -1388,7 +1892,8 @@ def main() -> int:
     from repro_torch.kernels import build
 
     phases = Phases()
-    print(nvidia_smi_line(), flush=True)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1458,6 +1963,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     walks.update(portfolio_phase(peaks, results))
     phases.done("portfolio")
+    walks.update(serve_phase(peaks, results, smi))
+    phases.done("serve")
 
     def by_path(name: str, t: Tally) -> dict:
         """Each walk's launches of kernel `name`, with the float32 times
@@ -1489,9 +1996,12 @@ def main() -> int:
                 f"per-node and fused walks, the {BF16_REQUESTS} of each "
                 f"bf16 walk, the {RECORD_RUNS + 1} recorded runs of each "
                 f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
-                f"replanned walk and the {PORTFOLIO_REQUESTS} of each "
-                f"portfolio entry's walks; times: one request of each main "
-                f"path, float32 (by_path: one request of each walk)"),
+                f"replanned walk, the {PORTFOLIO_REQUESTS} of each "
+                f"portfolio entry's walks and of each serve bucket's plan, "
+                f"and the serve walks' plan executions (every "
+                f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan); "
+                f"times: one request of each main path, float32 (by_path: "
+                f"one request of each walk)"),
         "by_path": by_path(name, t)}
         for name, t in results.items()]}
     phases.done("paths")

@@ -1,6 +1,6 @@
 """`python -m repro_torch` — the port's CLI.
 
-Four subcommands so far:
+Five subcommands so far:
 
   * `plan` — compile (or fetch from the plan cache) a co-execution plan
     with the port's planning half, as `python -m repro plan` does, with
@@ -50,9 +50,20 @@ Four subcommands so far:
     `--all-artifacts` adds the port's committed artifacts
     (`src/repro_torch/artifacts/`) and the plan cache `reports/plans/`.
 
-Executions run on CUDA by default; without CUDA `execute` and `calibrate`
-fail unless `--device cpu` (`execute`) or `--torch-device cpu`
-(`calibrate`) is given.
+  * `serve` — serve seeded requests with a model of the registry: a
+    fixed batch through the `ServingEngine` (optionally shipping a
+    `--compiled` artifact, executed once after serving), or Poisson
+    traffic through the `ContinuousScheduler` over a plan portfolio
+    (`--arrivals poisson --portfolio PATH`), with the reference's flags
+    (`repro_torch/launch/serve.py`).
+
+        python -m repro_torch serve --arch codeqwen15_7b [--reduced]
+                                    [--arrivals poisson --portfolio P]
+                                    [--torch-device cpu]
+
+Executions run on CUDA by default; without CUDA `execute`, `calibrate`
+and `serve` fail unless `--device cpu` (`execute`) or `--torch-device cpu`
+(`calibrate`, `serve`) is given.
 """
 from __future__ import annotations
 
@@ -326,6 +337,11 @@ def _print_per_op(report) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    # serve forwards its whole tail to its own parser; dispatch before
+    # argparse so leading options (`serve --arch ...`) survive
+    if argv[:1] == ["serve"]:
+        from repro_torch.launch.serve import serve_main
+        return serve_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
         description="Compile co-execution plans and run them on PyTorch "

@@ -1,7 +1,6 @@
 """Measurement, calibration and adaptive replanning: the feedback loop.
 
-The port's copy of the reference's `repro.measure`, less the drift
-monitor (it has no caller outside serving).  One schema
+The port's copy of the reference's `repro.measure`.  One schema
 (`MeasurementRecord`) for every timing: executed plan runs
 (`runtime/executor`) and simulator measurements
 (`core/simulator/measure.measure_records`).  An append-only
@@ -9,7 +8,9 @@ monitor (it has no caller outside serving).  One schema
 cache's provenance digests) accumulates them; a `Calibrator` fits
 per-(op-kind, mode) affine corrections and wraps any latency predictor
 without retraining (`CalibratedPredictor`); `replan` re-runs the cached
-planners under the corrections and diffs the plans (`PlanDiff`).  Facade
+planners under the corrections and diffs the plans (`PlanDiff`);
+`windowed_drift` and `DriftMonitor` turn a plan's fidelity history into
+the serving scheduler's replan trigger.  Facade
 spellings: `CompiledNetwork.record() / recalibrate() / replan()` and
 `python -m repro_torch calibrate`.
 
@@ -32,6 +33,8 @@ _EXPORTS = {
     "CalibratedPredictor": "repro_torch.measure.calibrate",
     "Calibrator": "repro_torch.measure.calibrate",
     "fidelity_error": "repro_torch.measure.calibrate",
+    "DriftMonitor": "repro_torch.measure.drift",
+    "windowed_drift": "repro_torch.measure.drift",
     "DecisionChange": "repro_torch.measure.replan",
     "PlanDiff": "repro_torch.measure.replan",
     "diff_plans": "repro_torch.measure.replan",

@@ -1,11 +1,16 @@
-"""Model configurations (config.py) and their name tables (registry.py).
+"""The port's models: configurations, their name tables and the dense
+GQA transformer.
 
-The port's copies of `repro.models.config` and the name half of
-`repro.models.registry`: what `graph.frontends.from_model` needs to build
-a decoder-block graph from a model name.  The model classes come with the
-port's models and serving.
+The port's copies of `repro.models.config`, `registry`, `layers`, `flash`
+and `transformer` (PyTorch), plus `weights.params_from_numpy`, which takes
+the reference's parameter pytree.  `build_model` raises for the families
+not ported yet (MLA/MoE blocks, Zamba2, RWKV6, Whisper).
 """
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.registry import ALIASES, ARCH_IDS, get_config
+from repro_torch.models.registry import (ALIASES, ARCH_IDS, build, build_model,
+                                         get_config)
+from repro_torch.models.transformer import TransformerModel
+from repro_torch.models.weights import params_from_numpy
 
-__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "get_config"]
+__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "TransformerModel", "build",
+           "build_model", "get_config", "params_from_numpy"]

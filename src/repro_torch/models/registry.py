@@ -1,7 +1,16 @@
-"""Model names: the architecture ids, their CLI aliases, and their configs.
+"""Model registry: the architecture ids, their CLI aliases, their configs,
+and ModelConfig -> model object.
 
-The port's copy of the name tables of `repro.models.registry`; a config
-resolves from `repro_torch.configs.<arch>`.
+The port's copy of `repro.models.registry`; a config resolves from
+`repro_torch.configs.<arch>`.  The model API (duck-typed, as the
+reference's):
+    init(generator) -> params
+    loss(params, batch) -> scalar           batch: tokens/labels
+    init_cache(batch, max_len, device) -> cache
+    prefill(params, tokens, cache[, start]) -> (logits, cache)
+    decode_step(params, tokens, cache, pos[, start]) -> (logits, cache)
+
+The port has the dense GQA transformer; the other families raise.
 """
 from __future__ import annotations
 
@@ -9,6 +18,7 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import TransformerModel
 
 ARCH_IDS: List[str] = [
     "deepseek_v2_lite",
@@ -42,3 +52,25 @@ def get_config(arch: str) -> ModelConfig:
     arch = ALIASES.get(arch, arch)
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
+
+
+#: what the non-transformer families wait for (ROADMAP Queue 1)
+_NOT_PORTED = ("{family} models are not in the port yet (ROADMAP Queue 1 "
+               "item 5: Zamba2, RWKV6, MLA/MoE blocks, then Whisper)")
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(_NOT_PORTED.format(family="encoder-decoder "
+                                                     "(Whisper)"))
+    if cfg.ssm_kind == "rwkv6":
+        raise NotImplementedError(_NOT_PORTED.format(family="RWKV6"))
+    if cfg.attn_every:
+        raise NotImplementedError(_NOT_PORTED.format(family="hybrid "
+                                                     "(Zamba2)"))
+    return TransformerModel(cfg)
+
+
+def build(arch: str):
+    cfg = get_config(arch)
+    return cfg, build_model(cfg)

@@ -629,3 +629,104 @@ def test_typed_split_lowerings_at_zamba_widths_on_batch4(cuda, variant):
         np.testing.assert_allclose(y.cpu().numpy(),
                                    exe.run_oracle(x).cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ serving
+def _reduced_codeqwen(dtype="float32"):
+    import dataclasses
+
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("codeqwen15_7b").reduced(),
+                              dtype=dtype)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_transformer_on_the_card_matches_the_cpu(cuda, dtype):
+    """Prefill (left-padded) and decode steps at a shared and at per-row
+    positions: the same weights' logits on the card and on the CPU, whose
+    path tests/test_torch_models.py ties to the reference's; fp32 within
+    1e-4 of the largest |logit|, bf16 within the reference's 5e-2."""
+    cfg, model, params = _reduced_codeqwen(dtype)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, 9)))
+    start = torch.tensor([0, 2, 5])
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _on(params, cuda))):
+        cache = model.init_cache(3, 24, device=dev)
+        logits, cache = model.prefill(p, toks.to(dev), cache,
+                                      start=start.to(dev))
+        out[dev] = [logits]
+        for i in range(3):
+            pos = 9 + i if i < 2 else torch.tensor([11, 13, 12], device=dev)
+            logits, cache = model.decode_step(p, toks[:, i:i + 1].to(dev),
+                                              cache, pos,
+                                              start=start.to(dev))
+            out[dev].append(logits)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for want, got in zip(out["cpu"], out["cuda"]):
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+
+
+def test_scheduler_on_the_card_matches_solo_runs(cuda):
+    """Continuous batching on the card (fp32, TF32 off): each greedy
+    completion equals the request served alone by the fixed-batch
+    engine, and sampled rows draw from a CUDA generator."""
+    from repro_torch.serving import (ContinuousScheduler, SchedulerConfig,
+                                     ServingEngine, poisson_requests)
+    cfg, model, params = _reduced_codeqwen()
+    params = _on(params, cuda)
+    reqs = poisson_requests(10, rate=500.0, vocab_size=cfg.vocab_size,
+                            temperatures=(0.0,), seed=4)
+    rep = ContinuousScheduler(cfg, model, params, device=cuda,
+                              config=SchedulerConfig(max_batch=3,
+                                                     max_len=40)).run(reqs)
+    got = {c.rid: c.tokens for c in rep.completions}
+    for r in reqs:
+        solo = ServingEngine(cfg, model, params, max_batch=1, max_len=40,
+                             device=cuda).run([r])[0].tokens
+        assert got[r.rid] == solo
+    hot = poisson_requests(6, rate=500.0, vocab_size=cfg.vocab_size,
+                           temperatures=(0.7,), seed=5)
+    rep = ContinuousScheduler(cfg, model, params, device=cuda,
+                              config=SchedulerConfig(max_batch=3,
+                                                     max_len=40)).run(hot)
+    assert rep.total_tokens == sum(r.max_new_tokens for r in hot)
+
+
+def test_engine_executes_a_codeqwen_plan_on_the_card(cuda, tmp_path):
+    """A reduced codeqwen portfolio entry shipped with the engine: its
+    plan runs on two CUDA streams through the kernels, within 1e-4 of its
+    oracle, its records appended to the store."""
+    import repro_torch
+    from repro_torch.runtime.segments import launch_counters
+    from repro_torch.serving import ServingEngine
+    cfg, model, params = _reduced_codeqwen()
+    pf = repro_torch.compile_portfolio(
+        cfg, repro_torch.Target(device="moto2022"), buckets=((4, 64),),
+        cache=tmp_path / "plans", samples=120, estimators=25)
+    compiled = pf.entries[pf.buckets[0]]
+    engine = ServingEngine(cfg, model, _on(params, cuda), compiled=compiled,
+                           measurement_store=tmp_path / "meas", device=cuda)
+    engine.execute_plan()                      # kernel builds
+    counters = launch_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    y, report = engine.execute_plan()
+    assert counters["split_matmul"].launches > before["split_matmul"]
+    assert counters["decode_attention"].launches > \
+        before["decode_attention"]
+    x = engine.plan_executor.input_template()
+    np.testing.assert_allclose(
+        y.cpu().numpy(), engine.plan_executor.run_oracle(x).cpu().numpy(),
+        rtol=1e-4, atol=1e-4)
+    assert engine.drift is not None
