@@ -122,7 +122,27 @@ the port cannot be imported, and otherwise runs, in order:
    held.  Each serve walk's launch counts are set
    to 0 just before it and read just after, and `split_matmul` and
    `decode_attention` must launch in each;
-12. a JSON line of per-kernel numbers (launches summed over every walk
+12. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
+   the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
+   GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
+   zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernel at
+   T = 4096): every candidate of the kind's Hopper launch spec
+   (`repro_torch.kernels.tiles`, both search modes) held against the
+   plain version in float32 and bfloat16, each output-tiling one
+   `torch.equal` to the default launch in float32, each timed, with the
+   default's time, the winner of each search mode and its bound; (b)
+   `compile(tune=True)` of VGG16 and the zamba2-7b step into fresh caches
+   with the measurements counted, cold then warm (no measurement, tune
+   hits only), the tuned key against the untuned one and the documents
+   equal but for `provenance.tune`; the tuned artifact saved with its
+   sidecar, loaded strictly and run per node and fused as a main path
+   is, every kernel call of one request carrying its op's tuned launch
+   (`expected_launches`); the same plan tuned with its reduction axes
+   too (`preserve_numerics=False`: split-K factors, runs, chunks), run
+   alike and its kernel calls held against their plain versions
+   (`hold_walk_calls`); tuned, relaxed and untuned walls in turns, no
+   claim;
+13. a JSON line of per-kernel numbers (launches summed over every walk
    above, `by_path` per walk with the float32 times of one request where
    the walk's calls were held), then the result line.  Each phase prints
    its seconds.
@@ -278,53 +298,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-_FLUSH = None
-_SPIN_CYCLES_PER_MS = None
-
-
-def _spin_cycles_per_ms() -> float:
-    """Clock cycles of `torch.cuda._sleep` per ms of device time."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cycles = 20_000_000
-    torch.cuda._sleep(cycles)                  # warm
-    start.record()
-    torch.cuda._sleep(cycles)
-    end.record()
-    torch.cuda.synchronize()
-    return cycles / start.elapsed_time(end)
-
-
 def time_ms(fn, reps: int = 10) -> float:
-    """Median device time of one call.  Before each timed call a 128 MB
-    write evicts the 50 MB L2 cache, then a spin kernel holds the stream
-    for twice the host's time to enqueue the call (capped at 100 ms): the
-    call and its end event are queued before the start event fires, so the
-    events bracket the call's device work and not the host's launch
-    overhead (allocations, ctypes, enqueue)."""
-    global _FLUSH, _SPIN_CYCLES_PER_MS
-    if _FLUSH is None:
-        _FLUSH = torch.empty(32 * 1024 * 1024, device="cuda")
-        _SPIN_CYCLES_PER_MS = _spin_cycles_per_ms()
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    host_ms = (time.perf_counter() - t) * 1e3
-    torch.cuda.synchronize()
-    spin = int(_SPIN_CYCLES_PER_MS * min(100.0, 2 * host_ms + 0.2))
-    times = []
-    for _ in range(reps):
-        _FLUSH.zero_()
-        torch.cuda._sleep(spin)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of one call (`repro_torch.runtime.autotune.
+    time_ms`, which the autotuner measures with too): before each timed
+    call a 128 MB write evicts the 50 MB L2 cache and a spin kernel holds
+    the stream until the call and its end event are queued, so CUDA events
+    bracket the call's device work and not the host's launch overhead."""
+    from repro_torch.runtime.autotune import time_ms as device_time_ms
+    return device_time_ms(fn, reps)
 
 
 def check(label: str, got: torch.Tensor, want: torch.Tensor,
@@ -389,8 +370,8 @@ def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
             "bound_ms": bnd, "t_bytes": tb, "t_ops": to}
 
 
-# Each `hold_*` takes one call's arguments, in its wrapper's order, on the
-# card: it holds the kernel against its plain version, times kernel, plain
+# Each `hold_*` takes one call's arguments, in its wrapper's order (the
+# launch last, where the call names one), on the card: it holds the kernel against its plain version, times kernel, plain
 # and library call beside the bound, prints the case and returns
 # (max_abs_err, times).  The kernel phases give them seeded tensors at the
 # shapes of `*_CASES`; `hold_walk_calls` gives them the calls a walk made.
@@ -398,16 +379,17 @@ def _times(kernel_fn, plain_fn, library_fn, n_bytes, ops, dtype, peaks):
 def hold_split_matmul(label: str, args: tuple, peaks: dict):
     from repro_torch.kernels.split_matmul.split_matmul import (
         plan_call, split_matmul, split_matmul_plain)
-    x, w, c0, width = args
+    x, w, c0, width, *rest = args
+    launch = rest[0] if rest else None
     (m, k), n, dtype = x.shape, w.shape[1], x.dtype
-    got = split_matmul(x, w, c0, width)
+    got = split_matmul(x, w, c0, width, launch=launch)
     err = check(f"split_matmul {label} {dtype}", got,
                 split_matmul_plain(x, w, c0, width), KERNEL_RTOL[dtype])
-    if not torch.equal(got, split_matmul(x, w, c0, width)):
+    if not torch.equal(got, split_matmul(x, w, c0, width, launch=launch)):
         raise AssertionError(f"split_matmul {label} {dtype}: two calls on "
                              f"the same inputs differ")
-    plan = plan_call(x, w, c0, width)
-    times = _times(lambda: split_matmul(x, w, c0, width),
+    plan = plan_call(x, w, c0, width, launch)
+    times = _times(lambda: split_matmul(x, w, c0, width, launch=launch),
                    lambda: split_matmul_plain(x, w, c0, width),
                    lambda: torch.matmul(x, w[:, c0:c0 + width]),
                    x.element_size() * (m * k + k * width + m * width),
@@ -423,15 +405,16 @@ def hold_hadamard_matmul(label: str, args: tuple, peaks: dict):
     from repro_torch.kernels import build
     from repro_torch.kernels.winograd_conv.winograd_conv import (
         hadamard_matmul, hadamard_matmul_plain, plan_hadamard)
-    u, v = args
+    u, v, *rest = args
+    launch = rest[0] if rest else None
     (g, p, k), n, dtype = u.shape, v.shape[2], u.dtype
-    got = hadamard_matmul(u, v)
+    got = hadamard_matmul(u, v, launch=launch)
     err = check(f"hadamard_matmul {label} {dtype}", got,
                 hadamard_matmul_plain(u, v), KERNEL_RTOL[dtype])
     plan = plan_hadamard(g, p, k, n, u.element_size(),
                          (u.data_ptr(), v.data_ptr(), got.data_ptr()),
-                         build.sm_count(0))
-    times = _times(lambda: hadamard_matmul(u, v),
+                         build.sm_count(0), launch)
+    times = _times(lambda: hadamard_matmul(u, v, launch=launch),
                    lambda: hadamard_matmul_plain(u, v),
                    lambda: torch.bmm(u, v),
                    u.element_size() * g * (p * k + k * n + p * n),
@@ -447,19 +430,20 @@ def hold_decode_attention(label: str, args: tuple, peaks: dict):
 
     from repro_torch.kernels.decode_attention.decode_attention import (
         decode_attention, decode_attention_plain, plan_call, valid_range)
-    q, k, v, pos, window = args
+    q, k, v, pos, window, *rest = args
+    launch = rest[0] if rest else None
     (h, hd), (s, kv, _), dtype = q.shape, k.shape, q.dtype
-    out, lse = decode_attention(q, k, v, pos, window=window)
+    out, lse = decode_attention(q, k, v, pos, window=window, launch=launch)
     want, want_lse = decode_attention_plain(q, k, v, pos, window=window)
     err = check(f"decode_attention {label} {dtype}", out, want,
                 KERNEL_RTOL[dtype])
     check(f"decode_attention {label} {dtype} lse", lse, want_lse,
           KERNEL_RTOL[torch.float32])                # fp32 sums in both
-    again = decode_attention(q, k, v, pos, window=window)
+    again = decode_attention(q, k, v, pos, window=window, launch=launch)
     if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
         raise AssertionError(f"decode_attention {label} {dtype}: two calls "
                              f"on the same inputs differ")
-    plan = plan_call(q, k, v, pos, window)
+    plan = plan_call(q, k, v, pos, window, launch)
     lo, hi = valid_range(s, pos, window)
     n = hi - lo + 1
     # the library call: the attended positions, (1, heads, S, hd)
@@ -467,7 +451,7 @@ def hold_decode_attention(label: str, args: tuple, peaks: dict):
     k4 = k[lo:hi + 1].permute(1, 0, 2)[None]
     v4 = v[lo:hi + 1].permute(1, 0, 2)[None]
     times = _times(
-        lambda: decode_attention(q, k, v, pos, window=window),
+        lambda: decode_attention(q, k, v, pos, window=window, launch=launch),
         lambda: decode_attention_plain(q, k, v, pos, window=window),
         lambda: sdpa(q4, k4, v4, enable_gqa=h != kv),
         q.element_size() * (2 * h * hd + 2 * n * kv * hd) + 4 * h,
@@ -482,18 +466,21 @@ def hold_decode_attention(label: str, args: tuple, peaks: dict):
 
 def hold_ssd_chunk_scan(label: str, args: tuple, peaks: dict):
     from repro_torch.kernels.ssd_chunk.ssd_chunk import (
-        plan_call, ssd_chunk_scan, ssd_chunk_scan_plain)
+        CHUNK, plan_call, ssd_chunk_scan, ssd_chunk_scan_plain)
+    args, launch = args[:6], (args[6] if len(args) > 6 else None)
     x = args[0]
     (b, t, h, hd), n, dtype = x.shape, args[1].shape[2], x.dtype
-    sf, y = ssd_chunk_scan(*args)
-    sf_p, y_p = ssd_chunk_scan_plain(*args)
+    chunk = None if launch is None else launch.get("chunk")
+    sf, y = ssd_chunk_scan(*args, launch=launch)
+    sf_p, y_p = ssd_chunk_scan_plain(*args, chunk=chunk or CHUNK)
     err = max(check(f"ssd_chunk_scan {label} {dtype} y", y, y_p,
                     KERNEL_RTOL[dtype]),
               check(f"ssd_chunk_scan {label} {dtype} state", sf, sf_p,
                     KERNEL_RTOL[dtype]))
-    plan = plan_call(*args, sf)
-    times = _times(lambda: ssd_chunk_scan(*args),
-                   lambda: ssd_chunk_scan_plain(*args), None,
+    plan = plan_call(*args, sf, launch)
+    times = _times(lambda: ssd_chunk_scan(*args, launch=launch),
+                   lambda: ssd_chunk_scan_plain(*args, chunk=chunk or CHUNK),
+                   None,
                    nbytes(*args, y, sf), 6 * b * t * h * hd * n, dtype,
                    peaks)
     _report("ssd_chunk_scan", label, dtype, err, times,
@@ -1726,6 +1713,355 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
     return walks
 
 
+def tune_ops():
+    """The sweep's ops, one per kind at the main paths' shapes: (label,
+    op).  The M = 64 linear is the one op off the paths: the tiled product
+    only runs at M > 8."""
+    from repro_torch.core.types import AttnOp, ConvOp, LinearOp, SSMOp
+    return [
+        ("VGG16 n7 conv", ConvOp(56, 56, 256, 256)),       # P = 784
+        ("zamba2-7b in_proj M=1", LinearOp(1, 3584, 5696)),
+        ("zamba2-7b in_proj M=4", LinearOp(4, 3584, 5696)),
+        ("q_proj M=64", LinearOp(64, 3584, 3584)),
+        ("zamba2-7b b8.attn S=3072", AttnOp(H=32, S=3072, KV=32, hd=112)),
+        ("SSD prefill T=4096", SSMOp(T=4096, H=112, hd=64, N=64)),
+    ]
+
+
+def tune_operands(op, gen):
+    """Seeded float32 arguments of the op's kernel call on the card, drawn
+    as the kernel phases draw them, with the wrapper, its plain version
+    (for a launch), the call's (bytes, operations) and what the kernel's
+    planner picks for it (the default launch)."""
+    import importlib
+
+    from repro_torch.kernels import build, registry
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.split_matmul.split_matmul import (
+        split_matmul, split_matmul_plain)
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+        CHUNK, ssd_chunk_scan, ssd_chunk_scan_plain)
+    from repro_torch.kernels.winograd_conv.winograd_conv import (
+        hadamard_matmul, hadamard_matmul_plain, plan_hadamard)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    da, sm, sc = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+                  for m in ("decode_attention", "split_matmul", "ssd_chunk"))
+    kind = registry.op_kind(op)
+    if kind == "linear":
+        m, k, n = op.L, op.C_in, op.C_out
+        args = (rand(m, k), rand(k, n) / k ** 0.5, 0, n)
+        plan = sm.plan_call(*args)
+        return (args, split_matmul,
+                lambda launch, *a: split_matmul_plain(*a),
+                lambda elt: (elt * (m * k + k * n + m * n), 2 * m * k * n),
+                f"bm{plan.mt}/bn{plan.tile}" if plan.variant == sm.TILED
+                else f"splits {plan.splits} x {plan.col_tiles} column tiles")
+    if kind == "conv":
+        p = -(-op.H_in // 2) * -(-op.W_in // 2)
+        k, n = op.C_in, op.C_out
+        args = (rand(16, p, k), rand(16, k, n) / k ** 0.5)
+        plan = plan_hadamard(16, p, k, n, 4, (0, 0, 0), build.sm_count(0))
+        return (args, hadamard_matmul,
+                lambda launch, *a: hadamard_matmul_plain(*a),
+                lambda elt: (elt * 16 * (p * k + k * n + p * n),
+                             2 * 16 * p * k * n),
+                f"bm{plan.bm}/bn{plan.bn}, {plan.blocks} blocks")
+    if kind == "attention":
+        h, kv, hd, s = op.H, op.KV, op.hd, op.S
+        args = (rand(h, hd), rand(s, kv, hd), rand(s, kv, hd), s - 1, 0)
+        plan = da.plan_call(*args)
+        return (args,
+                lambda *a, launch: decode_attention(*a[:4], window=a[4],
+                                                    launch=launch),
+                lambda launch, *a: decode_attention_plain(*a[:4],
+                                                          window=a[4]),
+                lambda elt: (elt * (2 * h * hd + 2 * s * kv * hd) + 4 * h,
+                             4 * h * s * hd),
+                f"run_tiles {plan.run_tiles} ({plan.nsplit} runs per KV "
+                f"head)")
+    b, t, h, hd, n = 1, op.T, op.H, op.hd, op.N
+    args = (rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
+            rand(b, t, n) / n ** 0.5, 0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
+            -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5)
+    plan = sc.plan_call(*args, torch.empty_like(args[5]))
+    return (args, ssd_chunk_scan,
+            lambda launch, *a: ssd_chunk_scan_plain(
+                *a, chunk=launch.get("chunk") or CHUNK),
+            lambda elt: (elt * (2 * b * t * h * hd + 2 * b * t * n + b * t * h
+                                + h + 2 * b * h * hd * n),
+                         6 * b * t * h * hd * n),
+            f"chunk {plan.chunk}")
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def sweep_op(label: str, op, gen, peaks: dict) -> dict:
+    """Every candidate launch of the op's Hopper spec, both search modes'
+    grids (`LaunchSpec.configs`, `preserve_numerics=False`): each held
+    against the plain version in float32 and bfloat16 within
+    `KERNEL_RTOL`, each output-tiling one `torch.equal` to the default
+    launch's output in float32, each timed in float32 (`time_ms`).
+    Prints each candidate's time, the default's, the winner of each
+    search mode with `autotune`'s hysteresis and the winner's bound;
+    returns {launch label: ms}."""
+    from repro_torch.kernels import registry, tiles
+    from repro_torch.runtime.autotune import TUNE_HYSTERESIS
+    kind = registry.op_kind(op)
+    spec = tiles.launch_spec(kind)
+    extents = registry.launch_extents(op)
+    grid = spec.configs(extents, preserve_numerics=False)
+    preserving = spec.configs(extents)
+    args32, kernel, plain, work, picked = tune_operands(op, gen)
+    default = _outputs(kernel(*args32, launch=spec.default()))
+    times, errs, identical = {}, dict.fromkeys(DTYPES, 0.0), 0
+    for launch in grid:
+        for dtype in DTYPES:
+            args = tuple(a.to(dtype) if torch.is_tensor(a) else a
+                         for a in args32)
+            got = _outputs(kernel(*args, launch=launch))
+            want = _outputs(plain(launch, *args))
+            for i, (g, w) in enumerate(zip(got, want)):
+                errs[dtype] = max(errs[dtype], check(
+                    f"tune {label} {launch.label()} {dtype} output {i}", g,
+                    w, KERNEL_RTOL[dtype]))
+            if dtype != torch.float32:
+                continue
+            tiling = not any(spec.param(n).reduction
+                             for n, _ in launch.values)
+            if tiling and not all(torch.equal(g, d)
+                                  for g, d in zip(got, default)):
+                raise AssertionError(
+                    f"tune {label}: the output-tiling launch "
+                    f"{launch.label()} is not bit-identical to the default "
+                    f"launch in float32")
+            identical += tiling
+            times[launch.label()] = time_ms(
+                lambda: kernel(*args, launch=launch))
+    base = times["default"]
+
+    def winner(cands):
+        best = min(cands, key=lambda c: times[c.label()])
+        if times[best.label()] > base * (1.0 - TUNE_HYSTERESIS):
+            return spec.default()
+        return best
+    bnd, tb, to = bound_ms(*work(4), torch.float32, peaks)
+    shown = ", ".join(f"{c.label()} {times[c.label()]:.4f}" for c in grid)
+    print(f"tune {label} ({registry.op_label(op)}, {kind}; the planner "
+          f"picks {picked}): float32 ms {shown}; {len(grid)} candidates "
+          f"within KERNEL_RTOL of the plain version (max_abs_err float32 "
+          f"{errs[torch.float32]:.3e}, bfloat16 {errs[torch.bfloat16]:.3e}),"
+          f" {identical} output-tiling ones (the default included) "
+          f"bit-identical to the default launch", flush=True)
+    for mode, cands in (("numerics-preserving", preserving),
+                        ("all candidates", grid)):
+        best = winner(cands)
+        ms = times[best.label()]
+        print(f"tune {label}: {mode} winner {best.label()} {ms:.4f} ms "
+              f"(default {base:.4f} ms, {base / ms - 1:+.1%}; "
+              f"{'beats' if not best.is_default else 'none beats'} the "
+              f"default by more than {TUNE_HYSTERESIS:.0%}); bound "
+              f"{bnd:.4f} ms by {'bytes' if tb >= to else 'operations'} "
+              f"({bnd / ms:.1%} of it)", flush=True)
+    return times
+
+
+def observed_launches(calls: dict) -> dict:
+    """(kernel, launch label) -> calls, of one request's kernel calls
+    (`kernel_calls`: a signature's last element is its launch)."""
+    seen = {}
+    for name, sigs in calls.items():
+        for sig, (n, _) in sigs.items():
+            label = "default" if sig[-1] is None else sig[-1].label()
+            seen[(name, label)] = seen.get((name, label), 0) + n
+    return seen
+
+
+def expected_launches(exe) -> dict:
+    """(kernel, launch label) -> calls of one request of the executor's
+    per-node walk: each node's tuned launch, on a split's sides fitted to
+    each side (a channel side's width, a typed side's sub-op)."""
+    from repro_torch.kernels import registry, tiles
+    kernel = {"linear": "split_matmul", "conv": "hadamard_matmul",
+              "attention": "decode_attention", "ssm": "ssd_chunk_scan"}
+    want = {}
+    for spec, launch in zip(exe.specs, exe.launches):
+        if spec.op is None or not registry.launch_extents(spec.op):
+            continue
+        launch = launch or tiles.Launch(spec.unit)
+        if not spec.coexec:
+            sides = [launch]
+        elif spec.axis == "channel":
+            sides = [registry.fit_launch(launch, spec.op, n=w)
+                     for w in (spec.c_fast, spec.c_slow) if w]
+        else:
+            axis = registry.axis_spec(spec.unit, spec.axis)
+            sides = [registry.fit_launch(launch, axis.sub(spec.op, n))
+                     for n in (spec.c_fast, axis.size(spec.op) - spec.c_fast)]
+        for side in sides:
+            key = (kernel[spec.unit], side.label())
+            want[key] = want.get(key, 0) + 1
+    return want
+
+
+def tuned_path(name: str, network, target, mode: str, predictors,
+               make_input, out_shape, tmp: Path, peaks: dict,
+               tallies: dict) -> dict:
+    """`compile(tune=True)` of one main path into fresh plan and tune
+    caches: cold (its measurements counted), then warm (no measurement,
+    tune-cache hits only); its key against the untuned compile's, its
+    document the untuned one's but for `provenance.tune`; saved with its
+    sidecar, loaded strictly, run per node and fused against its
+    run_oracle (`main_path`, `fused_path`), every kernel call of one
+    request checked to carry its op's tuned launch fitted to its side
+    (`check_launches`); then the same plan tuned with its reduction axes
+    too (`preserve_numerics=False`), run and checked alike, its kernel
+    calls held against their plain versions (`hold_walk_calls`); the
+    tuned, relaxed and untuned walls in turns.  Returns the walks."""
+    import repro_torch
+    import repro_torch.runtime.autotune as at
+    from repro_torch.api import CompiledNetwork
+    from repro_torch.kernels.registry import op_label
+
+    measured = [0]
+    real = at.measure_tile_us
+
+    def counted(*a, **k):
+        measured[0] += 1
+        return real(*a, **k)
+
+    kw = dict(mode=mode, cache=tmp / "plans", predictors=predictors)
+    runs = {}
+    at.measure_tile_us = counted
+    try:
+        for run in ("cold", "warm"):
+            tc = at.TuneCache(tmp / "tune")
+            measured[0] = 0
+            t = time.perf_counter()
+            net = repro_torch.compile(network, target, tune=True,
+                                      tune_cache=tc, **kw)
+            runs[run] = (net, time.perf_counter() - t, measured[0], tc)
+    finally:
+        at.measure_tile_us = real
+    untuned = repro_torch.compile(network, target, **kw)
+    (tuned, cold_s, cold_n, cold_tc), (warm, warm_s, warm_n, warm_tc) = \
+        runs["cold"], runs["warm"]
+    ops = len(tuned.tuned)
+    if tuned.from_cache or not warm.from_cache or warm.key != tuned.key:
+        raise AssertionError(f"{name} tuned: the first compile must miss "
+                             f"and the second hit the plan cache")
+    if warm_n or warm_tc.misses or warm_tc.hits != ops \
+            or warm.tuned != tuned.tuned:
+        raise AssertionError(f"{name} tuned: the warm compile measured "
+                             f"{warm_n} times with {warm_tc.misses} tune "
+                             f"misses and {warm_tc.hits} hits for {ops} ops")
+    a = json.loads(untuned.plan.dumps())
+    b = json.loads(tuned.plan.dumps())
+    tag = b["provenance"].pop("tune")
+    if tuned.key == untuned.key or a != b or \
+            tag != at.tune_cache_version():
+        raise AssertionError(f"{name} tuned: the tuned document must be "
+                             f"the untuned one with provenance.tune only")
+    moved = {op: l for op, l in tuned.launches.items() if not l.is_default}
+    print(f"{name} tuned: {ops} unique ops, {cold_n} measurements "
+          f"({cold_tc.misses} tune misses) cold in {cold_s:.3f} s; warm "
+          f"{warm_s:.3f} s with {warm_n} measurements and {warm_tc.hits} "
+          f"tune-cache hits; key {tuned.key} (untuned {untuned.key}); the "
+          f"documents differ only in provenance.tune = {tag}; launches off "
+          f"the default: " + ("; ".join(sorted(
+              f"{op_label(op)} -> {l.label()}" for op, l in moved.items()))
+              or "none"), flush=True)
+    path = tuned.save(tmp / f"{name}.tuned.coexec.json")
+    loaded = CompiledNetwork.load(path)
+    if loaded.launches != tuned.launches or loaded.key != tuned.key:
+        raise AssertionError(f"{name} tuned: the saved artifact and its "
+                             f"sidecar do not load back as they were")
+    label = f"{name} tuned"
+    counts, exe, want, refs = main_path(label, loaded, make_input, out_shape,
+                                        REPLAN_REQUESTS, E2E_RTOL[name])
+    walks = {label: (None, counts),
+             f"{label} fused": (None, fused_path(label, exe, want, refs,
+                                                 E2E_RTOL[name]))}
+    check_launches(label, exe, kernel_calls(exe, make_input(0)))
+
+    # the relaxed search (preserve_numerics=False) of the same plan: the
+    # split-K factors, runs and chunks too, tolerance-exact, run likewise
+    t = time.perf_counter()
+    entries = at.annotate_plan_tiles(loaded.plan, cache=at.TuneCache(
+        tmp / "tune"), preserve_numerics=False)
+    relaxed = CompiledNetwork(plan=loaded.plan, target=loaded.target,
+                              mode=loaded.mode, tuned=entries)
+    print(f"{name} relaxed: {len(entries)} ops searched with their "
+          f"reduction axes in {time.perf_counter() - t:.3f} s; launches off "
+          f"the default: " + ("; ".join(sorted(
+              f"{op_label(op)} -> {l.label()}"
+              for op, l in relaxed.launches.items() if not l.is_default))
+              or "none"), flush=True)
+    label_r = f"{name} relaxed"
+    counts, exe_r, want, refs = main_path(label_r, relaxed, make_input,
+                                          out_shape, REPLAN_REQUESTS,
+                                          E2E_RTOL[name])
+    walks[label_r] = (label_r, counts)
+    walks[f"{label_r} fused"] = (label_r, fused_path(label_r, exe_r, want,
+                                                     refs, E2E_RTOL[name]))
+    calls = kernel_calls(exe_r, make_input(0))
+    check_launches(label_r, exe_r, calls)
+    hold_walk_calls(label_r, calls, want, peaks, tallies)
+    alternating_walls({label: exe, label_r: exe_r, f"{name} untuned":
+                       untuned.executor(device="cuda")},
+                      make_input(REQUESTS), TUNE_WALL_PAIRS)
+    return walks
+
+
+def check_launches(label: str, exe, calls: dict) -> None:
+    """Every kernel call of one request of `exe`'s per-node walk
+    (`kernel_calls`) carries its op's tuned launch fitted to its side
+    (`expected_launches`)."""
+    seen = observed_launches(calls)
+    expect = expected_launches(exe)
+    if seen != expect:
+        raise AssertionError(f"{label}: the kernels were called with "
+                             f"{seen}, the tuned launches give {expect}")
+    print(f"{label}: every kernel call carried its op's tuned launch: "
+          + ", ".join(f"{k} {l} x{n}" for (k, l), n in sorted(seen.items())),
+          flush=True)
+
+
+def tune_input(name: str, artifact: Path, compiled) -> tuple:
+    """(network, target, mode, predictors) of a main path, as the compile
+    phase compiled it."""
+    import repro_torch
+    from repro_torch.graph.frontends import from_model
+    doc = json.loads(artifact.read_text())
+    network = from_model(ZAMBA, **ZAMBA_GRAPH) if name == ZAMBA else name
+    return (network, repro_torch.Target.from_json(doc["target"]),
+            doc["mode"], compiled.predictors)
+
+
+def tune_phase(peaks: dict, tallies: dict, tune_inputs: dict) -> dict:
+    """The autotuner on the card: (a) the sweep (`sweep_op`) of one op
+    per kind; (b) the tuned compiles of VGG16 and the zamba2-7b step
+    (`tuned_path`).  Returns the tuned walks."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    t = time.perf_counter()
+    for label, op in tune_ops():
+        sweep_op(label, op, gen, peaks)
+    print(f"tune sweep: {time.perf_counter() - t:.1f} s", flush=True)
+    walks = {}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tune_") as tmp:
+        for name, make_input, out_shape in TUNE_PATHS:
+            network, target, mode, predictors = tune_inputs[name]
+            walks.update(tuned_path(name, network, target, mode, predictors,
+                                    make_input, out_shape, Path(tmp, name),
+                                    peaks, tallies))
+            torch.cuda.empty_cache()
+    return walks
+
+
 def image_input(size: int):
     """Seeded (1, size, size, 3) requests of a CNN path."""
     def make(r: int) -> np.ndarray:
@@ -1825,6 +2161,13 @@ PORTFOLIO = ARTIFACTS / "zamba2-7b_b9_moto2022_t1.portfolio.json"
 PORTFOLIO_REQUESTS = 2
 PORTFOLIO_STEP = (4, 200)
 
+#: the tune phase's tuned compiles: (path, request maker, output shape),
+#: each run for `REPLAN_REQUESTS` requests per walk, and its rounds of
+#: tuned and untuned walls in turns
+TUNE_PATHS = ((VGG, vgg16_input, (1, 1000)),
+              (ZAMBA, decode_input(1), (1, ZAMBA_D)))
+TUNE_WALL_PAIRS = 4
+
 #: the serve phase: the model (codeqwen1.5-7b at its published widths and
 #: full depth), its portfolio's (batch, seq) buckets, the fixed-batch
 #: engine's requests, new tokens per request and batch, the scheduler's
@@ -1921,6 +2264,9 @@ def main() -> int:
         return 0
 
     compiled_nets = compile_phase(PATHS)
+    tuned_names = {name for name, _, _ in TUNE_PATHS}
+    tune_inputs = {name: tune_input(name, artifact, compiled_nets[name])
+                   for name, artifact, _, _ in PATHS if name in tuned_names}
     phases.done("compile")
 
     # each walk ("<path>", "<path> fused", "<path> bf16", ...) with the
@@ -1965,6 +2311,8 @@ def main() -> int:
     phases.done("portfolio")
     walks.update(serve_phase(peaks, results, smi))
     phases.done("serve")
+    walks.update(tune_phase(peaks, results, tune_inputs))
+    phases.done("tune")
 
     def by_path(name: str, t: Tally) -> dict:
         """Each walk's launches of kernel `name`, with the float32 times
@@ -1997,8 +2345,9 @@ def main() -> int:
                 f"bf16 walk, the {RECORD_RUNS + 1} recorded runs of each "
                 f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
                 f"replanned walk, the {PORTFOLIO_REQUESTS} of each "
-                f"portfolio entry's walks and of each serve bucket's plan, "
-                f"and the serve walks' plan executions (every "
+                f"portfolio entry's walks, of each serve bucket's plan and "
+                f"of each tuned walk, and the serve walks' plan executions "
+                f"(every "
                 f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan); "
                 f"times: one request of each main path, float32 (by_path: "
                 f"one request of each walk)"),

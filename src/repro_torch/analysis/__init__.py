@@ -16,13 +16,15 @@ from repro_torch.analysis.verify import (RULES, SEV_ERROR, SEV_INFO,
                                          VerificationError, errors,
                                          plan_stats, raise_on_error,
                                          verify_artifact, verify_path,
-                                         verify_plan, verify_portfolio)
+                                         verify_plan, verify_portfolio,
+                                         verify_tune_entry)
 
 __all__ = [
     "RULES", "SEV_ERROR", "SEV_INFO", "SEV_WARNING",
     "Diagnostic", "PlanStats", "VerificationError",
     "errors", "plan_stats", "raise_on_error",
     "verify_artifact", "verify_path", "verify_plan", "verify_portfolio",
+    "verify_tune_entry",
     "RejectionLog", "rejections",
 ]
 

@@ -12,9 +12,12 @@ by default and raise `VerificationError` on error diagnostics.
 Everything here is pure Python over `graph.ir`, `kernels.registry` and
 `runtime.plan`, and executes nothing: `python -m repro_torch verify`
 never imports jax (subprocess-tested).  `verify_portfolio` checks plan
-portfolios (each entry's artifact and its bucket tag).  Tune-cache and
-bench-report documents come with the modules that produce them
-(autotune, the bench command); until then `verify_path` names them as
+portfolios (each entry's artifact and its bucket tag), and
+`verify_tune_entry` tune-cache entries: the reference's, whose `tile` is
+a TPU `TileConfig`, and the port's (`"kernels": "hopper"`), whose `tile`
+is a Hopper launch checked against the port's launch table; a tuned
+artifact's sidecar is a list of the port's.  Bench reports come with the
+module that produces them; until then `verify_path` names them as
 unsupported (`artifact.format`).
 
 Checks, by rule family:
@@ -748,12 +751,87 @@ def verify_portfolio(doc: Dict[str, Any], *, stats: bool = False,
     return diags
 
 
+def verify_tune_entry(doc: Dict[str, Any], *,
+                      expect_key: Optional[str] = None) -> List[Diagnostic]:
+    """Verify one tune entry (launch or tile legality + digest), with the
+    reference's rule ids: a reference entry's TPU tile against the
+    registry's `TileSpec`, a port entry's Hopper launch
+    (`"kernels": "hopper"`) against `kernels.tiles`."""
+    from repro_torch.kernels import tiles
+    from repro_torch.runtime.autotune import (TUNE_KERNELS,
+                                              TUNE_SCHEMA_VERSION, TuneKey)
+    diags: List[Diagnostic] = []
+    key, tile = doc.get("key"), doc.get("tile")
+    if not isinstance(key, dict) or not isinstance(tile, dict):
+        diags.append(_err("schema.malformed", "",
+                          "tune entry needs 'key' and 'tile' objects"))
+        return diags
+    kernels = doc.get("kernels")
+    if kernels not in (None, TUNE_KERNELS):
+        diags.append(_err("schema.malformed", "",
+                          f"unknown tune entry kernels {kernels!r}"))
+        return diags
+    if doc.get("schema_version") != TUNE_SCHEMA_VERSION:
+        diags.append(_err("schema.version", "",
+                          f"unsupported tune schema version "
+                          f"{doc.get('schema_version')!r}"))
+    op_json = key.get("op_json")
+    try:
+        op = registry.op_from_json(dict(op_json))
+        kind = registry.op_kind(op)
+        if kernels == TUNE_KERNELS:
+            tiles.launch_spec(kind).validate(
+                tiles.launch_from_json(kind, tile),
+                registry.launch_extents(op))
+        else:
+            registry.resolve_tile(op, registry.tile_from_json(kind, tile))
+    except (ValueError, KeyError, TypeError) as e:
+        diags.append(_err("tile.legality", "",
+                          f"cached tile does not validate: {e}"))
+        return diags
+    if expect_key is not None:
+        try:
+            tk = TuneKey(op_json=tuple(sorted(op_json.items())),
+                         device=key["device"], backend=key["backend"],
+                         kernel_version=key["kernel_version"],
+                         schema_version=key["schema_version"],
+                         preserve_numerics=key["preserve_numerics"])
+        except (KeyError, TypeError) as e:
+            diags.append(_err("schema.malformed", "",
+                              f"tune key does not parse: {e}"))
+            return diags
+        if tk.key != expect_key:
+            diags.append(_err("provenance.digest", "",
+                              f"recomputed tune digest {tk.key} != "
+                              f"expected {expect_key}"))
+    return diags
+
+
 def _unsupported(kind: str, path: Path) -> List[Diagnostic]:
     """A document the reference verifies but the port produces no module
-    for yet (tune entry, bench report)."""
+    for yet (bench report)."""
     return [_err("artifact.format", "",
                  f"{path}: {kind} documents are not verified by the port "
                  f"yet (they come with the module that produces them)")]
+
+
+def _sidecar_diags(path: Path, doc: Dict[str, Any]) -> List[Diagnostic]:
+    """An artifact the port tuned is verified with its sidecar of tune
+    entries, which must be beside it."""
+    from repro_torch.runtime.autotune import sidecar_path, tune_cache_version
+    tag = ((doc.get("plan") or {}).get("provenance") or {}).get("tune")
+    if tag != tune_cache_version():
+        return []
+    side = sidecar_path(path)
+    if not side.exists():
+        return [_err("artifact.format", "",
+                     f"tuned for the port's Hopper kernels ({tag}), but its "
+                     f"sidecar {side} is missing")]
+    kind, diags = verify_path(side)
+    if kind != "tune":
+        return [_err("artifact.format", "",
+                     f"{side} is not a list of tune entries")]
+    return diags
 
 
 def verify_path(path: Path, *,
@@ -761,10 +839,12 @@ def verify_path(path: Path, *,
     """Verify one JSON file on disk, dispatching on its document shape.
 
     Returns ``(kind, diagnostics)`` where kind is one of "plan",
-    "artifact", "portfolio", "tune", "bench", or "unknown".  Plan cache
-    files named by a 32-hex digest get their digest recomputed against
-    the filename (`provenance.digest`).  Tune and bench documents are
-    recognized and refused as unsupported in the port.
+    "artifact", "portfolio", "tune", "bench", or "unknown".  Plan and tune
+    cache files named by a 32-hex digest get their digest recomputed
+    against the filename (`provenance.digest`).  A list of tune entries (a
+    tuned artifact's sidecar) is "tune", each entry verified under its
+    index.  Bench reports are recognized and refused as unsupported in the
+    port.
     """
     path = Path(path)
     try:
@@ -775,17 +855,23 @@ def verify_path(path: Path, *,
     stem = path.stem
     digest = stem if len(stem) == 32 and \
         all(c in "0123456789abcdef" for c in stem) else None
+    if isinstance(doc, list) and doc and all(
+            isinstance(e, dict) and "key" in e and "tile" in e for e in doc):
+        return "tune", [dataclasses.replace(d, node=f"#{i}")
+                        for i, e in enumerate(doc)
+                        for d in verify_tune_entry(e)]
     if not isinstance(doc, dict):
         return "unknown", [_err("schema.malformed", "",
                                 f"{path}: not a JSON object")]
     if doc.get("format") == "repro.plan_portfolio":
         return "portfolio", verify_portfolio(doc, stats=stats)
     if doc.get("format") == "repro.compiled_network":
-        return "artifact", verify_artifact(doc, stats=stats)
+        return "artifact", (verify_artifact(doc, stats=stats)
+                            + _sidecar_diags(path, doc))
     if "provenance" in doc and "schedule" in doc:
         return "plan", verify_plan(doc, expect_key=digest, stats=stats)
     if "key" in doc and "tile" in doc:
-        return "tune", _unsupported("tune", path)
+        return "tune", verify_tune_entry(doc, expect_key=digest)
     if "suite" in doc and "metrics" in doc:
         return "bench", _unsupported("bench", path)
     return "unknown", [Diagnostic(

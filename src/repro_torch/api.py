@@ -12,6 +12,7 @@ with no JAX anywhere:
     y = compiled.run(fused=True)         # the segment walk: CUDA graphs
     print(compiled.explain())            # the per-node decision table
     compiled.save("vgg16.coexec.json")   # the shippable artifact
+    tuned = repro_torch.compile("vgg16", target, tune=True)  # on the card
     compiled.record(); compiled.record() # walls into the measurement store
     replanned, diff = compiled.replan()  # calibrated predictors, new plan
     pf = repro_torch.compile_portfolio("zamba2-7b", target, blocks=9)
@@ -26,6 +27,12 @@ saved artifact are the reference's byte for byte, and the two packages
 share one on-disk plan cache.  Predictor caches are the port's own
 (pickles of the port's classes, `port_mux_*` files).
 
+`compile(tune=True)` times the Hopper kernels' launch candidates on the
+card (`runtime/autotune.py`) and runs the plan with the winners; the plan
+document differs from the untuned one only in its provenance `tune` tag
+(the port's own, `hopper-tune-v1.k1`), and `save` writes the launches
+beside the artifact, as `<stem>.hopper_tiles.json`.
+
 `record()` / `recalibrate()` / `replan()` close the measurement loop
 (`repro_torch.measure`), and `compile_portfolio` compiles one plan per
 (batch, seq) serving bucket (`PlanPortfolio`); both give the reference's
@@ -37,7 +44,11 @@ strict, as in the reference: the artifact's format, version and checksum
 `artifact.checksum`) and then the whole plan go through the port's static
 verifier (`repro_torch.analysis`), which raises `VerificationError` with
 the reference's rule ids on any error.  `verify=False` skips the plan's
-verification (the artifact checks stay).
+verification (the artifact checks stay).  An artifact tuned by the port
+loads with its sidecar of launches, verified entry by entry, and raises
+without it; one the reference tuned (TPU `tile` keys, tag `tune-v1.k1`)
+loads and runs with the default Hopper launches: no Hopper kernel reads a
+TPU tile.
 
 `Target` is the request half of a plan's provenance: `device` names the
 simulated phone the plan is compiled for, not the torch device it runs
@@ -61,6 +72,7 @@ from repro_torch.graph.ir import Graph, from_units
 from repro_torch.runtime.cache import (PlanCache, grid_plan_graph_cached,
                                        partition_ops_plan_cached,
                                        plan_graph_cached)
+from repro_torch.kernels.registry import op_label
 from repro_torch.runtime.plan import (CoexecPlan, PartitionDecision,
                                       PlanProvenance, spec_label)
 
@@ -238,12 +250,6 @@ def _resolve_graph(network) -> Tuple[Union[Graph, List[Op]], bool]:
 
 # ------------------------------------------------------------------ compile
 
-#: what `compile(tune=True)` raises until the port's autotuner exists
-TUNE_NOT_PORTED = ("tune=True needs the kernel tile autotuner, which the "
-                   "port does not have yet (ROADMAP Queue 1 item 4: "
-                   "autotune measurement); compile without tune")
-
-
 def compile(network, target: Target, *,               # noqa: A001 — facade
             mode: str = MODE_PREDICTED,
             cache: Union[PlanCache, str, Path] = DEFAULT_CACHE_DIR,
@@ -251,7 +257,8 @@ def compile(network, target: Target, *,               # noqa: A001 — facade
             samples: int = 400, estimators: int = 60,
             predictor_cache: Optional[Union[str, Path]] = None,
             bucket: str = "",
-            tune: bool = False) -> "CompiledNetwork":
+            tune: bool = False,
+            tune_cache=None) -> "CompiledNetwork":
     """Compile a network into a `CompiledNetwork` (cached planning), as
     `repro.compile` does.
 
@@ -272,8 +279,15 @@ def compile(network, target: Target, *,               # noqa: A001 — facade
     * `bucket` — a serving (batch, seq) bucket tag folded into the
       provenance digest; only graph plans in "predicted" mode take it.
 
-    `tune=True` raises NotImplementedError: the port has no tile
-    autotuner yet.
+    `tune=True` runs the Hopper launch autotuner (`runtime.autotune`)
+    over the plan's unique ops, on the card (a host without CUDA raises
+    before anything is planned), and the compiled network runs each node
+    with its op's winning launch.  The tune-cache version folds into
+    provenance, so tuned and untuned plans occupy distinct cache entries,
+    and the tuned document is the untuned one with that tag: no decision
+    carries a Hopper value.  `tune_cache` is a `TuneCache` or a directory
+    (default `reports/tune`); through a warm tune cache the tune pass
+    measures nothing.
     """
     if not isinstance(target, Target):
         raise TypeError(f"target must be a repro_torch.Target, "
@@ -281,13 +295,38 @@ def compile(network, target: Target, *,               # noqa: A001 — facade
     if mode not in (MODE_PREDICTED, MODE_GRID):
         raise ValueError(f"unknown mode {mode!r}; "
                          f"choices: ['predicted', 'grid']")
-    if tune:
-        raise NotImplementedError(TUNE_NOT_PORTED)
     graph_or_ops, is_graph = _resolve_graph(network)
     if bucket and (mode != MODE_PREDICTED or not is_graph):
         raise ValueError("bucket= requires a graph network in "
                          "mode='predicted' (portfolio entries must be "
                          "replannable)")
+
+    tune_tag = ""
+    annotate = None
+    tuned: Optional[List[Dict[str, Any]]] = None
+    if tune:
+        from repro_torch.runtime.autotune import (DEFAULT_TUNE_DIR,
+                                                  TuneCache,
+                                                  annotate_plan_tiles,
+                                                  measure_device,
+                                                  tune_cache_version)
+        # the card first: without CUDA nothing is planned or written
+        kind, backend = measure_device()
+        tc = tune_cache
+        if not isinstance(tc, TuneCache):
+            tc = TuneCache(Path(tc) if tc is not None
+                           else Path(DEFAULT_TUNE_DIR))
+        tune_tag = tune_cache_version()
+
+        def tune_pass(plan):
+            return annotate_plan_tiles(plan, cache=tc, device=kind,
+                                       backend=backend)
+
+        def annotate(plan):
+            nonlocal tuned
+            tuned = tune_pass(plan)
+            return plan
+
     if not isinstance(cache, PlanCache):
         cache = PlanCache(Path(cache))
     mech = target.sync_mechanism
@@ -304,7 +343,8 @@ def compile(network, target: Target, *,               # noqa: A001 — facade
                 [(op_kind(op), op) for op in graph_or_ops])
         plan = grid_plan_graph_cached(
             graph_or_ops, target.device, target.threads, mechanism=mech,
-            step=target.step, seed=target.seed, cache=cache)
+            step=target.step, seed=target.seed, tune=tune_tag,
+            annotate=annotate, cache=cache)
     else:
         if predictors is None:
             kinds: Tuple[str, ...] = ("linear", "conv")
@@ -329,15 +369,19 @@ def compile(network, target: Target, *,               # noqa: A001 — facade
             plan = plan_graph_cached(
                 graph_or_ops, cpu_pred, gpu_pred, threads=target.threads,
                 mechanism=mech, step=target.step, seed=target.seed,
-                bucket=bucket, cache=cache)
+                bucket=bucket, tune=tune_tag, annotate=annotate,
+                cache=cache)
         else:
             plan = partition_ops_plan_cached(
                 graph_or_ops, cpu_pred, gpu_pred,
-                mechanism=mech, step=target.step, cache=cache)
+                mechanism=mech, step=target.step, tune=tune_tag,
+                annotate=annotate, cache=cache)
+    if tune and tuned is None:        # a warm plan hit: the tune cache's
+        tuned = tune_pass(plan)
 
     return CompiledNetwork(plan=plan, target=target, mode=mode,
                            from_cache=cache.hits > hits_before,
-                           predictors=predictors)
+                           predictors=predictors, tuned=tuned)
 
 
 # --------------------------------------------------------- compiled network
@@ -357,16 +401,29 @@ class CompiledNetwork:
     plan cache; `predictors` is the (cpu, gpu) pair it planned with (None
     for grid plans and loaded artifacts); `calibration` is the
     `Calibrator` of the last `recalibrate()` (or the one a `replan()`
-    planned with)."""
+    planned with); `tuned` is a tuned compile's tune entries, one per
+    unique op (None for an untuned plan), whose launches its executors
+    run."""
 
     def __init__(self, plan: CoexecPlan, target: Target, *,
                  mode: str = MODE_PREDICTED, from_cache: bool = False,
-                 predictors=None):
+                 predictors=None,
+                 tuned: Optional[List[Dict[str, Any]]] = None):
+        from repro_torch.runtime.autotune import (launches_from_entries,
+                                                  tune_cache_version)
+        if plan.provenance.tune == tune_cache_version() and tuned is None:
+            raise ValueError(
+                f"plan {plan.key} was tuned for the port's Hopper kernels "
+                f"({plan.provenance.tune}) and needs its tune entries "
+                f"(an artifact's sidecar); compile it again with tune=True")
         self.plan = plan
         self.target = target
         self.mode = mode
         self.from_cache = from_cache
         self.predictors = predictors
+        self.tuned = tuned
+        #: op -> its tuned Hopper launch (empty: every kernel's planner)
+        self.launches = launches_from_entries(tuned or [])
         self.last_report = None
         self.calibration = None
         self._executors: Dict[Tuple[str, str, int], Any] = {}
@@ -424,7 +481,7 @@ class CompiledNetwork:
             n = 1 if self.target.mesh == MESH_SINGLE else 2
             self._executors[key] = PlanExecutor(
                 self.plan, groups=coexec_groups(dev, n=n), seed=seed,
-                dtype=dt)
+                dtype=dt, launches=self.launches)
         return self._executors[key]
 
     def run(self, x=None, *, device: Union[str, torch.device, None] = None,
@@ -608,35 +665,105 @@ class CompiledNetwork:
         return doc
 
     @staticmethod
-    def from_json(doc: Dict[str, Any], *,
-                  verify: bool = True) -> "CompiledNetwork":
+    def from_json(doc: Dict[str, Any], *, verify: bool = True,
+                  tuned: Optional[List[Dict[str, Any]]] = None
+                  ) -> "CompiledNetwork":
         """Decode an artifact document.  Its format, version and checksum
         are always checked; ``verify=True`` (default) also statically
-        verifies the embedded plan.  Raises `VerificationError` (a
-        ValueError) with the reference's rule ids on any error."""
+        verifies the embedded plan.  A plan the port tuned needs `tuned`,
+        its sidecar's tune entries, which are verified and must cover
+        every op of the plan.  Raises `VerificationError` (a ValueError)
+        with the reference's rule ids on any error."""
         from repro_torch.analysis import raise_on_error, verify_artifact
         raise_on_error(verify_artifact(doc, stats=False, plan=verify),
                        "artifact")
-        return CompiledNetwork(plan=CoexecPlan.from_json(doc["plan"],
-                                                         verify=False),
+        plan = CoexecPlan.from_json(doc["plan"], verify=False)
+        _check_tune_tag(plan, tuned)
+        if tuned is not None:
+            _check_tuned(plan, tuned)
+        return CompiledNetwork(plan=plan,
                                target=Target.from_json(doc["target"]),
-                               mode=doc["mode"])
+                               mode=doc["mode"], tuned=tuned)
 
     def save(self, path: Union[str, Path]) -> Path:
         """Write the shippable artifact (target + plan + checksum) as JSON,
-        byte for byte as the reference writes it; `load` round-trips it."""
+        byte for byte as the reference writes it; `load` round-trips it.
+        A tuned network also writes its tune entries beside it
+        (`runtime.autotune.sidecar_path`)."""
+        from repro_torch.runtime.autotune import sidecar_path
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(self.to_json(), indent=1))
+        if self.tuned is not None:
+            sidecar_path(path).write_text(json.dumps(self.tuned, indent=1))
         return path
 
     @staticmethod
     def load(path: Union[str, Path], *,
              verify: bool = True) -> "CompiledNetwork":
         """Load a saved artifact (see `from_json`; ``verify=False`` to
-        inspect a quarantined artifact anyway)."""
-        return CompiledNetwork.from_json(json.loads(Path(path).read_text()),
-                                         verify=verify)
+        inspect a quarantined artifact anyway), with its sidecar of tune
+        entries where the port tuned it: a missing sidecar raises."""
+        from repro_torch.runtime.autotune import (sidecar_path,
+                                                  tune_cache_version)
+        path = Path(path)
+        doc = json.loads(path.read_text())
+        tuned = None
+        tag = ((doc.get("plan") or {}).get("provenance") or {}).get("tune")
+        if tag == tune_cache_version():
+            side = sidecar_path(path)
+            if not side.exists():
+                raise _artifact_error(
+                    f"{path} was tuned for the port's Hopper kernels "
+                    f"({tag}); its launches belong in its sidecar {side},"
+                    f" which is missing")
+            tuned = json.loads(side.read_text())
+        return CompiledNetwork.from_json(doc, verify=verify, tuned=tuned)
+
+
+def _artifact_error(message: str):
+    from repro_torch.analysis import SEV_ERROR, Diagnostic, VerificationError
+    return VerificationError("artifact", [Diagnostic(
+        SEV_ERROR, "artifact.format", "", message)])
+
+
+def _check_tune_tag(plan: CoexecPlan, tuned) -> None:
+    """A plan tuned by the port names the launch table its launches were
+    chosen in: another version's launches are not this port's to run."""
+    from repro_torch.runtime.autotune import TUNE_KERNELS, tune_cache_version
+    tag = plan.provenance.tune
+    if tag.startswith(f"{TUNE_KERNELS}-") and tag != tune_cache_version():
+        raise _artifact_error(
+            f"plan {plan.key} was tuned against Hopper launch table {tag}; "
+            f"this port's is {tune_cache_version()}: compile it again with "
+            f"tune=True")
+    if tuned is not None and tag != tune_cache_version():
+        raise _artifact_error(f"tune entries given for plan {plan.key}, "
+                              f"which the port did not tune (tune={tag!r})")
+
+
+def _check_tuned(plan: CoexecPlan, tuned) -> None:
+    """A tuned plan's sidecar: a list of the port's tune entries, each one
+    verified (`verify_tune_entry`), covering every op of the plan."""
+    from repro_torch.analysis import raise_on_error, verify_tune_entry
+    from repro_torch.runtime.autotune import TUNE_KERNELS, entry_op
+    if not isinstance(tuned, list):
+        raise _artifact_error("a tuned artifact's sidecar is a JSON list of "
+                              "tune entries")
+    diags = []
+    for i, doc in enumerate(tuned):
+        if not isinstance(doc, dict) or doc.get("kernels") != TUNE_KERNELS:
+            raise _artifact_error(f"sidecar entry #{i} is not a Hopper tune "
+                                  f"entry")
+        diags.extend(dataclasses.replace(d, node=f"#{i}")
+                     for d in verify_tune_entry(doc))
+    raise_on_error(diags, "tune sidecar")
+    have = {entry_op(doc) for doc in tuned}
+    missing = sorted({op_label(d.op) for d in plan.decisions
+                      if d.op not in have})
+    if missing:
+        raise _artifact_error(f"the sidecar has no tune entry for "
+                              f"{missing}")
 
 
 # ---------------------------------------------------------- plan portfolio

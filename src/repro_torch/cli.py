@@ -1,6 +1,6 @@
 """`python -m repro_torch` — the port's CLI.
 
-Five subcommands so far:
+Six subcommands so far:
 
   * `plan` — compile (or fetch from the plan cache) a co-execution plan
     with the port's planning half, as `python -m repro plan` does, with
@@ -13,7 +13,20 @@ Five subcommands so far:
         python -m repro_torch plan --model zamba2-7b --blocks 9
                                    --cache-len 4096 --threads 1 --save X
 
-    `--tune` exits 2: the port has no tile autotuner yet.
+    `--tune` (on the card) runs the Hopper launch autotuner on a
+    plan-cache miss and saves the tuned launches beside the artifact
+    (`<stem>.hopper_tiles.json`); `--tune-cache-dir` names its tune cache.
+
+  * `tune` — time every candidate launch of every unique op of a network
+    on the card and store the winners in the tune cache, with the
+    reference's flags (`--reps`, `--tune-cache-dir`); warm entries are
+    returned without measuring.
+
+        python -m repro_torch tune --network vgg16 [--reps 2]
+                                   [--tune-cache-dir reports/tune]
+
+    Without CUDA, `tune` and `plan --tune` exit 2 naming CUDA: nothing is
+    timed on the CPU in their place.
 
   * `execute` — load a saved `repro.compiled_network` artifact (as `plan
     --save` in either package writes it) and run it end to end on a
@@ -48,7 +61,9 @@ Five subcommands so far:
         python -m repro_torch verify PATHS [--all-artifacts] [-v]
 
     `--all-artifacts` adds the port's committed artifacts
-    (`src/repro_torch/artifacts/`) and the plan cache `reports/plans/`.
+    (`src/repro_torch/artifacts/`), the plan cache `reports/plans/` and
+    the tune cache `reports/tune/`; a tuned artifact's sidecar verifies
+    with it.
 
   * `serve` — serve seeded requests with a model of the registry: a
     fixed batch through the `ServingEngine` (optionally shipping a
@@ -120,8 +135,13 @@ def _add_compile_args(ap: argparse.ArgumentParser) -> None:
                     help="optional directory to cache trained predictors "
                          "(a load is checksum-identical to a retrain)")
     ap.add_argument("--tune", action="store_true",
-                    help="autotune kernel tiles (not in the port yet: "
-                         "exits 2)")
+                    help="autotune the Hopper kernels' launches on the card "
+                         "on a plan-cache miss and run the plan with the "
+                         "winners (tuned plans get their own cache "
+                         "entries; needs CUDA)")
+    ap.add_argument("--tune-cache-dir", default="reports/tune",
+                    help="on-disk TuneCache directory (measured launch "
+                         "choices, content-addressed)")
 
 
 class _UserInputError(Exception):
@@ -154,19 +174,75 @@ def _compile(args):
     t0 = time.time()
     # ValueErrors up to and including compile() are user-input problems
     # (unknown name/device/mechanism, predictor/target mismatch), and so
-    # is --tune, which the port cannot do yet
+    # is --tune on a host without CUDA
     try:
         target = Target(device=args.device, threads=args.threads,
                         mechanism=args.mechanism, step=args.step,
                         seed=args.seed)
-        compiled = _api_compile(_network_arg(args), target, mode=args.mode,
+        network = _network_arg(args)
+        if args.tune:
+            _tune_device()
+        compiled = _api_compile(network, target, mode=args.mode,
                                 cache=args.cache_dir, samples=args.samples,
                                 estimators=args.estimators,
                                 predictor_cache=args.predictor_cache,
-                                tune=args.tune)
-    except (ValueError, NotImplementedError) as e:
+                                tune=args.tune,
+                                tune_cache=args.tune_cache_dir)
+    except ValueError as e:
         raise _UserInputError(str(e)) from e
     return compiled, time.time() - t0
+
+
+def _tune_device():
+    """The card the tuner measures; a host without CUDA is a clean
+    one-line error."""
+    from repro_torch.runtime.autotune import measure_device
+    try:
+        return measure_device()
+    except RuntimeError as e:
+        raise _UserInputError(str(e)) from e
+
+
+def _cmd_tune(args) -> int:
+    """Measured launch search for every unique op of a network, through
+    the on-disk TuneCache (warm entries are returned without measuring)."""
+    from repro_torch.api import _resolve_graph
+    from repro_torch.kernels import registry, tiles
+    from repro_torch.runtime.autotune import (TuneCache, autotune,
+                                              tune_cache_version)
+    try:
+        graph_or_ops, is_graph = _resolve_graph(_network_arg(args))
+    except ValueError as e:
+        raise _UserInputError(str(e)) from e
+    device, backend = _tune_device()
+    ops = ([n.op for n in graph_or_ops if n.op is not None] if is_graph
+           else list(graph_or_ops))
+    unique = list(dict.fromkeys(ops))
+    cache = TuneCache(Path(args.tune_cache_dir))
+    print(f"tune {args.model or args.network}: {len(unique)} unique ops on "
+          f"{device}/{backend} ({tune_cache_version()}) -> {cache.root}")
+    tuned = 0
+    for op in unique:
+        extents = registry.launch_extents(op)
+        n_cand = len(tiles.launch_spec(registry.op_kind(op))
+                     .configs(extents))
+        t0 = time.time()
+        hits = cache.hits
+        best = autotune(op, cache=cache, device=device, backend=backend,
+                        reps=args.reps)
+        if best.is_default:
+            verdict = "default"
+        else:
+            tuned += 1
+            verdict = f"default -> {best.label()}"
+        src = ("cache" if cache.hits > hits
+               else f"measured {n_cand} candidates" if extents
+               else "launches no kernel of the port")
+        print(f"  {registry.op_label(op):42s} {verdict:28s} "
+              f"({src}, {time.time() - t0:.1f}s)")
+    print(f"  {tuned}/{len(unique)} ops tuned away from the default "
+          f"launch ({cache.hits} cache hits)")
+    return 0
 
 
 def _cache_status(compiled) -> str:
@@ -301,7 +377,8 @@ def _cmd_verify(args) -> int:
                                       verify_path)
     paths = [Path(p) for p in args.paths]
     if args.all_artifacts:
-        for d in (ARTIFACTS_DIR, Path("reports/plans")):
+        for d in (ARTIFACTS_DIR, Path("reports/plans"),
+                  Path("reports/tune")):
             paths.extend(sorted(d.glob("*.json")))
     if not paths:
         print("error: nothing to verify (pass artifact paths or "
@@ -401,26 +478,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p_cal.add_argument("--torch-device", default=None,
                        help="torch device the recorded executions run on "
                             "(default: cuda)")
+    p_tune = sub.add_parser(
+        "tune", help="autotune the Hopper kernels' launches for a "
+                     "network's ops on the card and store the winners in "
+                     "the on-disk TuneCache")
+    _add_compile_args(p_tune)
+    p_tune.add_argument("--reps", type=int, default=2,
+                        help="timed repetitions per candidate (median)")
     p_verify = sub.add_parser(
         "verify", help="statically verify plan documents, artifacts and "
                        "plan portfolios without importing jax or "
                        "executing anything")
     p_verify.add_argument("paths", nargs="*",
-                          help="plan, CompiledNetwork artifact or plan "
-                               "portfolio JSON files (dispatched by "
+                          help="plan, CompiledNetwork artifact, plan "
+                               "portfolio or tune entry JSON files, or a "
+                               "tuned artifact's sidecar (dispatched by "
                                "document shape)")
     p_verify.add_argument("--all-artifacts", action="store_true",
-                          help="also scan src/repro_torch/artifacts and "
-                               "reports/plans")
+                          help="also scan src/repro_torch/artifacts, "
+                               "reports/plans and reports/tune")
     p_verify.add_argument("-v", "--verbose", action="store_true",
                           help="also print info diagnostics (static "
                                "resource accounting)")
     args = ap.parse_args(argv)
     if args.cmd == "verify":
         return _cmd_verify(args)
-    if args.cmd in ("plan", "calibrate"):
+    if args.cmd in ("plan", "calibrate", "tune"):
+        cmd = {"plan": _cmd_plan, "calibrate": _cmd_calibrate,
+               "tune": _cmd_tune}[args.cmd]
         try:
-            return (_cmd_plan if args.cmd == "plan" else _cmd_calibrate)(args)
+            return cmd(args)
         except _UserInputError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

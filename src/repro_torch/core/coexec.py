@@ -39,6 +39,8 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core.types import ConvOp
+from repro_torch.kernels import tiles
+from repro_torch.kernels.registry import fit_launch
 from repro_torch.kernels.split_matmul.split_matmul import split_matmul
 from repro_torch.kernels.winograd_conv.ops import conv2d_op, crop_to_declared
 
@@ -263,27 +265,35 @@ def gather_lse(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 def coexec_matmul(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
                   groups: Sequence[Group], *, gather: bool = True,
-                  x_plan: Optional[SplitPlan] = None
+                  x_plan: Optional[SplitPlan] = None,
+                  launch: Optional[tiles.Launch] = None
                   ) -> Union[torch.Tensor, GroupLocal]:
     """Channel-split matmul: each group computes its slice of X @ W with
     one `split_matmul` launch on its own stream.
 
     x: (L, C_in) — or, with `x_plan`, the producer's `GroupLocal`.
-    packed_w: (2, C_in, c_pad) from `pack_weights`.
+    packed_w: (2, C_in, c_pad) from `pack_weights`.  `launch`: the node's
+    tuned launch, which each side fits to its own width.
     Returns (L, C_out) if gather else the `GroupLocal` result.
     """
+    spec = tiles.launch_spec("linear")
+
     def side(g: int, x_full: torch.Tensor) -> torch.Tensor:
         if plan.width(g) == 0:          # an exclusive split: nothing here
             return x_full.new_empty(tuple(x_full.shape[:-1]) + (0,))
+        m, k = x_full.shape
+        fit = spec.clamp(tiles.as_launch("linear", launch),
+                         {"m": m, "k": k, "n": plan.width(g)})
         return split_matmul(x_full.contiguous(), packed_w[g], 0,
-                            plan.width(g))
+                            plan.width(g), launch=fit)
 
     return split_run(x, plan, groups, x_plan, side, gather)
 
 
 def coexec_conv2d(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
                   groups: Sequence[Group], *, op: ConvOp,
-                  gather: bool = True, x_plan: Optional[SplitPlan] = None
+                  gather: bool = True, x_plan: Optional[SplitPlan] = None,
+                  launch: Optional[tiles.Launch] = None
                   ) -> Union[torch.Tensor, GroupLocal]:
     """Channel-split SAME convolution of the node `op` across the groups.
 
@@ -292,12 +302,14 @@ def coexec_conv2d(x: _Input, packed_w: torch.Tensor, plan: SplitPlan,
     the algorithm `op` selects (Winograd when the declared op passes the
     gate, direct otherwise), and outputs are cropped to the declared
     (floor) shape so chained nodes see exactly the planned activation.
+    `launch`: the node's tuned launch, which each side fits to its width.
     Returns (B, H_out, W_out, C_out) if gather else the `GroupLocal`.
     """
     def side(g: int, x_full: torch.Tensor) -> torch.Tensor:
         if plan.width(g) == 0:          # an exclusive split: nothing here
             return x_full.new_empty((x_full.shape[0], op.H_out, op.W_out, 0))
         w_g = packed_w[g][..., :plan.width(g)]
-        return crop_to_declared(conv2d_op(x_full, w_g, op), op)
+        fit = fit_launch(launch, op, n=plan.width(g))
+        return crop_to_declared(conv2d_op(x_full, w_g, op, launch=fit), op)
 
     return split_run(x, plan, groups, x_plan, side, gather)

@@ -37,6 +37,31 @@ DISPATCH_FEATURES = ["wg_x", "wg_y", "wg_size", "grid_x", "grid_y",
                      "log_padded_flops"]
 
 
+def tile_feature_names(kind: str) -> List[str]:
+    """Per-kind kernel tile-config feature names ("tile_bm", ...), in the
+    registry `TileSpec` parameter order (the reference's TPU tiles)."""
+    return [f"tile_{n}" for n in registry.tile_spec(kind).names()]
+
+
+def tile_features(ops: Sequence[Op], tiles=None) -> np.ndarray:
+    """Resolved TPU tile-config values per op, one row per op, as the
+    reference computes them.
+
+    `tiles[i]` is op i's `TileConfig` (a decision's `tile` key) or None;
+    None (and a missing list) resolves to the kind's clamped default, so a
+    tile-aware predictor prices a reference-tuned plan's decisions exactly
+    as the reference does.  Only meaningful for same-kind batches —
+    feature widths differ across kinds.
+    """
+    if tiles is None:
+        tiles = [None] * len(ops)
+    rows = []
+    for op, tile in zip(ops, tiles):
+        resolved = registry.resolve_tile(op, tile)
+        rows.append([float(v) for _, v in resolved.values])
+    return np.array(rows, dtype=np.float64)
+
+
 def _base_features(op: Op) -> List[float]:
     # one dispatch table for planner and executor: the registry owns the
     # per-kind base feature extractors
@@ -70,6 +95,8 @@ def kernel_of(op: Op, device: str) -> str:
     return dispatch_for(op, DEVICES[device]).kernel
 
 
-def feature_names(ops_kind: str, whitebox: bool) -> List[str]:
+def feature_names(ops_kind: str, whitebox: bool,
+                  tiles: bool = False) -> List[str]:
     base = _BLACKBOX_BY_KIND.get(ops_kind, BLACKBOX_CONV)
-    return base + DISPATCH_FEATURES if whitebox else list(base)
+    names = base + DISPATCH_FEATURES if whitebox else list(base)
+    return names + tile_feature_names(ops_kind) if tiles else names

@@ -8,9 +8,10 @@ only the operation configuration (the ablation baseline).
 Targets are log-latencies: squared loss on logs optimizes relative error,
 which is what MAPE (Table 1) scores.
 
-The port's copy of `repro.core.predictor.train`, less what only the
-reference's tile autotuner calls: no tile-aware predictors.  A saved
-predictor is a pickle of the port's classes; `LatencyPredictor.load`
+The port's copy of `repro.core.predictor.train`, tile-aware predictors
+included (`tiles=True` appends an op's resolved TPU tile config, the
+reference's features, so a tuned plan re-prices the same in both
+packages).  A saved predictor is a pickle of the port's classes; `LatencyPredictor.load`
 unpickles through `_PortUnpickler`, which resolves only the few globals
 such a pickle names (the port's predictor classes and numpy's array
 reconstructors), so a file that names anything else, the reference's
@@ -27,6 +28,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.predictor.features import (blackbox_features, kernel_of,
+                                                 tile_features,
                                                  whitebox_features)
 from repro_torch.core.predictor.gbdt import GBDTParams, GBDTRegressor
 from repro_torch.core.simulator.measure import measure_latency_us
@@ -67,16 +69,35 @@ class LatencyPredictor:
     backend: str                    # 'gpu' | 'cpu1' | 'cpu2' | 'cpu3'
     whitebox: bool
     models: Dict[str, GBDTRegressor]   # kernel -> model ('*' if not split)
+    #: when True the feature vectors carry the resolved TPU tile config
+    #: (see features.tile_features), so `predict(ops, tiles=...)` re-prices
+    #: tuned decisions; False keeps the tile-blind vectors and checksums
+    #: (read via getattr: predictors pickled before this field existed
+    #: unpickle without it)
+    tiles: bool = False
 
-    def predict(self, ops: Sequence[Op]) -> np.ndarray:
+    @property
+    def tile_aware(self) -> bool:
+        return bool(getattr(self, "tiles", False))
+
+    def _featurize(self, ops: Sequence[Op], tiles) -> np.ndarray:
+        feats = (whitebox_features(ops, self.device)
+                 if self.whitebox and self.backend == "gpu"
+                 else blackbox_features(ops))
+        if self.tile_aware:
+            feats = np.hstack([feats, tile_features(ops, tiles)])
+        return feats
+
+    def predict(self, ops: Sequence[Op],
+                tiles: Optional[Sequence] = None) -> np.ndarray:
         ops = list(ops)
         out = np.empty(len(ops))
+        feats = self._featurize(ops, tiles)
         if not self.whitebox or self.backend != "gpu":
             model = self.models["*"]
-            out[:] = np.exp(model.predict(blackbox_features(ops)))
+            out[:] = np.exp(model.predict(feats))
             return out
         # white-box GPU: route each op to its kernel's model
-        feats = whitebox_features(ops, self.device)
         kernels = np.array([kernel_of(op, self.device) for op in ops])
         for kern in np.unique(kernels):
             sel = kernels == kern
@@ -110,13 +131,19 @@ def train_predictor(ops: Sequence[Op], device: str, backend: str, *,
                     whitebox: bool = True,
                     params: Optional[GBDTParams] = None,
                     y_us: Optional[np.ndarray] = None,
+                    tiles: bool = False,
+                    tile_list: Optional[Sequence] = None,
                     hpo_trials: int = 0, seed: int = 0) -> LatencyPredictor:
     """Fit a predictor on measured latencies of `ops`: the simulator's,
     or `y_us` (e.g. `dataset.training_from_records` of executed runs).
 
     hpo_trials > 0 runs the reference's random hyperparameter search
     (`GBDTParams.random`) with a held-out validation split (20 %), as in
-    the paper's Section 5.2; `params` overrides it.
+    the paper's Section 5.2; `params` overrides it.  `tiles=True` appends
+    each op's resolved TPU tile config to the feature vector
+    (`tile_list[i]` when given, else the default blocking): a tile-aware
+    predictor that re-prices tuned decisions; the default keeps feature
+    vectors, and the checksum cached plans key on, tile-blind.
     """
     ops = list(ops)
     y = measure_ops(ops, device, backend, seed=seed) if y_us is None \
@@ -125,6 +152,8 @@ def train_predictor(ops: Sequence[Op], device: str, backend: str, *,
 
     gpu_wb = whitebox and backend == "gpu"
     X = whitebox_features(ops, device) if gpu_wb else blackbox_features(ops)
+    if tiles:
+        X = np.hstack([X, tile_features(ops, tile_list)])
 
     def fit_group(Xg, yg, prm):
         return GBDTRegressor(prm, seed=seed).fit(Xg, yg)
@@ -167,7 +196,7 @@ def train_predictor(ops: Sequence[Op], device: str, backend: str, *,
         models["*"] = fit_group(X, logy, prm)
 
     return LatencyPredictor(device=device, backend=backend,
-                            whitebox=gpu_wb, models=models)
+                            whitebox=gpu_wb, models=models, tiles=tiles)
 
 
 def mape(pred_us: np.ndarray, true_us: np.ndarray) -> float:
@@ -197,7 +226,8 @@ class MuxPredictor:
         return getattr(self, "attention" if kind == "attention" else
                        "ssm" if kind == "ssm" else kind, None)
 
-    def predict(self, ops: Sequence[Op]) -> np.ndarray:
+    def predict(self, ops: Sequence[Op],
+                tiles: Optional[Sequence] = None) -> np.ndarray:
         from repro_torch.kernels.registry import op_kind
         ops = list(ops)
         out = np.empty(len(ops))
@@ -209,5 +239,7 @@ class MuxPredictor:
                 raise ValueError(
                     f"MuxPredictor has no {kind!r} member; train with "
                     f"kinds including {kind!r}")
-            out[idx] = member.predict([ops[i] for i in idx])
+            out[idx] = member.predict(
+                [ops[i] for i in idx],
+                None if tiles is None else [tiles[i] for i in idx])
         return out

@@ -43,7 +43,10 @@
 //   taking columns l, l + 32, ... so that a warp's loads stay coalesced.
 //   Ragged width and K edges are masked; nothing is padded or copied.
 // M > 8 is off the main paths and keeps the shared-memory tiled product
-// (64 x 64 tile, 4 x 4 outputs per thread, tiled_gemm.cuh).
+// (tiled_gemm.cuh, 256 threads): a 64 x 64 block with 4 x 4 outputs per
+// thread by default, and 128 x 64, 64 x 128 and 128 x 128 blocks (8 x 4,
+// 4 x 8 and 8 x 8 per thread) for a launch that asks for them.  Every
+// output is summed over K in the same order whatever its block.
 #include <cstdint>
 
 #include "kernel_attrs.cuh"
@@ -326,24 +329,51 @@ int launch_splitk(int device, const T* x, const T* wc, T* y, float* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiled product with a bm x bn block, 256 threads of bm/16 x bn/16
+// outputs each; -1 for a block that has no instantiation.
+template <typename T>
+int launch_tiled(int bm, int bn, const T* x, const T* wc, T* y, int m, int k,
+                 int n, int width, cudaStream_t stream) {
+  using repro_torch::launch_tiled_gemm;
+  if (bm == 64 && bn == 64)
+    return launch_tiled_gemm<T, 64, 64, 16, 4, 4>(
+        x, wc, y, 1, m, width, k, k, n, width, 0, 0, 0, stream);
+  if (bm == 128 && bn == 64)
+    return launch_tiled_gemm<T, 128, 64, 16, 8, 4>(
+        x, wc, y, 1, m, width, k, k, n, width, 0, 0, 0, stream);
+  if (bm == 64 && bn == 128)
+    return launch_tiled_gemm<T, 64, 128, 16, 4, 8>(
+        x, wc, y, 1, m, width, k, k, n, width, 0, 0, 0, stream);
+  if (bm == 128 && bn == 128)
+    return launch_tiled_gemm<T, 128, 128, 16, 8, 8>(
+        x, wc, y, 1, m, width, k, k, n, width, 0, 0, 0, stream);
+  return -1;
+}
+
 template <typename T>
 int launch(int device, const void* xv, const void* wv, void* yv, void* wsv,
            int m, int k, int n, int c0, int width, int variant, int mt,
-           int col_tiles, int splits, int k_chunk, cudaStream_t stream) {
+           int tile, int col_tiles, int splits, int k_chunk,
+           cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* wc = static_cast<const T*>(wv) + c0;
   T* y = static_cast<T*>(yv);
   float* ws = static_cast<float*>(wsv);
   if (variant == kTiled) {
-    return repro_torch::launch_tiled_gemm<T, 64, 64, 16, 4, 4>(
-        x, wc, y, 1, m, width, k, k, n, width, 0, 0, 0, stream);
+    // the block is mt x tile; the host plan, checked
+    if (tile < 1 || col_tiles != (width + tile - 1) / tile)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int launched = launch_tiled<T>(mt, tile, x, wc, y, m, k, n, width,
+                                         stream);
+    return launched < 0 ? static_cast<int>(cudaErrorInvalidValue)
+                        : launched;
   }
   // the host plan, checked: a launch that does not match it is refused
-  constexpr int tile = 32 * vec_elems<T>();
   const bool aligned =
       reinterpret_cast<std::uintptr_t>(wc) % 16 == 0 &&
       (static_cast<long long>(n) * sizeof(T)) % 16 == 0;
-  if (m < 1 || m > mt || col_tiles != (width + tile - 1) / tile ||
+  if (m < 1 || m > mt || tile != 32 * vec_elems<T>() ||
+      col_tiles != (width + tile - 1) / tile ||
       k_chunk < 1 || splits != max(1, (k + k_chunk - 1) / k_chunk) ||
       (splits > 1 && ws == nullptr) || (variant == kVector && !aligned))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -374,9 +404,9 @@ int resident(int device, int variant, int mt, int smem) {
 // and contiguous; y (m, width) is written row-major.  ws: an fp32
 // workspace of splits * m * width values (unused with one split).  The
 // launch plan (variant 0 = 16-byte loads, 1 = scalar loads, 2 = tiled for
-// m > 8; mt, the rows of X a block holds; col_tiles; splits; k_chunk, the
-// rows of K per split) comes from the host planner.  Returns the CUDA
-// error code of the launches (0 = launched).
+// m > 8; mt, the rows of X a block holds; tile, its columns; col_tiles;
+// splits; k_chunk, the rows of K per split) comes from the host planner.
+// Returns the CUDA error code of the launches (0 = launched).
 // Blocks of the GEMV instantiation (dtype, variant, mt) that one SM holds
 // at once with `smem` bytes of dynamic shared memory: the host plan sizes
 // the grid to one wave of them.  Negative: minus a CUDA error code.
@@ -393,16 +423,18 @@ extern "C" int split_matmul_resident(int device, int dtype, int variant,
 extern "C" int split_matmul_launch(int device, int dtype, const void* x,
                                    const void* w, void* y, void* ws, int m,
                                    int k, int n, int c0, int width,
-                                   int variant, int mt, int col_tiles,
-                                   int splits, int k_chunk, void* stream) {
+                                   int variant, int mt, int tile,
+                                   int col_tiles, int splits, int k_chunk,
+                                   void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(device, x, w, y, ws, m, k, n, c0, width, variant,
-                         mt, col_tiles, splits, k_chunk, s);
+                         mt, tile, col_tiles, splits, k_chunk, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(device, x, w, y, ws, m, k, n, c0, width,
-                                 variant, mt, col_tiles, splits, k_chunk, s);
+                                 variant, mt, tile, col_tiles, splits,
+                                 k_chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,9 @@ shared memory (16-byte `cp.async` copies, or scalar copies where the
 operands are not 16-byte aligned) and keeps an online softmax across its
 tiles; a second pass merges the runs' partials in a fixed order, so two
 calls on the same inputs give bit-identical results.  `plan_attention` is
-the host half of that design.
+the host half of that design; `launch=` (an "attention"
+`kernels.tiles.Launch`) fixes the tiles per run, `run_tiles`, instead,
+and an illegal one raises ValueError.
 
 `decode_attention` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes `decode_attention_plain`, the same
@@ -32,12 +34,12 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiles
 
 #: variants of pass 1: 16-byte `cp.async` copies of K and V, or scalar ones
 VECTOR, SCALAR = 0, 1
 #: cache positions per tile, tiles in the ring, threads per pass-1 block
-TILE, STAGES, THREADS = 32, 3, 256
+TILE, STAGES, THREADS = tiles.ATTN_TILE, 3, 256
 #: the most (query head, 16-byte chunk of hd) pairs a block accumulates:
 #: four per thread
 MAX_ITEMS = 4 * THREADS
@@ -107,14 +109,16 @@ def attn_smem(g: int, hd: int, elt: int) -> int:
 
 
 def plan_attention(lo: int, hi: int, kv: int, g: int, hd: int, elt: int,
-                   k_ptr: int, v_ptr: int, resident: int) -> AttnPlan:
+                   k_ptr: int, v_ptr: int, resident: int,
+                   run_tiles: int = None) -> AttnPlan:
     """The launch of attention over positions lo..hi of a cache with `kv`
     KV heads of `g` query heads each, hd elements of `elt` bytes, K's and
     V's data at `k_ptr` and `v_ptr`, on a card that holds `resident`
     pass-1 blocks at once (SMs x blocks per SM).  The positions are cut
     into runs of whole tiles so that kv x nsplit is at most one wave of
-    `resident` blocks and no run is empty.  Raises where a block's query
-    heads or shared memory exceed what the kernel takes."""
+    `resident` blocks and no run is empty; a validated `run_tiles` fixes
+    the tiles per run instead.  Raises where a block's query heads or
+    shared memory exceed what the kernel takes."""
     if not 0 <= lo <= hi or min(kv, g, hd, resident) < 1:
         raise ValueError(f"decode_attention plan: nothing to attend (lo "
                          f"{lo}, hi {hi}, kv {kv}, g {g}, hd {hd}, resident "
@@ -129,11 +133,11 @@ def plan_attention(lo: int, hi: int, kv: int, g: int, hd: int, elt: int,
         raise ValueError(f"decode_attention: g={g}, hd={hd} needs {smem} B "
                          f"of shared memory, over the {build.SMEM_LIMIT} B a "
                          f"block may use")
-    tiles = -(-(hi - lo + 1) // TILE)
-    want = min(tiles, max(1, resident // kv))
-    run_tiles = -(-tiles // want)
+    n_tiles = -(-(hi - lo + 1) // TILE)
+    if run_tiles is None:
+        run_tiles = -(-n_tiles // min(n_tiles, max(1, resident // kv)))
     return AttnPlan(attn_variant(kv, hd, elt, k_ptr, v_ptr), lo, hi, kv,
-                    run_tiles, -(-tiles // run_tiles), chunks, smem)
+                    run_tiles, -(-n_tiles // run_tiles), chunks, smem)
 
 
 def resident_blocks(device_index: int, code: int, variant: int,
@@ -155,7 +159,7 @@ def _check_shapes(q, k, v) -> None:
 
 
 def plan_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int,
-              window: int = 0) -> AttnPlan:
+              window: int = 0, launch: tiles.Launch = None) -> AttnPlan:
     """`plan_attention` for these CUDA operands: K's and V's actual
     addresses, the device's SMs and the instantiation's resident blocks."""
     h, hd = q.shape
@@ -169,7 +173,9 @@ def plan_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int,
                                           v.data_ptr()),
                              attn_smem(h // kv, hd, elt))
     return plan_attention(lo, hi, kv, h // kv, hd, elt, k.data_ptr(),
-                          v.data_ptr(), per_sm * build.sm_count(dev))
+                          v.data_ptr(), per_sm * build.sm_count(dev),
+                          None if launch is None
+                          else launch.get("run_tiles"))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -199,17 +205,22 @@ def _launcher():
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int, *, window: int = 0
+                     pos: int, *, window: int = 0, launch=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (H, hd); k/v: (S, KV, hd); pos: the query's position.  Returns
-    (out (H, hd) in q's dtype, lse (H,) float32)."""
+    (out (H, hd) in q's dtype, lse (H,) float32).  `launch`: None (the
+    planner's runs), or an "attention" `Launch` (or mapping) legal for this
+    call."""
     _check_shapes(q, k, v)
     h, hd = q.shape
+    lo, hi = valid_range(k.shape[0], pos, window)
+    launch = tiles.check_launch("attention", launch,
+                                {"tiles": -(-(hi - lo + 1) // TILE)})
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return decode_attention_plain(q, k, v, pos, window=window)
     build.require_contiguous("decode_attention", q=q, k=k, v=v)
     code = build.dtype_code("decode_attention", q, k, v)
-    plan = plan_call(q, k, v, pos, window)
+    plan = plan_call(q, k, v, pos, window, launch)
     dev = q.device
     out = torch.empty((h, hd), dtype=q.dtype, device=dev)
     lse = torch.empty((h,), dtype=torch.float32, device=dev)

@@ -5,7 +5,8 @@ kernels/registry.py) — unsplit, head-split and kv-block-split.
 The node's input is the flattened (1, H*hd) query block and its parameter
 the stacked (2, S, KV, hd) KV cache; decode attends to the whole recorded
 cache (pos = S - 1).  Each side of a split launches `decode_attention` once
-on its own group's stream.
+on its own group's stream, with the node's tuned launch fitted to its own
+sub-op (`registry.fit_launch`).
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ def _query(x, op):
     return x.reshape(op.H, op.hd).contiguous()
 
 
-def attention_unit_kernel(x, w, op):
+def attention_unit_kernel(x, w, op, launch=None):
     out, _ = decode_attention(_query(x, op), w[0], w[1], op.S - 1,
-                              window=op.window)
+                              window=op.window, launch=launch)
     return out.reshape(1, op.H * op.hd)
 
 
@@ -61,7 +62,7 @@ def pack_head_split(w, op, n_fast, groups):
 
 
 def run_head_split(x, packed, split, groups, op, n_fast, *, gather=True,
-                   x_plan=None):
+                   x_plan=None, launch=None):
     """Head-split decode attention over the two groups: each side is the
     unit lowering of its sub-op.
 
@@ -72,7 +73,8 @@ def run_head_split(x, packed, split, groups, op, n_fast, *, gather=True,
     def side(g, x_full):
         sub, kv_cache = packed[g]
         q = x_full.reshape(op.H, op.hd)[heads[g]]
-        return attention_unit_kernel(q, kv_cache, sub)
+        return attention_unit_kernel(q, kv_cache, sub,
+                                     registry.fit_launch(launch, sub))
 
     return split_run(x, split, groups, x_plan, side, gather)
 
@@ -103,14 +105,15 @@ def pack_kv_block_split(w, op, n_fast, groups):
 
 
 def run_kv_block_split(x, packed, split, groups, op, n_fast, *, gather=True,
-                       x_plan=None):
+                       x_plan=None, launch=None):
     """kv-block-split decode attention: returns the materialized (1, H*hd)
     output whatever `gather` says (the merge is its sync point)."""
     def side(g, x_full):
         sub, kv_cache = packed[g]
         # window == 0 on this axis: each side attends its whole block
         return decode_attention(_query(x_full, op), kv_cache[0], kv_cache[1],
-                                sub.S - 1)
+                                sub.S - 1,
+                                launch=registry.fit_launch(launch, sub))
 
     parts, events = run_sides(x, groups, x_plan, side)
     return gather_lse(parts, events).reshape(1, op.H * op.hd)

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 
 from repro_torch.core.types import AttnOp, ConvOp, LinearOp, Op, SSMOp
+from repro_torch.kernels import tiles
 
 # ------------------------------------------------------------------ kinds
 
@@ -554,6 +555,43 @@ def tile_from_json(kind: str, d: Dict[str, int]) -> TileConfig:
     return spec.config(**{k: int(v) for k, v in d.items()})
 
 
+# ------------------------------------------------------- Hopper launches
+#
+# The port's own launch table (`kernels.tiles`): what the Hopper kernels
+# read.  A launch is validated against the extents of the call it is given
+# to; these are an op's, from its declared batch-1 shapes.
+
+def launch_extents(op: Op) -> Dict[str, int]:
+    """The extents a launch of the op's Hopper kernel is checked against:
+    the GEMV or tiled product's (m, k, n); the Winograd product's (p, k, n)
+    for a conv that takes Winograd (none for a direct conv, which launches
+    no kernel of the port); the attended tiles of a decode attention at
+    pos = S - 1; the SSD scan's (t, hd, n)."""
+    kind = op_kind(op)
+    if kind == "linear":
+        return {"m": op.L, "k": op.C_in, "n": op.C_out}
+    if kind == "conv":
+        from repro_torch.kernels.winograd_conv.ops import winograd_eligible
+        if not winograd_eligible(op):
+            return {}
+        return {"p": -(-op.H_in // 2) * -(-op.W_in // 2), "k": op.C_in,
+                "n": op.C_out}
+    if kind == "attention":
+        attended = min(op.S, op.window) if op.window else op.S
+        return {"tiles": -(-attended // tiles.ATTN_TILE)}
+    return {"t": op.T, "hd": op.hd, "n": op.N}
+
+
+def fit_launch(launch, op: Op, **extents: int) -> tiles.Launch:
+    """A launch tuned for `op` fitted to one side of its split: clamped
+    (`LaunchSpec.clamp`) to the op's launch extents with `extents`
+    overriding them (a channel side's width `n`), or to a typed side's
+    sub-op's where `op` is that sub-op."""
+    kind = op_kind(op)
+    return tiles.launch_spec(kind).clamp(
+        tiles.as_launch(kind, launch), {**launch_extents(op), **extents})
+
+
 # ------------------------------------------------------- shape contracts
 
 def _ssm_param_count(op: SSMOp) -> int:
@@ -601,10 +639,12 @@ def _fan_in(op: Op) -> int:
 class KernelLowering:
     """How an op kind computes: the kernel path and the plain oracle.
 
-    Both callables take ``(x, w, op)`` on torch tensors.  The kernel path
-    launches the port's CUDA kernels for tensors on the card and runs
-    their plain versions for tensors on the CPU; the oracle is plain
-    PyTorch math everywhere (what `PlanExecutor.run_oracle` computes).
+    Both callables take ``(x, w, op)`` on torch tensors; the kernel path
+    also ``launch=`` (a `kernels.tiles.Launch` for the op's kernel, None
+    for the planner's choice).  It launches the port's CUDA kernels for
+    tensors on the card and runs their plain versions for tensors on the
+    CPU; the oracle is plain PyTorch math everywhere (what
+    `PlanExecutor.run_oracle` computes).
     """
 
     kernel: Callable[..., object]
@@ -737,9 +777,11 @@ class SplitLowering:
     `SplitPlan` (``c_fast = n_fast * unit_channels``), so the executor's
     gather/chaining machinery applies unchanged.
 
-    ``run(x, packed, split, groups, op, n_fast, *, gather, x_plan)`` ->
-    the output: a `GroupLocal` or a gathered tensor for stackable axes
-    (mirroring `coexec_matmul`), always a materialized tensor for kv-block.
+    ``run(x, packed, split, groups, op, n_fast, *, gather, x_plan,
+    launch)`` -> the output: a `GroupLocal` or a gathered tensor for
+    stackable axes (mirroring `coexec_matmul`), always a materialized
+    tensor for kv-block.  `launch` is the op's tuned launch; each side
+    fits it to its own sub-op (`fit_launch`).
     """
 
     pack: Callable[..., object]

@@ -34,8 +34,9 @@ def _tokens(x, op):
     return x.reshape(1, op.T, op.H, op.hd).contiguous()
 
 
-def ssm_unit_kernel(x, w, op):
-    _, y = ssd_chunk_scan(_tokens(x, op), *_unpack_params(w, op))
+def ssm_unit_kernel(x, w, op, launch=None):
+    _, y = ssd_chunk_scan(_tokens(x, op), *_unpack_params(w, op),
+                          launch=launch)
     return y.reshape(op.T, op.H * op.hd)
 
 
@@ -75,7 +76,7 @@ def pack_state_split(w, op, n_fast, groups):
 
 
 def run_state_split(x, packed, split, groups, op, n_fast, *, gather=True,
-                    x_plan=None):
+                    x_plan=None, launch=None):
     """State-split SSD scan over the two groups.
 
     x: (T, H*hd) — or, with `x_plan`, a producer's `GroupLocal`.  Returns
@@ -85,7 +86,8 @@ def run_state_split(x, packed, split, groups, op, n_fast, *, gather=True,
     def side(g, x_full):
         sub, operands = packed[g]
         xs = x_full.reshape(1, op.T, op.H, op.hd)[:, :, heads[g]]
-        _, y = ssd_chunk_scan(xs.contiguous(), *operands)
+        _, y = ssd_chunk_scan(xs.contiguous(), *operands,
+                              launch=registry.fit_launch(launch, sub))
         return y.reshape(sub.T, sub.H * sub.hd)
 
     return split_run(x, split, groups, x_plan, side, gather)

@@ -18,9 +18,13 @@ written once; in chunked prefill, fp32 operations.  Design
   the inter-chunk term, the masked (L, L) intra-chunk term and the state
   update of the TPU kernel.
 
+`launch=` (an "ssm" `kernels.tiles.Launch`) fixes the chunk kernel's
+tokens per chunk, `chunk`; an illegal one raises ValueError.
+
 `ssd_chunk_scan` launches a kernel for CUDA tensors and raises if it
-cannot; for CPU tensors it computes `ssd_chunk_scan_plain`, the chunked
-arithmetic in plain PyTorch.  `ssd_chunk_scan.launches` counts launches.
+cannot; for CPU tensors it checks `launch` and computes
+`ssd_chunk_scan_plain`, the chunked arithmetic in plain PyTorch, with the
+launch's chunk.  `ssd_chunk_scan.launches` counts launches.
 """
 from __future__ import annotations
 
@@ -30,15 +34,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiles
 
 #: tokens per chunk: the (L, L) tile and the chunk's x, B and C sit in
 #: shared memory beside the state (the TPU kernel's L = 256 would not fit)
-CHUNK = 64
+CHUNK = tiles.SSD_CHUNK
 
 #: the most tokens the decode kernel steps; longer scans take the chunk
 #: kernel
-DECODE_T_MAX = 16
+DECODE_T_MAX = tiles.SSD_DECODE_T_MAX
 
 #: variants: the decode kernel with 16-byte or scalar state loads, and the
 #: chunk kernel
@@ -65,11 +69,8 @@ class SsdPlan:
     smem: int
 
 
-def smem_bytes(hd: int, n: int, chunk: int) -> int:
-    """Shared memory of one block: the (hd, N+1) state, (L, hd) x * dt,
-    (L, N+1) B and C, the (L, L) tile and four (L,) vectors, in fp32."""
-    return 4 * (hd * (n + 1) + chunk * hd + 2 * chunk * (n + 1)
-                + chunk * chunk + 4 * chunk)
+#: shared memory of one chunk-kernel block
+smem_bytes = tiles.ssd_smem_bytes
 
 
 def decode_lanes(n: int) -> int:
@@ -79,14 +80,15 @@ def decode_lanes(n: int) -> int:
 
 
 def plan_ssd(b: int, t: int, h: int, hd: int, n: int, elt: int,
-             ptrs: Sequence[int]) -> SsdPlan:
+             ptrs: Sequence[int], chunk: int = None) -> SsdPlan:
     """The launch of a scan of B x H heads of (hd, N) state over T tokens,
     elements of `elt` bytes; `ptrs`: the addresses of state0 and the final
     state.  T <= DECODE_T_MAX takes the decode kernel, where N fits 32 lanes'
     registers and the tokens' operands its shared memory: 16-byte state
     loads where every pointer and the row pitch N * elt are 16-byte
-    aligned, scalar ones otherwise.  Longer T takes the chunk kernel;
-    raises where its chunk does not fit a block's shared memory."""
+    aligned, scalar ones otherwise.  Longer T takes the chunk kernel, with
+    chunks of `chunk` tokens (a validated launch's) or `CHUNK`; raises
+    where its chunk does not fit a block's shared memory."""
     lanes = decode_lanes(n)
     rows = DECODE_THREADS // lanes
     smem = 4 * t * (1 + 2 * n + rows)
@@ -94,7 +96,7 @@ def plan_ssd(b: int, t: int, h: int, hd: int, n: int, elt: int,
         aligned = all(p % 16 == 0 for p in ptrs) and (n * elt) % 16 == 0
         return SsdPlan(DECODE_VECTOR if aligned else DECODE_SCALAR, lanes,
                        rows, b * h * -(-hd // rows), 0, smem)
-    length = min(CHUNK, t)
+    length = chunk or min(CHUNK, t)
     smem = smem_bytes(hd, n, length)
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"ssd_chunk_scan: chunk {length} with hd={hd}, "
@@ -105,12 +107,14 @@ def plan_ssd(b: int, t: int, h: int, hd: int, n: int, elt: int,
     return SsdPlan(CHUNKED, 0, hd, b * h, length, smem)
 
 
-def plan_call(x, b, c, dt, a, state0, sf) -> SsdPlan:
+def plan_call(x, b, c, dt, a, state0, sf, launch: tiles.Launch = None
+              ) -> SsdPlan:
     """`plan_ssd` for these operands and the final state `sf`, at their
     actual addresses."""
     bsz, t, h, hd = x.shape
     return plan_ssd(bsz, t, h, hd, b.shape[-1], x.element_size(),
-                    (state0.data_ptr(), sf.data_ptr()))
+                    (state0.data_ptr(), sf.data_ptr()),
+                    None if launch is None else launch.get("chunk"))
 
 
 def _check(x, b, c, dt, a, state0, chunk: int) -> None:
@@ -190,21 +194,27 @@ def launch_uncounted(plan: SsdPlan, operands, y: torch.Tensor,
                            f"{plan})")
 
 
-def ssd_chunk_scan(x, b, c, dt, a, state0
+def ssd_chunk_scan(x, b, c, dt, a, state0, *, launch=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan: the recurrence for T <= DECODE_T_MAX, else chunks of
     `CHUNK` tokens.  x: (B, T, H, hd); b/c: (B, T, N); dt: (B, T, H); a:
     (H,) negative; state0: (B, H, hd, N).  Returns (final_state
-    (B, H, hd, N), y (B, T, H, hd)) in the inputs' dtype."""
+    (B, H, hd, N), y (B, T, H, hd)) in the inputs' dtype.  `launch`: None
+    (the planner's chunk), or an "ssm" `Launch` (or mapping) legal for
+    this call."""
     _check(x, b, c, dt, a, state0, CHUNK)
+    _, t, _, hd = x.shape
+    launch = tiles.check_launch("ssm", launch,
+                                {"t": t, "hd": hd, "n": b.shape[-1]})
     operands = (x, b, c, dt, a, state0)
     if all(u.device.type == "cpu" for u in operands):
-        return ssd_chunk_scan_plain(*operands)
+        return ssd_chunk_scan_plain(*operands,
+                                    chunk=launch.get("chunk") or CHUNK)
     build.require_contiguous("ssd_chunk_scan", x=x, b=b, c=c, dt=dt, a=a,
                              state0=state0)
     y = torch.empty_like(x)
     sf = torch.empty_like(state0)
-    launch_uncounted(plan_call(*operands, sf), operands, y, sf)
+    launch_uncounted(plan_call(*operands, sf, launch), operands, y, sf)
     ssd_chunk_scan.launches += 1
     return sf, y
 

@@ -31,12 +31,18 @@ def winograd_eligible(op: ConvOp) -> bool:
             and op.H_in * op.W_in >= 1024 and op.C_in >= 32)
 
 
-def conv2d_op(x: torch.Tensor, w: torch.Tensor, op: ConvOp) -> torch.Tensor:
+def conv2d_op(x: torch.Tensor, w: torch.Tensor, op: ConvOp, *,
+              launch=None) -> torch.Tensor:
     """SAME conv of x (B, H, W, C_in) with w (K, K, C_in, c) for the node
     `op`: Winograd when `op` passes the gate, direct otherwise.  `w` may be
-    one group's slice of the op's output channels."""
+    one group's slice of the op's output channels.  `launch` goes to the
+    Winograd product's `hadamard_matmul`; a direct conv launches no kernel
+    of the port and takes none."""
     if winograd_eligible(op):
-        return winograd_conv2d(x, w)
+        return winograd_conv2d(x, w, launch=launch)
+    if launch is not None and not launch.is_default:
+        raise ValueError(f"a direct conv takes no launch, got "
+                         f"{launch.label()}")
     return conv2d_ref(x, w, stride=op.S)
 
 
@@ -46,8 +52,8 @@ def crop_to_declared(y: torch.Tensor, op: ConvOp) -> torch.Tensor:
     return y[:, :op.H_out, :op.W_out, :]
 
 
-def _conv_kernel(x, w, op):
-    return crop_to_declared(conv2d_op(x, w, op), op)
+def _conv_kernel(x, w, op, launch=None):
+    return crop_to_declared(conv2d_op(x, w, op, launch=launch), op)
 
 
 def _conv_oracle(x, w, op):

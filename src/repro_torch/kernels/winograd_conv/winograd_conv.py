@@ -15,11 +15,13 @@ block computes a 128 x 128, 128 x 64 or 64 x 128 tile of M[g], 8 x 8
 outputs per thread in registers, from 16-deep K slices that a three-stage
 ring of `cp.async` copies keeps in flight.  `plan_hadamard` is the host
 half: the tile per shape and whether the 16-byte copies are aligned.
+`launch=` (a "conv" `kernels.tiles.Launch`) fixes the tile instead; an
+illegal one raises ValueError.
 
 `hadamard_matmul` launches the kernel for CUDA tensors and raises if it
-cannot; for CPU tensors it computes `hadamard_matmul_plain`, the same
-products written out in plain PyTorch.  `hadamard_matmul.launches`
-counts launches.
+cannot; for CPU tensors it checks `launch` and computes
+`hadamard_matmul_plain`, the same products written out in plain PyTorch.
+`hadamard_matmul.launches` counts launches.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiles
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray 2016)
 _BT = np.array([[1, 0, -1, 0],
@@ -54,7 +56,7 @@ def hadamard_matmul_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 #: the kernel's tiles, (rows, columns) of M[g] per block, and how many
 #: blocks of each an SM holds at once (the kernel's launch bounds)
-TILES = {(128, 128): 2, (128, 64): 3, (64, 128): 3}
+TILES = tiles.HADAMARD_TILES
 
 
 @dataclass(frozen=True)
@@ -73,19 +75,23 @@ class HadamardPlan:
 
 
 def plan_hadamard(g: int, p: int, k: int, n: int, elt: int, ptrs,
-                  sms: int) -> HadamardPlan:
+                  sms: int, launch: tiles.Launch = None) -> HadamardPlan:
     """The launch of G products (P, K) @ (K, N) of `elt`-byte elements,
     the operands and the output at addresses `ptrs`, on `sms` SMs.  Every
     thread computes 8 x 8 outputs whatever the tile.  The busiest SM runs
     its ceil(blocks / sms) blocks in rounds of the tile's resident count,
     and a round takes about as long however many of its slots are filled,
     so a tile costs rounds x resident x its area; the cheapest wins, the
-    larger tile on a tie (fewer shared-memory reads per product)."""
+    larger tile on a tie (fewer shared-memory reads per product).  A
+    validated `launch` that names a tile takes it instead."""
     def cost(tile):
         (bm, bn), resident = tile, TILES[tile]
         busiest = -(-(g * -(-p // bm) * -(-n // bn)) // sms)
         return -(-busiest // resident) * resident * bm * bn, -bm * bn
-    bm, bn = min(TILES, key=cost)
+    if launch is not None and not launch.is_default:
+        bm, bn = launch.get("bm"), launch.get("bn")
+    else:
+        bm, bn = min(TILES, key=cost)
     vec = all(ptr % 16 == 0 for ptr in ptrs) and (k * elt) % 16 == 0 \
         and (n * elt) % 16 == 0
     return HadamardPlan(bm, bn, vec, (-(-n // bn), -(-p // bm), g))
@@ -97,15 +103,18 @@ def _launcher():
                              n_ptr=3, n_int=7)
 
 
-def hadamard_matmul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def hadamard_matmul(u: torch.Tensor, v: torch.Tensor, *,
+                    launch=None) -> torch.Tensor:
     """M[g] = U[g] @ V[g] for every g.  u: (G, P, K); v: (G, K, N) ->
-    (G, P, N) in u's dtype."""
+    (G, P, N) in u's dtype.  `launch`: None (the planner's tile), or a
+    "conv" `Launch` (or mapping) legal for this call."""
     if u.dim() != 3 or v.dim() != 3 or u.shape[0] != v.shape[0] \
             or u.shape[2] != v.shape[1]:
         raise ValueError(f"hadamard_matmul needs u (G, P, K) and v (G, K, N),"
                          f" got {tuple(u.shape)} and {tuple(v.shape)}")
     g, p, k = u.shape
     n = v.shape[2]
+    launch = tiles.check_launch("conv", launch, {"p": p, "k": k, "n": n})
     if u.device.type == "cpu" and v.device.type == "cpu":
         return hadamard_matmul_plain(u, v)
     code = build.dtype_code("hadamard_matmul", u, v)
@@ -115,7 +124,7 @@ def hadamard_matmul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty((g, p, n), dtype=u.dtype, device=dev)
     plan = plan_hadamard(g, p, k, n, u.element_size(),
                          (u.data_ptr(), v.data_ptr(), out.data_ptr()),
-                         build.sm_count(dev.index))
+                         build.sm_count(dev.index), launch)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(dev.index, code, u.data_ptr(), v.data_ptr(),
                       out.data_ptr(), g, p, k, n, plan.bm, plan.bn,
@@ -140,11 +149,10 @@ def _transform(name: str, device: torch.device,
     return torch.as_tensor(mats[name], dtype=dtype, device=device)
 
 
-def winograd_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-1 SAME conv via F(2x2,3x3).
-
-    x: (B, H, W, C_in); w: (3, 3, C_in, C_out) -> (B, H, W, C_out).
-    """
+def winograd_operands(x: torch.Tensor, w: torch.Tensor):
+    """The Hadamard-domain operands of a 3x3 SAME conv: U = B^T d B of the
+    input tiles, (16, P, C_in) with P ordered (b, th, tw), and V = G g G^T
+    of the filter, (16, C_in, C_out)."""
     b, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     if (kh, kw) != (3, 3):
@@ -154,17 +162,27 @@ def winograd_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # pad: 1 halo + tile remainder; then 4x4 input tiles at stride 2,
     # (B, th, tw, C, 4, 4) with the last two axes (row, column)
     xp = F.pad(x, (0, 0, 1, 2 * tw - wd + 1, 1, 2 * th - h + 1))
-    tiles = xp.unfold(1, 4, 2).unfold(2, 4, 2)
-    # input transform U = B^T d B -> (16, P, C_in), P ordered (b, th, tw)
+    patches = xp.unfold(1, 4, 2).unfold(2, 4, 2)
     bt = _transform("BT", x.device, x.dtype)
-    u = torch.einsum("ij,bhwcjk,lk->ilbhwc", bt, tiles, bt)
+    u = torch.einsum("ij,bhwcjk,lk->ilbhwc", bt, patches, bt)
     u = u.reshape(16, b * th * tw, cin).contiguous()
-    # filter transform V = G g G^T -> (16, C_in, C_out)
     gm = _transform("G", w.device, w.dtype)
     v = torch.einsum("ij,jkcn,lk->ilcn", gm, w, gm)
-    v = v.reshape(16, cin, cout).contiguous()
+    return u, v.reshape(16, cin, cout).contiguous()
 
-    m = hadamard_matmul(u, v)
+
+def winograd_conv2d(x: torch.Tensor, w: torch.Tensor, *,
+                    launch=None) -> torch.Tensor:
+    """3x3 stride-1 SAME conv via F(2x2,3x3).
+
+    x: (B, H, W, C_in); w: (3, 3, C_in, C_out) -> (B, H, W, C_out).
+    `launch` goes to `hadamard_matmul` as it is.
+    """
+    b, h, wd, _ = x.shape
+    cout = w.shape[3]
+    th, tw = -(-h // 2), -(-wd // 2)
+    u, v = winograd_operands(x, w)
+    m = hadamard_matmul(u, v, launch=launch)
 
     # inverse transform y = A^T M A over each 4x4 tile
     m = m.reshape(4, 4, b, th, tw, cout)

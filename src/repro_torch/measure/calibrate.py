@@ -268,9 +268,12 @@ class CalibratedPredictor:
             return None
         return inner_member(kind)
 
-    def predict(self, ops: Sequence[Op]) -> np.ndarray:
+    def predict(self, ops: Sequence[Op],
+                tiles: Optional[Sequence] = None) -> np.ndarray:
         ops = list(ops)
-        out = np.asarray(self.inner.predict(ops), dtype=float).copy()
+        out = np.asarray(self.inner.predict(ops, tiles)
+                         if tiles is not None else self.inner.predict(ops),
+                         dtype=float).copy()
         kinds = np.array([op_kind(op) for op in ops])
         for kind in np.unique(kinds):
             sel = kinds == kind

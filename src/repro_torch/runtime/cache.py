@@ -91,6 +91,7 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
                       mechanism: SyncMechanism = SyncMechanism.SVM_POLL,
                       step: int = 8, seed: int = 1,
                       bucket: str = "",
+                      tune: str = "", annotate=None,
                       cache: PlanCache) -> CoexecPlan:
     """End-to-end graph planning through the cache.
 
@@ -102,9 +103,12 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
     refit calibrators never alias stale plans.  `bucket` tags the (batch,
     seq) serving bucket a portfolio entry was compiled for; it folds into
     the digest (omitted when empty, so unbucketed keys are unchanged) and
-    lets portfolio compiles warm-hit across processes.  The port does not
-    tune: its provenance leaves `tune` empty, as the reference's does for
-    untuned plans.
+    lets portfolio compiles warm-hit across processes.  `tune` tags a
+    tuned compile's plan with its tune-cache version
+    (`runtime.autotune.tune_cache_version`); it folds into the digest the
+    same way, so tuned and untuned plans never alias, and `annotate` (a
+    plan -> plan hook applied on a miss, before the plan is stored) is
+    where the tune pass runs, so a warm hit skips it.
     """
     prov = PlanProvenance(
         device=gpu_pred.device, threads=threads, mechanism=mechanism.value,
@@ -112,7 +116,8 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
         network_fingerprint=graph.fingerprint(),
         predictor_checksum=predictor_checksum(cpu_pred, gpu_pred),
         planner=PLANNER_PREDICTOR,
-        calibration=calibration_version(cpu_pred, gpu_pred), bucket=bucket)
+        calibration=calibration_version(cpu_pred, gpu_pred), bucket=bucket,
+        tune=tune)
     hit = cache.get(prov)
     if hit is not None:
         return hit
@@ -122,7 +127,9 @@ def plan_graph_cached(graph: Graph, cpu_pred, gpu_pred, *,
                                   step=step, seed=seed,
                                   pred_checksum=prov.predictor_checksum,
                                   calibration=prov.calibration,
-                                  bucket=bucket)
+                                  bucket=bucket, tune=tune)
+    if annotate is not None:
+        plan = annotate(plan)
     cache.put(plan)
     return plan
 
@@ -151,6 +158,7 @@ def partition_ops_plan_cached(ops: Sequence[Op], cpu_pred, gpu_pred, *,
                               mechanism: SyncMechanism =
                               SyncMechanism.SVM_POLL,
                               step: int = 8,
+                              tune: str = "", annotate=None,
                               cache: PlanCache) -> CoexecPlan:
     """Predictor-driven partitioning of a bare op list through the cache,
     returned as the full `CoexecPlan` artifact (the Table 2 sweeps and
@@ -166,7 +174,7 @@ def partition_ops_plan_cached(ops: Sequence[Op], cpu_pred, gpu_pred, *,
         step=step, seed=0, network_fingerprint=network_fingerprint(units),
         predictor_checksum=predictor_checksum(cpu_pred, gpu_pred),
         planner=PLANNER_PREDICTOR,
-        calibration=calibration_version(cpu_pred, gpu_pred))
+        calibration=calibration_version(cpu_pred, gpu_pred), tune=tune)
     hit = cache.get(prov)
     if hit is not None:
         return hit
@@ -174,6 +182,8 @@ def partition_ops_plan_cached(ops: Sequence[Op], cpu_pred, gpu_pred, *,
                                         mechanism=mechanism, step=step)
     plan = CoexecPlan(provenance=prov,
                       schedule=build_schedule(units, decisions))
+    if annotate is not None:
+        plan = annotate(plan)
     cache.put(plan)
     return plan
 
@@ -194,6 +204,7 @@ def grid_plan_graph_cached(graph: Graph, device: str, threads: int, *,
                            mechanism: SyncMechanism =
                            SyncMechanism.SVM_POLL,
                            step: int = 8, seed: int = 0,
+                           tune: str = "", annotate=None,
                            cache: PlanCache) -> CoexecPlan:
     """Measurement-driven (oracle) planning of a graph through the cache;
     keyed by planner="grid" with no predictor checksum (none is involved).
@@ -202,7 +213,7 @@ def grid_plan_graph_cached(graph: Graph, device: str, threads: int, *,
     prov = PlanProvenance(
         device=device, threads=threads, mechanism=mechanism.value,
         step=step, seed=seed, network_fingerprint=graph.fingerprint(),
-        predictor_checksum="", planner=PLANNER_GRID)
+        predictor_checksum="", planner=PLANNER_GRID, tune=tune)
     hit = cache.get(prov)
     if hit is not None:
         return hit
@@ -210,7 +221,10 @@ def grid_plan_graph_cached(graph: Graph, device: str, threads: int, *,
                              step=step, seed=seed)
     plan = plan_from_graph_report(graph, report, mechanism=mechanism,
                                   step=step, seed=seed, pred_checksum="",
-                                  planner=PLANNER_GRID, with_totals=False)
+                                  planner=PLANNER_GRID, tune=tune,
+                                  with_totals=False)
+    if annotate is not None:
+        plan = annotate(plan)
     cache.put(plan)
     return plan
 

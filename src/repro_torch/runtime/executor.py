@@ -222,16 +222,24 @@ class PlanExecutor:
     `device="cpu"` to run on the CPU.  `groups` overrides the default two
     groups on that device (one group = every node exclusive).  `dtype`
     (float32 or bfloat16) is what parameters and activations are held in.
+    `launches` maps an op to its tuned Hopper launch (`kernels.tiles`, a
+    tuned compile's); every node of that op passes it to its kernel, each
+    side of a split fitted to its own extents, in both walks.  Ops it does
+    not name launch what their kernels' planners pick.
     """
 
     def __init__(self, plan: CoexecPlan, *,
                  device: Union[str, torch.device, None] = None,
                  groups: Optional[Sequence[Group]] = None, seed: int = 0,
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 launches: Optional[Dict[Any, Any]] = None):
         plan.check_graph()
         self.plan = plan
         self.dtype = resolve_dtype(dtype)
         self.specs: List[ExecSpec] = plan.exec_specs()
+        self.launches = [None if spec.op is None
+                         else (launches or {}).get(spec.op)
+                         for spec in self.specs]
         self.graph: Graph = plan.graph_ir()
         for spec in self.specs:
             if spec.op is not None:
@@ -358,10 +366,11 @@ class PlanExecutor:
         y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=r, stride=r)
         return y.permute(0, 2, 3, 1).contiguous()
 
-    def _dense(self, x: torch.Tensor, w: torch.Tensor, spec: ExecSpec
-               ) -> torch.Tensor:
+    def _dense(self, x: torch.Tensor, w: torch.Tensor, spec: ExecSpec,
+               launch=None) -> torch.Tensor:
         """Unsplit execution through the registry's kernel path."""
-        return registry.get_lowering(spec.unit).kernel(x, w, spec.op)
+        return registry.get_lowering(spec.unit).kernel(x, w, spec.op,
+                                                       launch=launch)
 
     def _chains(self, shape: Tuple[int, ...], spec: ExecSpec) -> bool:
         """Whether this unit can consume a producer's group-local result of
@@ -479,28 +488,30 @@ class PlanExecutor:
                     elided += 1
                 else:
                     x_in = self._adapt(materialized(src), spec)
+                launch = self.launches[i]
                 if do_split:
                     mode = MODE_COEXEC
                     split, packed = self._splits[i]
                     if spec.unit == "linear":
                         out = coexec_matmul(x_in, packed, split, self.groups,
-                                            gather=False, x_plan=x_plan)
+                                            gather=False, x_plan=x_plan,
+                                            launch=launch)
                     elif spec.unit == "conv":
                         out = coexec_conv2d(x_in, packed, split, self.groups,
                                             op=spec.op, gather=False,
-                                            x_plan=x_plan)
+                                            x_plan=x_plan, launch=launch)
                     else:       # typed axis: registered split lowering
                         low = registry.get_split_lowering(spec.unit,
                                                           spec.axis)
                         out = low.run(x_in, packed, split, self.groups,
                                       spec.op, spec.c_fast, gather=False,
-                                      x_plan=x_plan)
+                                      x_plan=x_plan, launch=launch)
                     if not chain:
                         out, r = self._materialize(out)   # sync every op
                         reshard += r
                 else:
                     mode = MODE_EXCLUSIVE
-                    out = self._dense(x_in, w, spec)
+                    out = self._dense(x_in, w, spec, launch)
             acts[node.id] = out
             self._sync()
             timings.append(MeasurementRecord(
@@ -580,10 +591,12 @@ class PlanExecutor:
                     low = registry.get_split_lowering(spec.unit, spec.axis)
                     out = low.run(self._adapt(src_val, spec), packed, split,
                                   self.groups, spec.op, spec.c_fast,
-                                  gather=True, x_plan=None)
+                                  gather=True, x_plan=None,
+                                  launch=self.launches[pos[nid]])
                 else:
                     out = self._dense(self._adapt(src_val, spec),
-                                      self.params[pos[nid]], spec)
+                                      self.params[pos[nid]], spec,
+                                      self.launches[pos[nid]])
             self._sync()
             wall = (time.perf_counter() - t0) * 1e6
             segment_wall.append(wall)

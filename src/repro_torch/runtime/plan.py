@@ -151,6 +151,11 @@ def predictor_checksum(*predictors) -> str:
             p = p.inner
         if hasattr(p, "models"):                     # LatencyPredictor
             h.update(f"{p.device}/{p.backend}/{p.whitebox}".encode())
+            # tile-aware predictors see other feature vectors, so they
+            # never alias a tile-blind bundle's plans; the tag is appended
+            # only when set, so tile-blind checksums are unchanged
+            if getattr(p, "tiles", False):
+                h.update(b"/tiles")
             for kern in sorted(p.models):
                 h.update(kern.encode())
                 _hash_gbdt(h, p.models[kern])
@@ -540,15 +545,17 @@ def plan_from_graph_report(graph: Graph, report: GraphPlanReport, *,
                            planner: str = PLANNER_PREDICTOR,
                            calibration: str = "",
                            bucket: str = "",
+                           tune: str = "",
                            with_totals: bool = True) -> CoexecPlan:
     """Assemble the compiled plan of a `plan_graph`/`grid_plan_graph` run
-    (provenance fingerprint = the graph's content-addressed digest)."""
+    (provenance fingerprint = the graph's content-addressed digest; `tune`
+    the tune-cache tag of a tuned compile)."""
     prov = PlanProvenance(device=report.device, threads=report.threads,
                           mechanism=mechanism.value, step=step, seed=seed,
                           network_fingerprint=graph.fingerprint(),
                           predictor_checksum=pred_checksum,
                           planner=planner, calibration=calibration,
-                          bucket=bucket)
+                          bucket=bucket, tune=tune)
     return CoexecPlan(
         provenance=prov,
         schedule=build_graph_schedule(graph, report.decisions,

@@ -14,7 +14,8 @@ fused run into ONE program, the port's counterpart of the reference's one
   * `_emit` closes the instruction list into `fn(ext_vals)`, which runs
     the segment on the executor's groups through the same `coexec_matmul`,
     `coexec_conv2d`, `gather_stacked` and `_dense` calls as the per-node
-    walk, so both compute bit-identical values; a chained edge hands the
+    walk, with the same tuned launches, so both compute bit-identical
+    values (and a capture holds the tuned launches); a chained edge hands the
     producer's `GroupLocal` to the consumer, an interior reshard gathers
     it, and the segment ends in its one boundary gather;
   * on CUDA, `fn` is captured once into a `torch.cuda.CUDAGraph` that reads
@@ -292,18 +293,21 @@ def _emit(exe, instrs: List[Dict[str, Any]],
             else:
                 x_in = exe._adapt(plain(ins["src"]), spec)
                 x_plan = None
+            launch = exe.launches[i]
             if not ins["split"]:
-                env[ins["id"]] = exe._dense(x_in, exe.params[i], spec)
+                env[ins["id"]] = exe._dense(x_in, exe.params[i], spec,
+                                            launch)
                 continue
             split, packed = exe._splits[i]
             if spec.unit == "linear":
                 env[ins["id"]] = coexec_matmul(x_in, packed, split,
                                                exe.groups, gather=False,
-                                               x_plan=x_plan)
+                                               x_plan=x_plan, launch=launch)
             else:
                 env[ins["id"]] = coexec_conv2d(x_in, packed, split,
                                                exe.groups, op=spec.op,
-                                               gather=False, x_plan=x_plan)
+                                               gather=False, x_plan=x_plan,
+                                               launch=launch)
         return plain(instrs[-1]["id"])
 
     return program

@@ -165,9 +165,13 @@ def test_compile_errors_are_the_reference_errors(case, tmp_path):
 
 
 def test_tune_raises_not_implemented_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # the autotuner is ported (ROADMAP Queue 1 item 4): it measures on the
+    # card, so a host without CUDA refuses, naming CUDA, before anything
+    # is planned or written
+    with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.compile("resnet18", repro_torch.Target(device="moto2022"),
-                            cache=tmp_path, tune=True)
+                            cache=tmp_path, tune=True,
+                            tune_cache=tmp_path / "tune")
     assert not list(tmp_path.iterdir())
 
 
@@ -211,7 +215,7 @@ def test_cli_plan_saves_the_committed_artifact_byte_for_byte(
 
 
 @pytest.mark.parametrize("args, message", [
-    (["--network", "resnet18", "--tune"], "Queue 1 item 4"),
+    (["--network", "resnet18", "--tune"], "needs CUDA"),
     (["--network", "resnet19"], "unknown network 'resnet19'"),
 ])
 def test_cli_plan_refuses_bad_input_with_exit_2(args, message, tmp_path):

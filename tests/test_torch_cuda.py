@@ -8,7 +8,8 @@ available.  On a machine with a card:
 builds the kernels from `src/repro_torch/csrc` and holds them against
 their plain PyTorch versions, and small split runs on two CUDA streams
 (a conv/linear network; a decoder graph with head, kv-block and
-ssm-state splits) against the same runs on the CPU.
+ssm-state splits) against the same runs on the CPU; every candidate of
+the autotuner's launch table, and a tuned compile measured on the card.
 """
 from pathlib import Path
 
@@ -730,3 +731,100 @@ def test_engine_executes_a_codeqwen_plan_on_the_card(cuda, tmp_path):
         y.cpu().numpy(), engine.plan_executor.run_oracle(x).cpu().numpy(),
         rtol=1e-4, atol=1e-4)
     assert engine.drift is not None
+
+
+# ------------------------------------------------------------- autotune
+
+#: one op per kind with a launch grid, at small shapes
+TUNE_OPS = {
+    "gemv": ("linear", dict(L=4, C_in=3000, C_out=520)),
+    "tiled": ("linear", dict(L=70, C_in=300, C_out=200)),
+    "conv": ("conv", dict(H_in=40, W_in=40, C_in=40, C_out=136)),
+    "attention": ("attention", dict(H=8, S=700, KV=2, hd=64)),
+    "ssm": ("ssm", dict(T=200, H=6, hd=32, N=16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TUNE_OPS))
+def test_every_launch_candidate_matches_the_default_launch(cuda, name):
+    """Every candidate of the op's Hopper launch spec, both search modes,
+    in fp32: within RTOL of the default launch (itself held against the
+    plain version above), and each output-tiling one bit-identical to
+    it."""
+    from repro_torch.core import types
+    from repro_torch.kernels import registry, tiles
+    from repro_torch.runtime.autotune import kernel_call
+    kind, fields = TUNE_OPS[name]
+    op = {"linear": types.LinearOp, "conv": types.ConvOp,
+          "attention": types.AttnOp, "ssm": types.SSMOp}[kind](**fields)
+    spec = tiles.launch_spec(kind)
+    grid = spec.configs(registry.launch_extents(op),
+                        preserve_numerics=False)
+    assert len(grid) > 1
+    call = kernel_call(op, 3)
+    default = call(spec.default())
+    default = default if isinstance(default, tuple) else (default,)
+    for launch in grid:
+        got = call(launch)
+        got = got if isinstance(got, tuple) else (got,)
+        tiling = not any(spec.param(n).reduction for n, _ in launch.values)
+        for g, d in zip(got, default):
+            if tiling:
+                assert torch.equal(g, d), launch.label()
+            _close(g, d, torch.float32)
+
+
+def test_every_launch_candidate_matches_plain_in_bf16(cuda):
+    from repro_torch.kernels import tiles
+    from repro_torch.kernels.split_matmul import (split_matmul,
+                                                  split_matmul_plain)
+    from repro_torch.kernels.winograd_conv import (hadamard_matmul,
+                                                   hadamard_matmul_plain)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    u = torch.randn((16, 400, 40), generator=g, device=cuda).bfloat16()
+    v = torch.randn((16, 40, 136), generator=g, device=cuda).bfloat16()
+    for launch in tiles.launch_spec("conv").configs(
+            {"p": 400, "k": 40, "n": 136}):
+        _close(hadamard_matmul(u, v, launch=launch),
+               hadamard_matmul_plain(u, v), torch.bfloat16)
+    x = torch.randn((70, 300), generator=g, device=cuda).bfloat16()
+    w = torch.randn((300, 200), generator=g, device=cuda).bfloat16() / 17
+    for launch in tiles.launch_spec("linear").configs(
+            {"m": 70, "k": 300, "n": 200}):
+        _close(split_matmul(x, w, 0, 200, launch=launch),
+               split_matmul_plain(x, w, 0, 200), torch.bfloat16)
+
+
+def test_a_tuned_compile_on_the_card(cuda, tmp_path):
+    """`compile(tune=True)` measures on the card: a cold compile times
+    each op's candidates, a warm one none; the tuned network runs through
+    the kernels with its launches, bit-identical to the untuned one (only
+    output-tiling launches are searched)."""
+    import repro_torch
+    import repro_torch.runtime.autotune as at
+    from repro.core.types import ConvOp, LinearOp
+    net = [("conv", ConvOp(32, 32, 32, 128, 3, 1)),
+           ("conv", ConvOp(32, 32, 128, 128, 3, 1)),
+           ("pool", 4 * 128), ("linear", LinearOp(1, 128, 64))]
+    from test_torch_support import to_port
+    net = [(k, to_port(p) if k != "pool" else p) for k, p in net]
+    target = repro_torch.Target(device="moto2022", threads=3)
+    kw = dict(cache=tmp_path / "plans", samples=60, estimators=8)
+    assert at.measure_device() == (torch.cuda.get_device_name(), "cuda")
+    assert at.measure_tile_us(to_port(ConvOp(32, 32, 32, 128))) > 0
+    tuned = repro_torch.compile(net, target, tune=True,
+                                tune_cache=tmp_path / "tune", **kw)
+    assert sum(len(e["measured_us"]) for e in tuned.tuned) >= 4
+    real = at.measure_tile_us
+    at.measure_tile_us = lambda *a, **k: pytest.fail("measured warm")
+    try:
+        warm = repro_torch.compile(net, target, tune=True,
+                                   tune_cache=tmp_path / "tune", **kw)
+    finally:
+        at.measure_tile_us = real
+    assert warm.from_cache and warm.launches == tuned.launches
+    base = repro_torch.compile(net, target, **kw)
+    x = base.executor(device=cuda).input_template()
+    y = tuned.run(x, device=cuda)
+    assert torch.equal(y, base.run(x, device=cuda))
+    assert torch.equal(tuned.run(x, device=cuda, fused=True), y)

@@ -51,7 +51,8 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
 def test_the_scan_covers_the_verifier_and_the_planner_report():
     mods = _port_modules()
     for m in ("repro_torch.analysis", "repro_torch.analysis.verify",
-              "repro_torch.core.planner"):
+              "repro_torch.core.planner", "repro_torch.runtime.autotune",
+              "repro_torch.kernels.tiles"):
         assert m in mods
 
 
