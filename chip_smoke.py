@@ -122,7 +122,28 @@ the port cannot be imported, and otherwise runs, in order:
    held.  Each serve walk's launch counts are set
    to 0 just before it and read just after, and `split_matmul` and
    `decode_attention` must launch in each;
-12. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
+12. the `zamba2-7b model` phase (`model_phase`): zamba2-7b (`MODEL_ARCH`)
+   at its published widths and full depth (81 Mamba2 layers of 112 SSM
+   heads x 64 and state 64, the shared attention applied 9 times: 6.6 B
+   parameters), its weights seeded draws made on the card; every Mamba2
+   layer's SSD core is one `ssd_chunk_scan` launch per pass (the chunk
+   kernel in a prefill, the decode kernel in a decode step).  In fp32
+   (TF32 off): prefills of `MODEL_PROMPTS` tokens (512, a multiple of the
+   reference's 256-token chunk, and 300) then `MODEL_DECODE_STEPS` decode
+   steps, their last-position logits within `MODEL_LOGIT_RTOL` of
+   `forward` over the same tokens (`model_check`), with exactly one SSD
+   launch per layer per pass; every SSD call of one more prefill and one
+   more decode step captured (`capture_calls`) and held against its plain
+   version in float32 and bfloat16 (`hold_model_calls`); the fixed-batch
+   `ServingEngine` on `MODEL_EQUAL_REQUESTS` equal-length greedy prompts,
+   each completion equal to the request served alone, token for token.
+   In bf16: the fixed-batch engine on `MODEL_SERVE_REQUESTS` requests of
+   `MODEL_SERVE_PROMPT` tokens at batch `MODEL_SERVE_BATCH` with
+   `MODEL_SERVE_NEW` new tokens each (tokens/s), a prefill at that batch
+   timed bare and under torch.profiler (device time by kernel, idle
+   share, the SSD chunk kernel's share), and a decode step at batch 1 and
+   4 (`decode_breakdown`), each beside the card's name and power limit;
+13. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
    zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernel at
@@ -142,10 +163,10 @@ the port cannot be imported, and otherwise runs, in order:
    alike and its kernel calls held against their plain versions
    (`hold_walk_calls`); tuned, relaxed and untuned walls in turns, no
    claim;
-13. a JSON line of per-kernel numbers (launches summed over every walk
-   above, `by_path` per walk with the float32 times of one request where
-   the walk's calls were held), then the result line.  Each phase prints
-   its seconds.
+14. a JSON line of per-kernel numbers (launches summed over every walk
+   above, `by_path` per walk with the float32 times of one request, one
+   prefill or one decode step where the walk's calls were held), then the
+   result line.  Each phase prints its seconds.
 """
 from __future__ import annotations
 
@@ -332,12 +353,19 @@ class Tally:
         self.max_abs_err = self.max_abs_err_bf16 = 0.0
         self.by_path: dict = {}
 
-    def add(self, dtype, err: float, per_path: dict, times: dict) -> None:
+    def note(self, dtype, err: float) -> None:
+        """An error of a held call on a walk."""
         if dtype == torch.bfloat16:
             self.max_abs_err_bf16 = max(self.max_abs_err_bf16, err)
+        else:
+            self.max_abs_err = max(self.max_abs_err, err)
+
+    def add(self, dtype, err: float, per_path: dict, times: dict) -> None:
+        if dtype == torch.bfloat16:
+            self.note(dtype, err)
             return
         if per_path:
-            self.max_abs_err = max(self.max_abs_err, err)
+            self.note(dtype, err)
         for path, n in per_path.items():
             agg = self.by_path.setdefault(path, dict.fromkeys(_TIMES, 0.0))
             for key in _TIMES:
@@ -595,14 +623,14 @@ def _copy_aligned(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t)
 
 
-def kernel_calls(exe, x) -> dict:
-    """Every kernel call one request of `exe`'s per-node walk makes on
-    `x`, by kernel: {signature: [calls, arguments]}.  A profile hook sees
-    each wrapper's call as it is made; a signature is the arguments'
-    shapes, dtypes, scalars and each tensor's address modulo 16 bytes, and
-    the first call of each keeps its arguments, copied on the caller's
-    stream (`_copy_aligned`), for `hold_walk_calls`.  The request is not
-    one a launch count is read from."""
+def capture_calls(fn, every: bool = False) -> dict:
+    """Every kernel call `fn()` makes, by kernel: {signature: [calls,
+    arguments]}.  A profile hook sees each wrapper's call as it is made; a
+    signature is the arguments' shapes, dtypes, scalars and each tensor's
+    address modulo 16 bytes, and the first call of each keeps its
+    arguments (`every`: a list of every call's), copied on the caller's
+    stream (`_copy_aligned`), for the holds.  The run is not one a launch
+    count is read from."""
     import inspect
     wrappers = kernel_counters()
     codes = {fn.__code__: (name, list(inspect.signature(fn).parameters))
@@ -616,20 +644,30 @@ def kernel_calls(exe, x) -> dict:
         args = tuple(frame.f_locals[p] for p in params)
         sig = tuple((tuple(a.shape), a.dtype, a.data_ptr() % 16)
                     if torch.is_tensor(a) else a for a in args)
-        entry = calls[name].setdefault(sig, [0, None])
+        entry = calls[name].setdefault(sig, [0, [] if every else None])
         entry[0] += 1
-        if entry[1] is None:
-            entry[1] = tuple(_copy_aligned(a) if torch.is_tensor(a) else a
-                             for a in args)
+        if every or entry[1] is None:
+            copy = tuple(_copy_aligned(a) if torch.is_tensor(a) else a
+                         for a in args)
+            if every:
+                entry[1].append(copy)
+            else:
+                entry[1] = copy
 
     sys.setprofile(hook)
     try:
-        exe.run(x)
+        fn()
     finally:
         sys.setprofile(None)
-    if exe.device.type == "cuda":
+    if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return calls
+
+
+def kernel_calls(exe, x) -> dict:
+    """Every kernel call one request of `exe`'s per-node walk makes on
+    `x` (`capture_calls`), for `hold_walk_calls`."""
+    return capture_calls(lambda: exe.run(x))
 
 
 def hold_walk_calls(label: str, calls: dict, want: dict, peaks: dict,
@@ -655,6 +693,17 @@ def hold_walk_calls(label: str, calls: dict, want: dict, peaks: dict,
 def kernel_counters() -> dict:
     from repro_torch.runtime.segments import launch_counters
     return launch_counters()
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count set to 0, just before a walk."""
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count, just after a walk."""
+    return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
 def expected_counts(plan) -> dict:
@@ -1243,6 +1292,265 @@ def portfolio_phase(peaks: dict, tallies: dict) -> dict:
     return walks
 
 
+# ------------------------------------------------------------------- model
+
+def hold_model_calls(label: str, calls: dict, want: int, peaks: dict,
+                     tallies: dict) -> None:
+    """Hold every `ssd_chunk_scan` call of one model pass (`capture_calls`
+    with `every`) against its plain version in float32 and bfloat16; the
+    first call of each signature through `hold_ssd_chunk_scan`, timed and
+    added to the tally under `label` with its calls per pass, the others
+    checked untimed.  The pass must have made `want` calls, and no other
+    kernel's."""
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+        ssd_chunk_scan, ssd_chunk_scan_plain)
+    made = {k: sum(n for n, _ in sigs.values()) for k, sigs in calls.items()}
+    if made != {k: (want if k == "ssd_chunk_scan" else 0) for k in made}:
+        raise AssertionError(f"{label}: kernel calls {made}, want "
+                             f"{want} ssd_chunk_scan calls and no other")
+    tally = tallies["ssd_chunk_scan"]
+    worst = dict.fromkeys(DTYPES, 0.0)
+    for i, (n, every) in enumerate(calls["ssd_chunk_scan"].values()):
+        for dtype in DTYPES:
+            for j, args in enumerate(every):
+                cast = tuple(a.to(dtype) if torch.is_tensor(a)
+                             and a.is_floating_point() else a for a in args)
+                if j == 0:
+                    err, times = hold_ssd_chunk_scan(f"{label} #{i} x{n}",
+                                                     cast, peaks)
+                    tally.add(dtype, err, {label: n}, times)
+                else:
+                    sf, y = ssd_chunk_scan(*cast[:6], launch=cast[6])
+                    sf_p, y_p = ssd_chunk_scan_plain(*cast[:6])
+                    err = max(check(f"{label} call {j} {dtype} y", y, y_p,
+                                    KERNEL_RTOL[dtype]),
+                              check(f"{label} call {j} {dtype} state", sf,
+                                    sf_p, KERNEL_RTOL[dtype]))
+                    tally.note(dtype, err)
+                worst[dtype] = max(worst[dtype], err)
+    print(f"{label}: all {want} ssd_chunk_scan calls held against the plain "
+          f"version: max_abs_err f32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}", flush=True)
+
+
+def model_check(name: str, model, params, batch: int, t: int, rng,
+                smi: str) -> dict:
+    """fp32: a prefill of `batch` seeded prompts of `t` tokens, then
+    `MODEL_DECODE_STEPS` decode steps, their last-position logits held
+    against `forward` over the same t + steps tokens within
+    `MODEL_LOGIT_RTOL` of its largest |logit|.  The counts are set to 0
+    just before the prefill and before the steps and read just after
+    each; every Mamba2 layer launches `ssd_chunk_scan` once per pass.
+    Returns the two walks."""
+    steps, layers = MODEL_DECODE_STEPS, model.cfg.n_layers
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         (batch, t + steps))).cuda()
+    cache = model.init_cache(batch, t + steps, device="cuda")
+    walks = {}
+    label = f"{name} model prefill" + ("" if t == MODEL_PROMPTS[0]
+                                       else f" T={t}")
+    zero_counts()
+    wall = time.perf_counter()
+    logits, cache = model.prefill(params, toks[:, :t], cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    walks[label] = (label, read_counts())
+    got = [logits]
+    decode = label.replace("prefill", "decode")
+    zero_counts()
+    for i in range(steps):
+        logits, cache = model.decode_step(params, toks[:, t + i:t + i + 1],
+                                          cache, t + i)
+        got.append(logits)
+    torch.cuda.synchronize()
+    walks[decode] = (decode, read_counts())
+    for walk, want in ((label, layers), (decode, steps * layers)):
+        counts = walks[walk][1]
+        if counts != {k: (want if k == "ssd_chunk_scan" else 0)
+                      for k in counts}:
+            raise AssertionError(f"{walk}: launches {counts}, want {want} "
+                                 f"ssd_chunk_scan launches and no other")
+    full, _ = model.forward(params, toks)
+    want = full[:, t - 1:]
+    got = torch.stack(got, dim=1)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (got.shape == want.shape and np.isfinite(err)
+            and err <= MODEL_LOGIT_RTOL * scale):
+        raise AssertionError(f"{label}: prefill + {steps} decode steps "
+                             f"differ from forward by {err:.3e} > "
+                             f"{MODEL_LOGIT_RTOL} x {scale:.3g}")
+    print(f"{label}: fp32 prefill of {batch} x {t} tokens in {wall:.3f} s "
+          f"({layers} ssd_chunk_scan launches: the chunk kernel) + {steps} "
+          f"decode steps ({steps * layers} launches: the decode kernel); "
+          f"their last-position logits within {err:.3e} of forward over "
+          f"{t + steps} tokens (largest |logit| {scale:.3g}, "
+          f"{err / scale:.2e} of it, limit {MODEL_LOGIT_RTOL:g}); {smi}",
+          flush=True)
+    return walks
+
+
+def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
+    """zamba2-7b (`MODEL_ARCH`) at its published widths and full depth (81
+    Mamba2 layers, the shared attention applied 9 times), its weights
+    seeded draws made on the card; every Mamba2 layer's SSD core is one
+    `ssd_chunk_scan` launch per pass:
+
+    - fp32, TF32 off: prefills of `MODEL_PROMPTS` tokens (a multiple of
+      256, the reference's chunked branch, and one that is not) and decode
+      steps held against `forward` (`model_check`); every SSD call of one
+      prefill and one decode step captured and held against its plain
+      version in float32 and bfloat16 (`hold_model_calls`); the
+      fixed-batch `ServingEngine` on `MODEL_EQUAL_REQUESTS` equal-length
+      greedy prompts, each completion equal to the request served alone,
+      token for token (Zamba is not pad-aware, in the reference too, so
+      only equal lengths batch exactly);
+    - bf16: the fixed-batch engine on `MODEL_SERVE_REQUESTS` requests of
+      `MODEL_SERVE_PROMPT` tokens at batch `MODEL_SERVE_BATCH`, its
+      tokens/s; a prefill at that batch timed bare and under
+      torch.profiler (device time by kernel, the SSD kernel's share);
+      decode steps at batch 1 and 4 (`decode_breakdown`).
+
+    Returns the walks as {walk: (times key, launch counts)}: counters set
+    to 0 just before each walk, read just after."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MODEL_ARCH)
+    name, n, layers = cfg.name, cfg.param_count(), cfg.n_layers
+    print(f"model {name}: {layers} Mamba2 layers (d_model {cfg.d_model}, "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads x "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), the shared "
+          f"attention ({cfg.n_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}) every {cfg.attn_every}, vocab {cfg.vocab_size}: "
+          f"{n / 1e9:.3f} B parameters ({2 * n / 1e9:.1f} GB bf16, "
+          f"{4 * n / 1e9:.1f} GB fp32); "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the "
+          f"card before the phase", flush=True)
+    walks = {}
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model fp32 weights: drawn on the card in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    rng = np.random.default_rng(21)
+    for t_len in MODEL_PROMPTS:
+        walks.update(model_check(name, model, params, MODEL_FP32_BATCH,
+                                 t_len, rng, smi))
+
+    # every SSD call of one prefill and one decode step, held
+    label = f"{name} model prefill"
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1))).cuda()
+    cache = model.init_cache(MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1,
+                             device="cuda")
+    calls = capture_calls(lambda: model.prefill(
+        params, toks[:, :-1], cache), every=True)
+    hold_model_calls(label, calls, layers, peaks, tallies)
+    calls = capture_calls(lambda: model.decode_step(
+        params, toks[:, -1:], cache, MODEL_PROMPTS[0]), every=True)
+    hold_model_calls(f"{name} model decode", calls, layers, peaks, tallies)
+    del calls, cache
+
+    # the fixed-batch engine: batched greedy tokens against solo runs
+    max_len = MODEL_EQUAL_PROMPT + MODEL_EQUAL_NEW
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, MODEL_EQUAL_PROMPT).astype(np.int32),
+                max_new_tokens=MODEL_EQUAL_NEW)
+            for i in range(MODEL_EQUAL_REQUESTS)]
+    label = f"{name} model serve fp32"
+    zero_counts()
+    done = ServingEngine(cfg, model, params, max_batch=MODEL_EQUAL_REQUESTS,
+                         max_len=max_len, device="cuda").run(reqs)
+    walks[label] = (None, read_counts())
+    for r, c in zip(reqs, done):
+        want = ServingEngine(cfg, model, params, max_batch=1,
+                             max_len=max_len, device="cuda").run([r])[0]
+        if c.tokens != want.tokens:
+            raise AssertionError(
+                f"{label}: the batched tokens differ from the solo run's: "
+                + _first_divergence(model, params, r, c.tokens, want.tokens,
+                                    max_len))
+    print(f"{label}: {len(reqs)} greedy requests of {MODEL_EQUAL_PROMPT} "
+          f"tokens batched together, each completion equal to the request "
+          f"served alone, token for token ({sum(len(c.tokens) for c in done)}"
+          f" tokens)", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # bf16, the configuration's serving dtype, at full depth
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, t_len, new = MODEL_SERVE_BATCH, MODEL_SERVE_PROMPT, MODEL_SERVE_NEW
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, t_len).astype(np.int32),
+                max_new_tokens=new) for i in range(MODEL_SERVE_REQUESTS)]
+    engine = ServingEngine(cfg, model, params, max_batch=b,
+                           max_len=t_len + new, device="cuda")
+    engine.run([dataclasses.replace(reqs[0], max_new_tokens=2)])   # warm
+    label = f"{name} model serve bf16"
+    zero_counts()
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    host = time.perf_counter() - t
+    walks[label] = (None, read_counts())
+    tokens = sum(len(c.tokens) for c in done)
+    launches = walks[label][1]["ssd_chunk_scan"]
+    batches = -(-len(reqs) // b)
+    if (tokens != len(reqs) * new or launches != batches * new * layers
+            or not all(0 <= v < cfg.vocab_size for c in done
+                       for v in c.tokens)):
+        raise AssertionError(f"{label}: {tokens} tokens and {launches} SSD "
+                             f"launches, want {len(reqs) * new} in [0, "
+                             f"{cfg.vocab_size}) and "
+                             f"{batches * new * layers}")
+    print(f"{label}: {len(reqs)} greedy requests of {t_len} tokens in "
+          f"batches of {b}, {new} new tokens each: {tokens} tokens in "
+          f"{host:.3f} s ({tokens / host:.1f} tok/s; {launches} "
+          f"ssd_chunk_scan launches); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}",
+          flush=True)
+
+    # the prefill: bare walls, then device time by kernel
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (b, t_len))).cuda()
+    cache = model.init_cache(b, t_len + new, device="cuda")
+
+    def prefill():
+        model.prefill(params, toks, cache)
+
+    prefill()
+    torch.cuda.synchronize()
+    bare = []
+    for _ in range(3):
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t) * 1e3)
+    rows, busy, wall, host_calls = _profile(f"{name} prefill", prefill, 2)
+    ssd = sum(ms for ms, _, key in rows if "ssd_chunk" in key)
+    print(f"profile {name} bf16 prefill of {b} x {t_len} tokens: wall "
+          f"{statistics.median(bare):.3f} ms bare (median of 3: "
+          + ", ".join(f"{w:.3f}" for w in bare) + f"), {wall:.3f} ms under "
+          f"the profiler; kernels {busy:.3f} ms of device time in "
+          f"{sum(r[1] for r in rows) / 2:g} launches (idle >= "
+          f"{1 - busy / wall:.1%} of the profiled wall); the SSD chunk "
+          f"kernel {ssd:.3f} ms ({ssd / busy:.1%} of the device time); host "
+          f"launch calls {sum(host_calls.values()):g}; {smi}", flush=True)
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.3f} ms {count / 2:6g}x {key[:100]}", flush=True)
+    for batch in (1, b):
+        decode_breakdown(f"{name} model bf16", model, params, batch)
+    print(f"model {name}: {smi}", flush=True)
+    del model, params, engine, cache
+    torch.cuda.empty_cache()
+    return walks
+
+
 # ------------------------------------------------------------------- serve
 
 def _to_device(tree, device):
@@ -1297,12 +1605,14 @@ def serve_reduced_check(cfg) -> None:
           f"{SERVE_LOGIT_RTOL:g})", flush=True)
 
 
-def _first_divergence(model, params, req, got, want) -> str:
-    """Where the scheduler's tokens for `req` leave the solo run's: the
-    step, both tokens, and the top-2 logit gap of the solo run there."""
+def _first_divergence(model, params, req, got, want,
+                      max_len: int = None) -> str:
+    """Where the batched tokens for `req` leave the solo run's: the step,
+    both tokens, and the top-2 logit gap of the solo run there (a cache of
+    `max_len` positions, `SERVE_MAX_LEN` unless given)."""
     step = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
                 min(len(got), len(want)))
-    cache = model.init_cache(1, SERVE_MAX_LEN, device="cuda")
+    cache = model.init_cache(1, max_len or SERVE_MAX_LEN, device="cuda")
     prompt = torch.from_numpy(req.prompt.astype(np.int64))[None].cuda()
     logits, cache = model.prefill(params, prompt, cache)
     for i in range(step):
@@ -1310,7 +1620,7 @@ def _first_divergence(model, params, req, got, want) -> str:
             params, torch.tensor([[want[i]]], device="cuda"), cache,
             len(req.prompt) + i)
     top = logits[0].float().topk(2).values
-    return (f"request {req.rid} step {step}: scheduler "
+    return (f"request {req.rid} step {step}: batched "
             f"{got[step] if step < len(got) else None}, solo "
             f"{want[step] if step < len(want) else None}; the solo run's "
             f"top-2 logit gap there {float(top[0] - top[1]):.3e}")
@@ -1352,13 +1662,15 @@ def _profile(label: str, fn, n: int):
 def decode_breakdown(label: str, model, params, batch: int,
                      steps: int = 4, top: int = 8) -> None:
     """Where a decode step's time goes: `steps` steps of `batch` slots at
-    per-slot positions (the scheduler's call), timed bare (host clock
-    around the steps and a sync), then under torch.profiler: device time
-    by kernel against the step wall, and the host calls that put work on
-    the card.  Raises if the trace holds no device time."""
+    per-slot positions (the scheduler's call; a shared position for a
+    model without them), timed bare (host clock around the steps and a
+    sync), then under torch.profiler: device time by kernel against the
+    step wall, and the host calls that put work on the card.  Raises if
+    the trace holds no device time."""
     cache = model.init_cache(batch, SERVE_MAX_LEN, device="cuda")
     tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
-    pos = torch.arange(batch, device="cuda")
+    pos = (torch.arange(batch, device="cuda")
+           if getattr(model, "per_slot_pos", False) else SERVE_MAX_LEN // 2)
 
     def step():
         model.decode_step(params, tok, cache, pos)
@@ -1485,15 +1797,7 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
           f"fp32); {held:.1f} GB allocated on the card before the phase",
           flush=True)
     walks = {}
-    counters = kernel_counters()
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        return {k: fn.launches for k, fn in counters.items()}
-
+    zero, read = zero_counts, read_counts
     with tempfile.TemporaryDirectory(prefix="repro_torch_serve_") as tmp:
         target = repro_torch.Target(device="moto2022")
         kw = dict(buckets=SERVE_BUCKETS, cache=Path(tmp, "plans"),
@@ -2187,6 +2491,30 @@ SERVE_FIDELITY_EVERY = 8
 SERVE_LOGIT_RTOL = 1e-4
 SERVE_E2E_RTOL = 1e-4
 
+#: the model phase: zamba2-7b at its published widths and full depth; the
+#: fp32 prompt lengths (a multiple of the reference's 256-token chunk and
+#: one that is not) at batch MODEL_FP32_BATCH, the decode steps after
+#: each, and the tolerance of their logits against `forward`, relative to
+#: the largest |logit| (the zamba2-7b plan's: fp32 sums of the chunk and
+#: decode kernels in another order than one chunk pass, through 81
+#: layers); the fp32 engine's equal-length greedy requests; the bf16
+#: engine's requests, batch, prompt and new tokens
+MODEL_ARCH = "zamba2_7b"
+MODEL_PROMPTS = (512, 300)
+MODEL_FP32_BATCH = 2
+MODEL_DECODE_STEPS = 4
+MODEL_LOGIT_RTOL = 1e-4
+MODEL_EQUAL_REQUESTS = 4
+MODEL_EQUAL_PROMPT = 64
+MODEL_EQUAL_NEW = 6
+MODEL_SERVE_REQUESTS = 8
+MODEL_SERVE_BATCH = 4
+MODEL_SERVE_PROMPT = 512
+MODEL_SERVE_NEW = 32
+#: the model walks whose float32 SSD times the kernels line adds to the
+#: main paths': one prefill and one decode step
+MODEL_TIMED = (f"{ZAMBA} model prefill", f"{ZAMBA} model decode")
+
 #: the main paths: (name, committed artifact, request maker, output shape);
 #: the compile phase compiles each and must reproduce its artifact
 PATHS = [
@@ -2311,6 +2639,8 @@ def main() -> int:
     phases.done("portfolio")
     walks.update(serve_phase(peaks, results, smi))
     phases.done("serve")
+    walks.update(model_phase(peaks, results, smi))
+    phases.done("zamba2-7b model")
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
@@ -2328,7 +2658,7 @@ def main() -> int:
                      for k, v in t.by_path[key].items()})
         return out
 
-    mains = [p[0] for p in PATHS]
+    mains = [p[0] for p in PATHS] + list(MODEL_TIMED)
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
@@ -2346,11 +2676,14 @@ def main() -> int:
                 f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
                 f"replanned walk, the {PORTFOLIO_REQUESTS} of each "
                 f"portfolio entry's walks, of each serve bucket's plan and "
-                f"of each tuned walk, and the serve walks' plan executions "
+                f"of each tuned walk, the serve walks' plan executions "
                 f"(every "
-                f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan); "
-                f"times: one request of each main path, float32 (by_path: "
-                f"one request of each walk)"),
+                f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
+                f"and the zamba2-7b model walks (each prefill, its "
+                f"{MODEL_DECODE_STEPS} decode steps, the engines' runs); "
+                f"times: one request of each main path and one prefill and "
+                f"one decode step of the zamba2-7b model, float32 (by_path: "
+                f"one request, prefill or decode step of each walk)"),
         "by_path": by_path(name, t)}
         for name, t in results.items()]}
     phases.done("paths")

@@ -75,6 +75,11 @@ Six subcommands so far:
         python -m repro_torch serve --arch codeqwen15_7b [--reduced]
                                     [--arrivals poisson --portfolio P]
                                     [--torch-device cpu]
+        python -m repro_torch serve --arch zamba2_7b [--reduced]
+                                    [--torch-device cpu]
+
+    Zamba2 serves through the fixed batch only: the scheduler refuses
+    it (exit 2).
 
 Executions run on CUDA by default; without CUDA `execute`, `calibrate`
 and `serve` fail unless `--device cpu` (`execute`) or `--torch-device cpu`

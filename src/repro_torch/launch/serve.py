@@ -7,12 +7,15 @@ unless `--torch-device cpu`; without CUDA and without that flag the
 command fails, it never carries on on the CPU).  `--device` stays the
 simulated phone a portfolio is compiled for.
 
-Fixed-batch mode:
+Fixed-batch mode (a dense transformer, or the Zamba2 hybrid
+`--arch zamba2_7b`):
 
     python -m repro_torch serve --arch codeqwen15_7b --requests 8 \
         --max-new 12 [--compiled ARTIFACT] [--reduced --torch-device cpu]
 
-Continuous-batching mode (`--arrivals poisson`):
+Continuous-batching mode (`--arrivals poisson`; the scheduler refuses a
+model without per-slot positions, such as Zamba2, and the command exits
+2 with its message):
 
     python -m repro_torch serve --arch codeqwen15_7b --arrivals poisson \
         --rate 200 --requests 50 --portfolio reports/portfolio.json
@@ -96,12 +99,16 @@ def _serve_scheduler(args, cfg, model, params, device) -> int:
         print(f"simulating throttle: x{args.throttle_scale} wall time "
               f"from t={args.throttle_at}s")
     store = args.store_dir if portfolio is not None else None
-    sched = ContinuousScheduler(
-        cfg, model, params, portfolio=portfolio, measurement_store=store,
-        throttle=throttle, plan_cache=args.cache_dir, device=device,
-        config=SchedulerConfig(max_batch=args.max_batch,
-                               max_len=args.max_len,
-                               fidelity_every=args.fidelity_every))
+    try:
+        sched = ContinuousScheduler(
+            cfg, model, params, portfolio=portfolio, measurement_store=store,
+            throttle=throttle, plan_cache=args.cache_dir, device=device,
+            config=SchedulerConfig(max_batch=args.max_batch,
+                                   max_len=args.max_len,
+                                   fidelity_every=args.fidelity_every))
+    except ValueError as e:           # the scheduler refuses the model
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     reqs = poisson_requests(args.requests, rate=args.rate,
                             vocab_size=cfg.vocab_size,
                             max_new=(args.max_new // 2 or 1, args.max_new),

@@ -1,16 +1,19 @@
-"""The port's models: configurations, their name tables and the dense
-GQA transformer.
+"""The port's models: configurations, their name tables, the dense GQA
+transformer and the Zamba2 hybrid.
 
-The port's copies of `repro.models.config`, `registry`, `layers`, `flash`
-and `transformer` (PyTorch), plus `weights.params_from_numpy`, which takes
-the reference's parameter pytree.  `build_model` raises for the families
-not ported yet (MLA/MoE blocks, Zamba2, RWKV6, Whisper).
+The port's copies of `repro.models.config`, `registry`, `layers`, `flash`,
+`transformer`, `zamba` and the Mamba2 half of `ssm` (PyTorch), plus
+`weights.params_from_numpy`, which takes the reference's parameter
+pytree.  `build_model` raises for the families not ported yet (MLA/MoE
+blocks, RWKV6, Whisper).
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import (ALIASES, ARCH_IDS, build, build_model,
                                          get_config)
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.models.weights import params_from_numpy
+from repro_torch.models.zamba import ZambaModel
 
-__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "TransformerModel", "build",
-           "build_model", "get_config", "params_from_numpy"]
+__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "TransformerModel",
+           "ZambaModel", "build", "build_model", "get_config",
+           "params_from_numpy"]

@@ -10,7 +10,8 @@ reference's):
     prefill(params, tokens, cache[, start]) -> (logits, cache)
     decode_step(params, tokens, cache, pos[, start]) -> (logits, cache)
 
-The port has the dense GQA transformer; the other families raise.
+The port has the dense GQA transformer and the Zamba2 hybrid; the other
+families raise.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import TransformerModel
+from repro_torch.models.zamba import ZambaModel
 
 ARCH_IDS: List[str] = [
     "deepseek_v2_lite",
@@ -54,20 +56,20 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-#: what the non-transformer families wait for (ROADMAP Queue 1)
+#: what the families not ported yet wait for (ROADMAP Queue 1)
 _NOT_PORTED = ("{family} models are not in the port yet (ROADMAP Queue 1 "
-               "item 5: Zamba2, RWKV6, MLA/MoE blocks, then Whisper)")
+               "item {item})")
 
 
 def build_model(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(_NOT_PORTED.format(family="encoder-decoder "
-                                                     "(Whisper)"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            family="encoder-decoder (Whisper)", item="5: Whisper"))
     if cfg.ssm_kind == "rwkv6":
-        raise NotImplementedError(_NOT_PORTED.format(family="RWKV6"))
+        raise NotImplementedError(_NOT_PORTED.format(family="RWKV6",
+                                                     item="3: RWKV6"))
     if cfg.attn_every:
-        raise NotImplementedError(_NOT_PORTED.format(family="hybrid "
-                                                     "(Zamba2)"))
+        return ZambaModel(cfg)
     return TransformerModel(cfg)
 
 

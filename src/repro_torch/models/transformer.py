@@ -37,7 +37,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: what the blocks not ported yet wait for
 _NOT_PORTED = ("{what} blocks are not in the port yet (ROADMAP Queue 1 item "
-               "5: MLA and MoE blocks with flash_latent_*)")
+               "4: MLA and MoE blocks with flash_latent_*)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,10 +2,12 @@
 
 The JAX package's `TransformerModel.init` returns a pytree whose `pattern`
 entries stack each pattern position's blocks over a leading `n_repeats`
-axis (for its layer scan).  The port keeps one block dict per layer
-(`models/transformer.py`).  `params_from_numpy` takes the reference's tree
-with numpy leaves (`jax.tree.map(np.asarray, params)`) and returns the
-port's layout on a torch device, so both packages compute with the same
+axis (for its layer scan), and its `ZambaModel.init` one whose `mamba`
+entry stacks every Mamba2 layer over (n_groups, attn_every).  The port
+keeps one block dict per layer (`models/transformer.py`,
+`models/zamba.py`).  `params_from_numpy` takes either reference tree with
+numpy leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
+layout on a torch device, so both packages compute with the same
 numbers.  JAX and PyTorch draw different numbers from the same seed, so
 parity goes through this function, never through equal seeds.
 """
@@ -33,10 +35,14 @@ def _tensor(a: np.ndarray, device: Union[str, torch.device, None]
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _tree(a, device, dtype):
+#: Mamba2 leaves the reference draws in fp32 whatever the model dtype
+_FP32_LEAVES = ("A_log", "D", "dt_bias")
+
+
+def _tree(a, device, dtype, name: str = ""):
     if isinstance(a, dict):
-        return {k: _tree(v, device, dtype) for k, v in a.items()}
-    return _tensor(a, device, dtype)
+        return {k: _tree(v, device, dtype, k) for k, v in a.items()}
+    return _tensor(a, device, None if name in _FP32_LEAVES else dtype)
 
 
 def _unstack(tree, r: int):
@@ -47,13 +53,23 @@ def _unstack(tree, r: int):
 
 def params_from_numpy(ref: Params, device: Union[str, torch.device, None]
                       = None, dtype: Optional[torch.dtype] = None) -> Params:
-    """The reference's transformer params (numpy leaves) in the port's
-    layout: `embed`, `unembed`, `ln_f` as they are, `prologue` one block
-    per layer, and each stacked `pattern` entry split along its leading
-    repeat axis into a list of per-layer blocks.  `dtype` casts every
-    tensor (default: the reference's own dtype)."""
+    """The reference's params (numpy leaves) in the port's layout:
+    `embed`, `unembed`, `ln_f` as they are; for a transformer, `prologue`
+    one block per layer and each stacked `pattern` entry split along its
+    leading repeat axis into a list of per-layer blocks; for Zamba
+    (a `mamba` key), `shared_attn` as it is and `mamba` split into
+    `[group][layer]` dicts.  `dtype` casts every tensor but the Mamba2
+    fp32 leaves (default: the reference's own dtype)."""
     out = {k: _tensor(ref[k], device, dtype)
            for k in ("embed", "unembed", "ln_f")}
+    if "mamba" in ref:
+        out["shared_attn"] = _tree(ref["shared_attn"], device, dtype)
+        whole = _tree(ref["mamba"], device, dtype)
+        n_groups, per_group = _first_leaf(whole).shape[:2]
+        out["mamba"] = [[_unstack(_unstack(whole, g), k)
+                         for k in range(per_group)]
+                        for g in range(n_groups)]
+        return out
     out["prologue"] = [_tree(p, device, dtype) for p in ref["prologue"]]
     out["pattern"] = []
     for stacked in ref["pattern"]:

@@ -8,8 +8,10 @@ available.  On a machine with a card:
 builds the kernels from `src/repro_torch/csrc` and holds them against
 their plain PyTorch versions, and small split runs on two CUDA streams
 (a conv/linear network; a decoder graph with head, kv-block and
-ssm-state splits) against the same runs on the CPU; every candidate of
-the autotuner's launch table, and a tuned compile measured on the card.
+ssm-state splits) against the same runs on the CPU; the reduced models
+(the transformer; Zamba2, whose Mamba2 layers launch the SSD kernel)
+against the same weights on the CPU; every candidate of the autotuner's
+launch table, and a tuned compile measured on the card.
 """
 from pathlib import Path
 
@@ -731,6 +733,85 @@ def test_engine_executes_a_codeqwen_plan_on_the_card(cuda, tmp_path):
         y.cpu().numpy(), engine.plan_executor.run_oracle(x).cpu().numpy(),
         rtol=1e-4, atol=1e-4)
     assert engine.drift is not None
+
+
+
+# ------------------------------------------------------------------- zamba
+def _zamba_mixer(dtype, seed=0):
+    """Reduced zamba2-7b's Mamba2 params on the CPU, A_log and dt_bias
+    drawn off their zero init so every term of the recurrence counts."""
+    import dataclasses
+
+    from repro_torch.models import get_config
+    from repro_torch.models.ssm import init_mamba2
+    cfg = dataclasses.replace(get_config("zamba2_7b").reduced(), dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    p = init_mamba2(gen, cfg, getattr(torch, dtype))
+    h = p["A_log"].shape[0]
+    p["A_log"] = 0.5 * torch.randn(h, generator=gen)
+    p["dt_bias"] = 0.5 * torch.randn(h, generator=gen)
+    return cfg, p, gen
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 40, 300])
+def test_mamba2_mix_launches_the_ssd_kernel_and_matches_the_cpu(cuda, dtype,
+                                                                 t):
+    """One `ssd_chunk_scan` launch per call (the decode kernel at T = 1,
+    the chunk kernel above 16 tokens), and y, the final state and the
+    conv carry within 1e-4 (fp32) or 5e-2 (bf16) of the same call on the
+    CPU, which tests/test_torch_zamba.py ties to the reference's."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.models.ssm import mamba2_mix, mamba2_state_shapes
+    cfg, p, gen = _zamba_mixer(dtype, seed=t)
+    s_shape, c_shape = mamba2_state_shapes(cfg, 2)
+    x = torch.randn((2, t, cfg.d_model), generator=gen).to(p["w_in"].dtype)
+    state = 0.5 * torch.randn(s_shape, generator=gen)
+    carry = torch.randn(c_shape, generator=gen).to(x.dtype)
+    want = mamba2_mix(p, x, cfg, state, carry)
+    before = ssd_chunk_scan.launches
+    got = mamba2_mix(_on(p, cuda), x.to(cuda), cfg, state.to(cuda),
+                     carry.to(cuda))
+    assert ssd_chunk_scan.launches == before + 1
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        err = float((g.cpu().float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_zamba_on_the_card_matches_the_cpu(cuda, dtype):
+    """Prefill (T = 40: the chunk kernel) and three decode steps (the
+    decode kernel) of reduced zamba2-7b with 4 layers: one SSD launch per
+    Mamba2 layer each, and the logits within 1e-4 (fp32) or 5e-2 (bf16)
+    of the same weights' on the CPU."""
+    import dataclasses
+
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("zamba2_7b").reduced(n_layers=4),
+                              dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (3, 43)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _on(params, cuda))):
+        cache = model.init_cache(3, 48, device=dev)
+        before = ssd_chunk_scan.launches
+        logits, cache = model.prefill(p, toks[:, :40].to(dev), cache)
+        out[dev] = [logits]
+        for i in range(3):
+            logits, cache = model.decode_step(
+                p, toks[:, 40 + i:41 + i].to(dev), cache, 40 + i)
+            out[dev].append(logits)
+        launched = ssd_chunk_scan.launches - before
+        assert launched == (4 * cfg.n_layers if dev == "cuda" else 0)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for want, got in zip(out["cpu"], out["cuda"]):
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
 
 
 # ------------------------------------------------------------- autotune

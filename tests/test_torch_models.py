@@ -99,13 +99,12 @@ def test_codeqwen_full_width_counts():
     assert 8.0e9 < cfg.param_count() < 8.4e9
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("rwkv6_1b6", "RWKV6"), ("zamba2_7b", "Zamba2"),
-    ("whisper_large_v3", "Whisper"), ("deepseek_v2_lite", "MLA"),
-    ("llama4_scout", "MoE")])
-def test_unported_families_raise_naming_the_roadmap(arch, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") \
-            as e:
+@pytest.mark.parametrize("arch,what,item", [
+    ("rwkv6_1b6", "RWKV6", 3), ("whisper_large_v3", "Whisper", 5),
+    ("deepseek_v2_lite", "MLA", 4), ("llama4_scout", "MoE", 4)])
+def test_unported_families_raise_naming_the_roadmap(arch, what, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}") as e:
         build(arch)
     assert what in str(e.value)
 
