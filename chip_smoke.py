@@ -4,6 +4,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py                  # everything
     python3 chip_smoke.py --kernels-only   # build and kernel phases only
+    python3 chip_smoke.py --ssd-times SRC  # the SSD scan of the checkout
+                                           # at SRC, timed (`ssd_times`)
 
 It fails (non-zero exit, no result line) when CUDA is unavailable or when
 the port cannot be imported, and otherwise runs, in order:
@@ -20,12 +22,14 @@ the port cannot be imported, and otherwise runs, in order:
    from CUDA events (`time_ms`: L2 flushed before every timed call, host
    launch time kept out), the bound the card's published rates give for
    the same work and the kernel's share of it (bound / kernel time), and
-   each case's launch plan; `split_matmul` and `decode_attention` are
+   each case's launch plan (for the SSD chunk kernels, whose products run
+   in 3xTF32 on the tensor cores, the tensor-core bound beside the fp32
+   one); `split_matmul`, `decode_attention` and `ssd_chunk_scan` are
    also called twice on the same inputs and must give bit-identical
-   outputs (their split reductions are deterministic); the SSD scan's
-   decode and chunk kernels are both timed at T = 1 and T =
-   `DECODE_T_MAX`, beside the time `time_ms` gives an empty kernel (the
-   floor of any launch);
+   outputs (their split reductions and the SSD chunk walk are
+   deterministic); the SSD scan's decode and chunk kernels are both timed
+   at T = 1 and T = `DECODE_T_MAX`, beside the time `time_ms` gives an
+   empty kernel (the floor of any launch);
 4. the compile phase, on the host: each main path compiled by
    `repro_torch.compile` (no JAX) for its committed artifact's `Target`,
    into a fresh plan cache and predictor cache, its document held equal
@@ -141,12 +145,12 @@ the port cannot be imported, and otherwise runs, in order:
    `MODEL_SERVE_PROMPT` tokens at batch `MODEL_SERVE_BATCH` with
    `MODEL_SERVE_NEW` new tokens each (tokens/s), a prefill at that batch
    timed bare and under torch.profiler (device time by kernel, idle
-   share, the SSD chunk kernel's share), and a decode step at batch 1 and
+   share, the SSD chunk kernels' share), and a decode step at batch 1 and
    4 (`decode_breakdown`), each beside the card's name and power limit;
 13. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
-   zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernel at
+   zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernels at
    T = 4096): every candidate of the kind's Hopper launch spec
    (`repro_torch.kernels.tiles`, both search modes) held against the
    plain version in float32 and bfloat16, each output-tiling one
@@ -174,6 +178,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -190,10 +195,14 @@ ARTIFACT = ARTIFACTS / "vgg16_moto2022.coexec.json"
 ZAMBA_ARTIFACT = ARTIFACTS / "zamba2-7b_b9_s4096_moto2022_t1.coexec.json"
 
 #: published dense peaks (NVIDIA data sheets): memory bytes/s and
-#: operations/s by input type; fp32 runs outside the tensor cores (TF32 off)
+#: operations/s by input type; fp32 runs outside the tensor cores (TF32 off),
+#: TF32 on them (the SSD chunk kernels' 3xTF32 products: three TF32
+#: products per fp32 one)
 PEAKS = {
-    "sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12},
-    "pcie": {"bytes": 2.0e12, "float32": 51e12, "bfloat16": 756e12},
+    "sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12,
+            "tf32": 495e12},
+    "pcie": {"bytes": 2.0e12, "float32": 51e12, "bfloat16": 756e12,
+             "tf32": 378e12},
 }
 
 #: kernel-vs-plain tolerance, relative to the largest |plain| value: fp32
@@ -289,9 +298,16 @@ ATTN_CASES = [
 SSD_CASES = [
     ("b*.ssm decode", 1, 1, 112, 64, 64, {ZAMBA: 8}),
     ("decode T=16", 1, 16, 112, 64, 64, {}),
+    ("prefill B=2 T=512", 2, 512, 112, 64, 64, {}),
+    ("prefill B=4 T=512", 4, 512, 112, 64, 64, {}),
     ("prefill T=4096", 1, 4096, 112, 64, 64, {}),
     ("ragged T=100", 2, 100, 6, 32, 16, {}),
 ]
+
+#: the SSD chunk kernels' comparison shapes at zamba2-7b's widths (H = 112,
+#: hd = N = 64), (B, T): the model phase's fp32 and bf16 prefills and a
+#: long one (`--ssd-times`)
+SSD_COMPARE = ((2, 512), (4, 512), (1, 4096))
 
 _TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
 
@@ -492,9 +508,23 @@ def hold_decode_attention(label: str, args: tuple, peaks: dict):
     return err, times
 
 
+def ssd_plan_text(plan) -> str:
+    """One SSD launch plan, as the kernel phases print it."""
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import CHUNKED
+    if plan.variant != CHUNKED:
+        return (f"decode kernel, variant {plan.variant}, {plan.blocks} "
+                f"blocks of {plan.rows} rows, {plan.lanes} lanes per row")
+    nc, groups, b = plan.grid
+    return (f"chunk kernels, chunk {plan.chunk}, {plan.heads} heads a "
+            f"block, state and out grids {nc}x{groups}x{b}, pass "
+            f"{plan.pass_blocks} blocks, smem state {plan.smem_state} B out "
+            f"{plan.smem} B, workspace {plan.workspace / 1e6:.1f} MB, "
+            f"{'16-byte cp.async' if plan.vec else 'synchronous'} staging")
+
+
 def hold_ssd_chunk_scan(label: str, args: tuple, peaks: dict):
     from repro_torch.kernels.ssd_chunk.ssd_chunk import (
-        CHUNK, plan_call, ssd_chunk_scan, ssd_chunk_scan_plain)
+        CHUNK, CHUNKED, plan_call, ssd_chunk_scan, ssd_chunk_scan_plain)
     args, launch = args[:6], (args[6] if len(args) > 6 else None)
     x = args[0]
     (b, t, h, hd), n, dtype = x.shape, args[1].shape[2], x.dtype
@@ -505,16 +535,24 @@ def hold_ssd_chunk_scan(label: str, args: tuple, peaks: dict):
                     KERNEL_RTOL[dtype]),
               check(f"ssd_chunk_scan {label} {dtype} state", sf, sf_p,
                     KERNEL_RTOL[dtype]))
+    sf2, y2 = ssd_chunk_scan(*args, launch=launch)
+    if not (torch.equal(sf, sf2) and torch.equal(y, y2)):
+        raise AssertionError(f"ssd_chunk_scan {label} {dtype}: two calls on "
+                             f"the same inputs differ")
     plan = plan_call(*args, sf, launch)
+    ops = 6 * b * t * h * hd * n
     times = _times(lambda: ssd_chunk_scan(*args, launch=launch),
                    lambda: ssd_chunk_scan_plain(*args, chunk=chunk or CHUNK),
-                   None,
-                   nbytes(*args, y, sf), 6 * b * t * h * hd * n, dtype,
-                   peaks)
+                   None, nbytes(*args, y, sf), ops, dtype, peaks)
+    text = ssd_plan_text(plan)
+    if plan.variant == CHUNKED:
+        # the units the chunk kernels use: three TF32 tensor-core products
+        # per fp32 one (bound_ms divides by the input type's CUDA-core rate)
+        tc = max(times["t_bytes"], 3 * ops / peaks["tf32"] * 1e3)
+        text += (f"; 3xTF32 tensor-core bound {tc:.4f} ms "
+                 f"({tc / times['ms']:.1%} of it)")
     _report("ssd_chunk_scan", label, dtype, err, times,
-            f"B={b} T={t} H={h} hd={hd} N={n} [variant {plan.variant}, "
-            f"{plan.blocks} blocks of {plan.rows} rows, {plan.lanes} lanes "
-            f"per row, chunk {plan.chunk}]")
+            f"B={b} T={t} H={h} hd={hd} N={n} [{text}]")
     return err, times
 
 
@@ -566,10 +604,21 @@ def decode_attention_phase(peaks: dict) -> Tally:
     return tally
 
 
+def ssd_inputs(gen, b: int, t: int, h: int, hd: int, n: int,
+               dtype) -> list:
+    """Seeded SSD scan operands on the card, as the ssm lowering makes
+    them: stabilized dt and a, fan-in scaled B, C and state."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return [u.to(dtype) for u in (
+        rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
+        rand(b, t, n) / n ** 0.5, 0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
+        -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5)]
+
+
 def ssd_phase(peaks: dict) -> Tally:
     from repro_torch.kernels.ssd_chunk.ssd_chunk import (
-        CHUNK, CHUNKED, DECODE_T_MAX, SsdPlan, launch_uncounted, smem_bytes,
-        ssd_chunk_scan_plain)
+        DECODE_T_MAX, launch_uncounted, plan_chunks, ssd_chunk_scan_plain)
     if DECODE_T_MAX not in {case[2] for case in SSD_CASES}:
         raise AssertionError(f"SSD_CASES has no case at DECODE_T_MAX = "
                              f"{DECODE_T_MAX}")
@@ -580,34 +629,25 @@ def ssd_phase(peaks: dict) -> Tally:
           f"(torch.cuda._sleep(0)) {floor:.4f} ms", flush=True)
     for label, b, t, h, hd, n, per_path in SSD_CASES:
         for dtype in DTYPES:
-            def rand(*shape):
-                return torch.randn(shape, generator=gen, device="cuda")
-            # the ssm lowering's operands: stabilized dt and a, fan-in
-            # scaled B, C and state
-            ins = [u.to(dtype) for u in (
-                rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
-                rand(b, t, n) / n ** 0.5,
-                0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
-                -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5)]
+            ins = ssd_inputs(gen, b, t, h, hd, n, dtype)
             err, times = hold_ssd_chunk_scan(label, tuple(ins), peaks)
             tally.add(dtype, err, per_path, times)
             if t <= DECODE_T_MAX and dtype == torch.float32:
-                # the chunk kernel on the same inputs, launched directly
+                # the chunk kernels on the same inputs, launched directly
                 # (not counted), against the decode kernel's time
                 sf_p, y_p = ssd_chunk_scan_plain(*ins)
-                length = min(CHUNK, t)
-                chunked = SsdPlan(CHUNKED, 0, hd, b * h, length,
-                                  smem_bytes(hd, n, length))
+                chunked = plan_chunks(b, t, h, hd, n, 4, [
+                    u.data_ptr() for u in ins[:3]])
                 y_c, sf_c = torch.empty_like(y_p), torch.empty_like(sf_p)
                 launch_uncounted(chunked, ins, y_c, sf_c)
-                check(f"ssd_chunk_scan {label} chunk kernel y", y_c, y_p,
+                check(f"ssd_chunk_scan {label} chunk kernels y", y_c, y_p,
                       KERNEL_RTOL[dtype])
-                check(f"ssd_chunk_scan {label} chunk kernel state", sf_c,
+                check(f"ssd_chunk_scan {label} chunk kernels state", sf_c,
                       sf_p, KERNEL_RTOL[dtype])
                 ms_c = time_ms(lambda: launch_uncounted(chunked, ins, y_c,
                                                         sf_c))
                 print(f"ssd_chunk_scan {label} T={t}: decode kernel "
-                      f"{times['ms']:.4f} ms, chunk kernel {ms_c:.4f} ms, "
+                      f"{times['ms']:.4f} ms, chunk kernels {ms_c:.4f} ms, "
                       f"empty kernel {floor:.4f} ms, bound "
                       f"{times['bound_ms']:.4f} ms", flush=True)
     return tally
@@ -1381,7 +1421,7 @@ def model_check(name: str, model, params, batch: int, t: int, rng,
                              f"differ from forward by {err:.3e} > "
                              f"{MODEL_LOGIT_RTOL} x {scale:.3g}")
     print(f"{label}: fp32 prefill of {batch} x {t} tokens in {wall:.3f} s "
-          f"({layers} ssd_chunk_scan launches: the chunk kernel) + {steps} "
+          f"({layers} ssd_chunk_scan launches: the chunk kernels) + {steps} "
           f"decode steps ({steps * layers} launches: the decode kernel); "
           f"their last-position logits within {err:.3e} of forward over "
           f"{t + steps} tokens (largest |logit| {scale:.3g}, "
@@ -1532,15 +1572,16 @@ def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
         torch.cuda.synchronize()
         bare.append((time.perf_counter() - t) * 1e3)
     rows, busy, wall, host_calls = _profile(f"{name} prefill", prefill, 2)
-    ssd = sum(ms for ms, _, key in rows if "ssd_chunk" in key)
+    ssd, phases = ssd_device_ms(rows)
     print(f"profile {name} bf16 prefill of {b} x {t_len} tokens: wall "
           f"{statistics.median(bare):.3f} ms bare (median of 3: "
           + ", ".join(f"{w:.3f}" for w in bare) + f"), {wall:.3f} ms under "
           f"the profiler; kernels {busy:.3f} ms of device time in "
           f"{sum(r[1] for r in rows) / 2:g} launches (idle >= "
           f"{1 - busy / wall:.1%} of the profiled wall); the SSD chunk "
-          f"kernel {ssd:.3f} ms ({ssd / busy:.1%} of the device time); host "
-          f"launch calls {sum(host_calls.values()):g}; {smi}", flush=True)
+          f"kernels {ssd:.3f} ms ({ssd / busy:.1%} of the device time: "
+          f"{phases}); host launch calls {sum(host_calls.values()):g}; "
+          f"{smi}", flush=True)
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms {count / 2:6g}x {key[:100]}", flush=True)
     for batch in (1, b):
@@ -1657,6 +1698,20 @@ def _profile(label: str, fn, n: int):
         if e.key.startswith(HOST_LAUNCH_CALLS):
             calls[e.key] = calls.get(e.key, 0) + e.count / n
     return rows, busy, wall, calls
+
+
+def ssd_device_ms(rows) -> tuple:
+    """The SSD chunk kernels' device ms per call in `_profile`'s rows,
+    summed over every kernel whose name holds "ssd_chunk" (the state, pass
+    and out phases; one kernel before they were split), and each one's
+    share as text."""
+    mine = [(ms, re.search(r"ssd_chunk\w*", key).group(0))
+            for ms, _, key in rows if "ssd_chunk" in key]
+    by = {}
+    for ms, name in mine:
+        by[name] = by.get(name, 0.0) + ms
+    return (sum(by.values()),
+            ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items())))
 
 
 def decode_breakdown(label: str, model, params, batch: int,
@@ -2555,10 +2610,76 @@ SOURCES = {
 }
 
 
+def ssd_times(src: Path) -> int:
+    """`--ssd-times SRC`: the SSD scan of the checkout at SRC (its
+    `src/repro_torch`, its kernels built under SRC) at `SSD_COMPARE` in
+    float32 (`time_ms`, median of 20, beside the fp32 CUDA-core and the
+    3xTF32 tensor-core bound), then zamba2-7b's bf16 prefill of
+    `MODEL_SERVE_BATCH` x `MODEL_SERVE_PROMPT` tokens at full depth: the
+    bare wall (median of 3) and, under torch.profiler, the device time and
+    the SSD chunk kernels' share of it.  Prints one JSON line.  Run it for
+    two checkouts in turns (parent, change, change, parent) in one call to
+    compare them on one card."""
+    sys.path.insert(0, str(src.resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_scan
+    from repro_torch.models import build_model, get_config
+
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["ssd_chunk"])
+    peaks = card_peaks()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = []
+    for b, t in SSD_COMPARE:
+        h, hd, n = 112, 64, 64
+        ins = ssd_inputs(gen, b, t, h, hd, n, torch.float32)
+        ops = 6 * b * t * h * hd * n
+        bnd, t_bytes, _ = bound_ms(nbytes(*ins, ins[0], ins[5]), ops,
+                                   torch.float32, peaks)
+        ms = time_ms(lambda: ssd_chunk_scan(*ins), reps=20)
+        cases.append({"B": b, "T": t, "ms": ms, "bound_ms": bnd,
+                      "tf32_bound_ms": max(t_bytes,
+                                           3 * ops / peaks["tf32"] * 1e3)})
+        del ins
+    cfg = get_config(MODEL_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, t_len = MODEL_SERVE_BATCH, MODEL_SERVE_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (b, t_len))).cuda()
+    cache = model.init_cache(b, t_len + MODEL_SERVE_NEW, device="cuda")
+
+    def prefill():
+        model.prefill(params, toks, cache)
+
+    prefill()
+    torch.cuda.synchronize()
+    bare = []
+    for _ in range(3):
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t) * 1e3)
+    rows, busy, wall, _ = _profile(f"{cfg.name} prefill", prefill, 2)
+    ssd, phases = ssd_device_ms(rows)
+    print(json.dumps({"ssd_times": {
+        "src": str(src), "card": smi, "cases": cases,
+        "prefill": {"batch": b, "tokens": t_len, "dtype": cfg.dtype,
+                    "wall_ms": statistics.median(bare), "walls_ms": bare,
+                    "device_ms": busy, "profiled_wall_ms": wall,
+                    "ssd_ms": ssd, "ssd_share": ssd / busy,
+                    "ssd_kernels": phases}}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if "--ssd-times" in sys.argv[1:]:
+        return ssd_times(Path(sys.argv[sys.argv.index("--ssd-times") + 1]))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 

@@ -1,53 +1,98 @@
 // ssd_chunk_scan: the Mamba2 SSD scan.  For every (batch, head) the (hd, N)
 // state h is carried through T tokens,
 //   h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t,
-// and the kernel returns the final state and y.
+// and the kernels return the final state and y.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_chunk/ssd_chunk.py:
 // ssd_chunk_scan (body _ssd_chunk_kernel): a (B, H, T/L) grid with the chunk
 // axis innermost and sequential, the state carried across chunk steps in
 // VMEM scratch, L = 256 by default.
 //
-// What bounds it on an H100: at decode (T = 1, zamba2-7b: H = 112,
-// hd = N = 64) it reads state0 and writes the final state once, 1.8 MB each
-// in fp32, for ~0.3 Mflop: bound by bytes, about 1.1 us at 3.35 TB/s, far
-// below the few microseconds any launch takes from start to drain.  In
-// chunked prefill (T in the thousands) it does ~(L + 2N) hd flops per token
-// and head in shared memory and is bound by fp32 operations.
+// Two designs, chosen on the host per call (repro_torch/kernels/ssd_chunk/
+// ssd_chunk.py: plan_ssd).
 //
-// Two kernels, chosen on the host per call (repro_torch/kernels/ssd_chunk/
-// ssd_chunk.py: plan_ssd):
+// `ssd_decode`, for T <= DECODE_T_MAX (decode).  At T = 1 (zamba2-7b: H =
+// 112, hd = N = 64) the scan reads state0 and writes the final state once,
+// 1.8 MB each in fp32, for ~0.3 Mflop: bound by bytes, about 1.1 us at
+// 3.35 TB/s, far below the few microseconds any launch takes from start to
+// drain.  It runs the recurrence itself, which is exact and has no chunk
+// machinery to pay for.  A block of 128 threads owns `rows` rows of one
+// head's state; the `lanes` lanes of one row hold 8 state values each in
+// registers (N = 64: 8 lanes, 16 rows per block, four blocks per head, 448
+// blocks for the zamba2-7b step).  Each thread issues its 16-byte state
+// loads first (streaming: the state is read once) and the load of a; the
+// block stages its dt, B, C and x for the T tokens (a few hundred bytes at
+// T = 1) in shared memory; then each thread steps the tokens in registers,
+// h <- exp(dt a) h + (dt x_d) B_k, with y_d = sum_k C_k h_dk by a shuffle
+// sum across the row's lanes.  It writes the final state once.  The state
+// never touches shared memory, and the only barrier is the one after the
+// operands are staged.  Where state0, the final state or the row pitch
+// N * sizeof(T) is not 16-byte aligned, the same kernel loads and stores the
+// state one element at a time.
 //
-// `ssd_decode`, for T <= DECODE_T_MAX: the recurrence itself, which is exact
-// and has no chunk machinery to pay for.  A block of 128 threads owns
-// `rows` rows of one head's state; the `lanes` lanes of one row hold 8
-// state values each in registers (N = 64: 8 lanes, 16 rows per block, four
-// blocks per head, 448 blocks for the zamba2-7b step).  Each thread issues
-// its 16-byte state loads first (streaming: the state is read once) and
-// the load of a; the block stages its dt, B, C and x for the T tokens (a
-// few hundred bytes at T = 1) in shared memory; then each thread steps the
-// tokens in registers, h <- exp(dt a) h + (dt x_d) B_k, with
-// y_d = sum_k C_k h_dk by a shuffle sum across the row's lanes.  It writes
-// the final state once.  The state never touches shared memory, and the only
-// barrier is the one after the operands are staged.  Where state0, the
-// final state or the row pitch N * sizeof(T) is not 16-byte aligned, the same
-// kernel loads and stores the state one element at a time.
+// The chunk kernels, for longer T (prefill).  Per token and head the scan
+// takes 3 hd N multiply-adds (the count its bound uses) and reads x and
+// writes y once: at zamba2-7b's widths ~24 flops a byte in fp32, over the
+// card's 20 (67 TFLOP/s of fp32 FMA over 3.35 TB/s), so outside the tensor
+// cores fp32 operations bound it, on them bytes.  The design before this
+// one (one block per (batch, head) walking its chunks in order, every FMA
+// reading its operands from shared memory) ran at ~7 % of that bound:
+// shared-memory bandwidth (two loads a FMA), B H blocks at two a SM, one
+// thread taking the cumulative sum.  This one is the SSD algorithm of the
+// Mamba2 paper (arXiv:2405.21060 sec. 6) in three launches, every chunk in
+// parallel but for the second launch's walk; l is the chunk's cumulative
+// sum of dt a:
 //
-// `ssd_chunk_kernel`, for longer T: one block per (batch, head) runs the
-// chunk loop in order, so the state never leaves shared memory between
-// chunks (this loop takes the place of the TPU's sequential grid axis).  Per
-// chunk of L <= 64 tokens (the TPU's L = 256 would need a 256 KB (L, L)
-// tile, over the 227 KB a block can have) it stages x * dt, B and C in
-// shared memory, takes the cumulative sum l of dt * a, and computes, as the
-// TPU kernel does,
-//   y_t = exp(l_t) C_t . h0 + sum_{j <= t} exp(l_t - l_j) (C_t . B_j) dt_j x_j
-//   h'  = exp(l_L) h0 + sum_j exp(l_L - l_j) dt_j x_j B_j^T.
-// Rows of the state, B and C are padded by one word, so threads walking hd
-// or the chunk read distinct shared-memory banks.  Global loads and stores
-// run along hd or N, coalesced.  Tensor-core products for long prefill
-// chunks are later work.
+// 1. `ssd_chunk_state`, grid (chunk, head group, batch): each head's own
+//    end state of the chunk, S_c = sum_j (dt_j exp(l_L - l_j) x_j) B_j^T
+//    (hd x N, depth L), and its decay exp(l_L), into the workspace.  The
+//    chunk's B is staged once per block, transposed and split into its
+//    TF32 parts once for all the group's heads; each head's x tile is
+//    staged with cp.async while the previous one is multiplied (two
+//    buffers, B staged in the second until it is split, so three blocks fit
+//    an SM); l is a warp-shuffle scan, one warp a head.
+// 2. `ssd_chunk_pass`, one thread per 4 state elements of a (batch, head):
+//    walks the chunks in order, h_in[c] = h, then h = exp(l_L) h + S_c,
+//    writing h_in[c] over S_c, and writes the final state.  No atomics:
+//    every sum has one order, so two calls are bit-identical.
+// 3. `ssd_chunk_out`, grid (chunk, head group, batch):
+//      y_t = exp(l_t) (C_t h_in[c]^T) + sum_{j <= t} W_tj dt_j x_j,
+//      W_tj = (C_t . B_j) exp(l_t - l_j).
+//    B and C are per token (zamba2 has one group), so C B^T (L x L) is
+//    taken once per block and shared by its heads; exp(l_t) scales the
+//    accumulator's rows.  W is formed as the product's operand is loaded,
+//    with a select on j <= t and never a multiply by a mask: l decreases,
+//    so exp(l_t - l_j) for j > t can overflow to inf, and inf x 0 is NaN.
 //
-// Inputs are f32 or bf16; all arithmetic is fp32.
+// Every product runs on the tensor cores at fp32 accuracy: mma.sync
+// m16n8k8 in TF32 with the 3xTF32 split.  Each fp32 operand v is split
+// into big = tf32(v) and small = tf32(v - big), and acc += small big + big
+// small + big big in fp32 accumulators; one TF32 product alone keeps ~11
+// bits, over the 5e-5 the card's parity check holds fp32 to.  On the H100
+// the tensor cores are not what these kernels wait on: built with the MMAs
+// compiled out, the out kernel ran nearly as long.  The operands' loads
+// and splits are, so the design spends its effort there:
+// - tf32() truncates (clears the 13 low mantissa bits, one logic op) where
+//   cvt.rna takes several, and the split still keeps v to 2^-20;
+// - each lane's two k slots t and t + 4 of a step are given neighbouring
+//   columns, so one 64-bit (fp32) or 32-bit (bf16) load reads both, and
+//   tile rows are padded so a warp's loads hit distinct banks;
+// - the three MMAs of a split run in passes over the warp's four column
+//   tiles, so neighbouring MMAs write different accumulators.
+//
+// The workspace, allocated by the wrapper (the kernels allocate nothing),
+// holds the (B, H, nc, hd, N) fp32 chunk states, then the (B, H, nc)
+// decays.  It is written, read, rewritten and read again, the design's
+// largest byte term: at L = 64 and hd = N = 64 it is as large as x in fp32
+// (59 MB at B = 4, T = 512).  L = 128 would halve it, but doubles the out
+// kernel's (L, L) products and its 64 KB tile leaves one block a SM; the
+// host's default is L = 64 (CHUNK), the faster of the two on the card
+// (chip_smoke.py's tune phase times every chunk).
+//
+// Any hd (tiles of 64 rows of the state), any N a block's shared memory
+// holds, and a ragged last chunk: staged tiles are zero-filled (cp.async
+// with a source size of 0) past hd, N and the chunk, and stores are
+// masked.  Inputs are f32 or bf16; all arithmetic is fp32.
 #include <cstdint>
 #include <math.h>
 
@@ -60,105 +105,602 @@ using repro_torch::configure_smem_once;
 using repro_torch::from_f32;
 using repro_torch::to_f32;
 
-constexpr int kThreads = 256;          // chunk kernel
 constexpr int kDecodeThreads = 128;    // decode kernel
 constexpr int kLaneElems = 8;          // state values a decode lane holds
 
+constexpr int kThreads = 256;          // chunk-state and chunk-out blocks
+constexpr int kWarps = kThreads / 32;
+constexpr int kPassThreads = 256;      // chunk-pass blocks
+constexpr int kPassElems = 4;          // state elements a pass thread walks
+constexpr int kPassAhead = 4;          // chunk states it loads before using
+constexpr int kTileD = 64;             // state rows (columns of y) a tile
+constexpr int kMaxChunk = 128;         // tokens a chunk: 8 row tiles of 16
+constexpr int kMaxHeads = 4;           // heads a state or out block
+// Row padding, in elements, of a tile whose fragments read rows by the
+// lane's groupID and each lane two neighbouring columns at once (one 64-bit
+// load in fp32, one 32-bit load in bf16): 8, so the rows of a half warp
+// start 8 banks (fp32) or 4 words (bf16) apart
+constexpr int kPad = 8;
+
+// variants, as the host plan names them
 // variants, as the host plan names them
 constexpr int kDecodeVector = 0, kDecodeScalar = 1, kChunk = 2;
 
-// Grid (H, B).  x, y (B, T, H, hd); b, c (B, T, N); dt (B, T, H); a (H);
-// state0, sf (B, H, hd, N); L is the chunk length.
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Row padding, in elements, of an x tile, whose fragments read rows 2t and
+// 2t + 1 (t: threadID_in_group) and columns by groupID: 4 in fp32, so the
+// four even rows start 8 banks apart; 8 in bf16 (8 words)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                 const T* __restrict__ c, const T* __restrict__ dt,
-                 const T* __restrict__ a, const T* __restrict__ state0,
-                 T* __restrict__ y, T* __restrict__ sf, int Tn, int H, int hd,
-                 int N, int L) {
-  extern __shared__ float smem[];
-  const int NP = N + 1;      // padded row stride
-  float* hs = smem;          // (hd, NP) running state
-  float* xs = hs + hd * NP;  // (L, hd) dt_j x_j
-  float* bs = xs + L * hd;   // (L, NP)
-  float* cs = bs + L * NP;   // (L, NP)
-  float* ws = cs + L * NP;   // (L, L) exp(l_t - l_j) C_t . B_j, j <= t
-  float* ls = ws + L * L;    // (L) cumulative dt * a
-  float* dts = ls + L;       // (L) dt
-  float* els = dts + L;      // (L) exp(l_t)
-  float* des = els + L;      // (L) exp(l_last - l_j)
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float ah = to_f32(a[h]);
-  const long long sbase = ((long long)bi * H + h) * hd * N;
+__host__ __device__ constexpr int pad_x() {
+  return sizeof(T) == 4 ? 4 : 8;
+}
 
-#pragma unroll 4
-  for (int e = tid; e < hd * N; e += kThreads)
-    hs[(e / N) * NP + e % N] = to_f32(state0[sbase + e]);
+// Dynamic shared memory, in bytes, of a chunk-state block: B^T split into
+// its TF32 parts (two (np, lp + kPad) words), two x tiles (lp, kTileD +
+// pad_x), the second at least B's size as staged (lp, np + kPad): B is
+// staged there until it is split; and two (G, lp) fp32 vectors.
+template <typename T>
+__host__ __device__ int state_smem(int L, int N, int G) {
+  const int lp = round_up(L, 16), np = round_up(N, 8);
+  const int xt = lp * (kTileD + pad_x<T>()), bt = lp * (np + kPad);
+  return 4 * 2 * np * (lp + kPad) +
+         static_cast<int>(sizeof(T)) * (xt + (xt > bt ? xt : bt)) +
+         4 * 2 * G * lp;
+}
 
-  for (int t0 = 0; t0 < Tn; t0 += L) {
-    const int n = min(L, Tn - t0);
-    const long long row0 = (long long)bi * Tn + t0;  // first token's row
-    for (int j = tid; j < n; j += kThreads)
-      dts[j] = to_f32(dt[(row0 + j) * H + h]);
-    for (int e = tid; e < n * N; e += kThreads) {
-      const int j = e / N, k = e % N;
-      bs[j * NP + k] = to_f32(b[(row0 + j) * N + k]);
-      cs[j * NP + k] = to_f32(c[(row0 + j) * N + k]);
+// One item buffer of a chunk-out block: an x tile and an h_in tile (fp32,
+// kTileD rows of N).
+template <typename T>
+__host__ __device__ int out_buffer(int L, int N) {
+  const int lp = round_up(L, 16), np = round_up(N, 8);
+  return static_cast<int>(sizeof(T)) * lp * (kTileD + pad_x<T>()) +
+         4 * kTileD * (np + kPad);
+}
+
+// Dynamic shared memory of a chunk-out block: C (lp, np + kPad), C B^T
+// (lp, lp + kPad) fp32, two item buffers (the second at least B's size: B
+// is staged there until C B^T is taken) and three (G, lp) fp32 vectors.
+template <typename T>
+__host__ __device__ int out_smem(int L, int N, int G) {
+  const int lp = round_up(L, 16), np = round_up(N, 8);
+  const int tile = static_cast<int>(sizeof(T)) * lp * (np + kPad);
+  const int buf = out_buffer<T>(L, N);
+  return tile + 4 * lp * (lp + kPad) + buf + (buf > tile ? buf : tile) +
+         4 * 3 * G * lp;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;       // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Stage a row-major global tile (row stride ld elements) into shared memory
+// (row pitch sp) as rows x cols, zero past nrows and ncols.  VEC: 16-byte
+// cp.async copies (ncols, ld, cols and the tile's address whole 16-byte
+// chunks); otherwise synchronous loads.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage(T* s, int sp, const T* __restrict__ g,
+                                      long long ld, int nrows, int ncols,
+                                      int rows, int cols) {
+  if constexpr (VEC) {
+    constexpr int CE = 16 / static_cast<int>(sizeof(T));
+    const int per_row = cols / CE;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row, k = (e % per_row) * CE;
+      const bool ok = r < nrows && k < ncols;
+      cp_async16(s + r * sp + k, ok ? g + r * ld + k : g, ok);
     }
+  } else {
+    const T zero = from_f32<T>(0.f);
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, k = e % cols;
+      s[r * sp + k] = (r < nrows && k < ncols) ? g[r * ld + k] : zero;
+    }
+  }
+}
+
+// ---- tensor-core products, 3xTF32
+
+// v's TF32 part: its fp32 bits with the 13 low mantissa bits cleared
+// (truncation: one logic op, where rounding takes several)
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return __float_as_uint(v) & 0xffffe000u;
+}
+
+// An m16n8k8 operand fragment as its two TF32 parts, v = big + small:
+// big = tf32(v), small = tf32(v - big) (v - big is exact in fp32), so
+// |v - big - small| < 2^-20 |v|
+template <int R>
+struct Frag {
+  uint32_t big[R], small[R];
+  __device__ __forceinline__ void set(int i, float v) {
+    big[i] = tf32(v);
+    small[i] = tf32(v - __uint_as_float(big[i]));
+  }
+};
+// With the lane's groupID g and threadID_in_group t, the fragments hold
+// a0..a3 at (row, k) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b0,
+// b1 at (k, n) = (t, g), (t + 4, g); the accumulator's c0..c3 at (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  The kernels give the k slots
+// t and t + 4 of a step of 8 the neighbouring columns k0 + 2t and k0 + 2t
+// + 1 of A and B (any order of k in a step sums the same terms), so a lane
+// reads both with one load where they are neighbours in shared memory.
+using FragA = Frag<4>;
+using FragB = Frag<2>;
+
+// two neighbouring elements of a shared-memory row (even index) as floats
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(v << 16),     // bf16: fp32's high half
+                     __uint_as_float(v & 0xffff0000u));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[i] += a b[i] for the first `live` of a warp's four column tiles at fp32
+// accuracy: small big, big small, then big big, in passes over the tiles,
+// so that neighbouring MMAs write different accumulators and issue without
+// waiting on each other
+__device__ __forceinline__ void mma3(float (&d)[4][4], const FragA& a,
+                                     const FragB (&b)[4], int live = 4) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < live) mma_tf32(d[i], a.small, b[i].big[0], b[i].big[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < live) mma_tf32(d[i], a.big, b[i].small[0], b[i].small[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < live) mma_tf32(d[i], a.big, b[i].big[0], b[i].big[1]);
+}
+
+// two neighbouring outputs of a row, one store where the pair is aligned
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// row[k], row[k + 1] of a row of `width` valid elements (k even; the row's
+// address is even where the width is)
+template <typename U>
+__device__ __forceinline__ void store_pair(U* row, int k, int width, float v0,
+                                           float v1) {
+  if (width % 2 == 0 && k + 1 < width) {
+    store2(row + k, v0, v1);
+  } else {
+    if (k < width) row[k] = from_f32<U>(v0);
+    if (k + 1 < width) row[k + 1] = from_f32<U>(v1);
+  }
+}
+
+// l_j = sum_{i <= j} dt_i a for the chunk's lp rows (dt is 0 past the
+// chunk), by one warp: each lane sums a run of lp / 32 consecutive terms
+// (at most 4), and the runs' totals are scanned with shuffles.
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float a,
+                                             float* ls, int lp, int lane) {
+  const int per = (lp + 31) / 32;
+  float v[4];
+  float run = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = lane * per + i;
+    v[i] = (i < per && j < lp) ? dts[j] * a : 0.f;
+    run += v[i];
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  float acc = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = lane * per + i;
+    acc += v[i];
+    if (i < per && j < lp) ls[j] = acc;
+  }
+}
+
+// dt of the chunk's rows for heads h0 .. h0 + heads - 1, as (heads, lp)
+// fp32, zero past the chunk's n tokens
+template <typename T>
+__device__ __forceinline__ void load_dt(float* dts, const T* __restrict__ dt,
+                                        long long row0, int n, int lp, int H,
+                                        int h0, int heads) {
+  for (int e = threadIdx.x; e < heads * lp; e += blockDim.x) {
+    const int g = e / lp, j = e % lp;
+    dts[e] = j < n ? to_f32(dt[(row0 + j) * H + h0 + g]) : 0.f;
+  }
+}
+
+// Grid (nc, ceil(H / G), B), kThreads: chunk c of batch bi, heads h0 ..
+// h0 + G - 1.  x (B, T, H, hd); b (B, T, N); dt (B, T, H); a (H).  Writes
+// each head's chunk state S_c (hd, N) to ws[(bi H + h) nc + c] and its
+// decay exp(l_L) to decay[(bi H + h) nc + c].
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+ssd_chunk_state(const T* __restrict__ x, const T* __restrict__ b,
+                const T* __restrict__ dt, const T* __restrict__ a,
+                float* __restrict__ ws, float* __restrict__ decay, int Tn,
+                int H, int hd, int N, int L, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lp = round_up(L, 16), np = round_up(N, 8);
+  const int bp = np + kPad, tp = lp + kPad;          // row pitches
+  const int xp = kTileD + pad_x<T>();
+  uint32_t* tb = reinterpret_cast<uint32_t*>(smem);  // (np, tp): B^T's
+  uint32_t* tsm = tb + np * tp;                      // big and small parts
+  T* xs = reinterpret_cast<T*>(tsm + np * tp);       // x tiles (lp, xp)
+  T* xs1 = xs + lp * xp;                             // and the second
+  T* bs = xs1;                          // (lp, bp): B as staged, until split
+  float* wv = reinterpret_cast<float*>(
+      xs1 + (lp * xp > lp * bp ? lp * xp : lp * bp));   // (G, lp)
+  float* lv = wv + G * lp;                               // (G, lp): l
+  const int c = blockIdx.x, nc = gridDim.x, h0 = blockIdx.y * G;
+  const int bi = blockIdx.z;
+  const int t0 = c * L, n = min(L, Tn - t0), heads = min(G, H - h0);
+  const int tiles = (hd + kTileD - 1) / kTileD, items = heads * tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const long long row0 = (long long)bi * Tn + t0;   // the chunk's first token
+
+  // item it: head h0 + it / tiles, state rows from (it % tiles) * kTileD
+  auto stage_x = [&](int it, T* dst) {
+    const int g = it / tiles, d0 = (it % tiles) * kTileD;
+    stage<T, VEC>(dst, xp, x + (row0 * H + h0 + g) * hd + d0,
+                  (long long)H * hd, n, min(kTileD, hd - d0), lp, kTileD);
+  };
+  stage<T, VEC>(bs, bp, b + row0 * N, N, n, N, lp, np);
+  stage_x(0, xs);
+  cp_async_commit();
+  load_dt(wv, dt, row0, n, lp, H, h0, heads);
+  __syncthreads();
+  if (warp < heads) {   // wv <- dt_j exp(l_L - l_j), one warp a head
+    float* w = wv + warp * lp;
+    float* l = lv + warp * lp;
+    chunk_cumsum(w, to_f32(a[h0 + warp]), l, lp, lane);
+    __syncwarp();
+    const float lend = l[n - 1];
+    for (int j = lane; j < lp; j += 32) w[j] *= expf(lend - l[j]);
+    if (lane == 0)
+      decay[((long long)bi * H + h0 + warp) * nc + c] = expf(lend);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // B^T split once, for every head of the block
+  for (int e = threadIdx.x; e < lp * np; e += kThreads) {
+    const int j = e / np, k = e % np;
+    FragB f;
+    f.set(0, to_f32(bs[j * bp + k]));
+    tb[k * tp + j] = f.big[0];
+    tsm[k * tp + j] = f.small[0];
+  }
+  __syncthreads();     // B's buffer takes the second x tile from here
+
+  const int kend = round_up(n, 8);          // depth: the chunk's tokens
+  const int ncb = (np + 31) / 32;           // column blocks of 32 of N
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) stage_x(it + 1, (it + 1) & 1 ? xs1 : xs);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    for (int e = tid; e < n * hd; e += kThreads) {
-      const int j = e / hd, d = e % hd;
-      xs[j * hd + d] = to_f32(x[((row0 + j) * H + h) * hd + d]) * dts[j];
-    }
-    if (tid == 0) {  // the chunk's cumulative log-decay, in token order
-      float run = 0.f;
-      for (int j = 0; j < n; ++j) {
-        run = fmaf(dts[j], ah, run);
-        ls[j] = run;
+    const int g = it / tiles, d0 = (it % tiles) * kTileD;
+    const T* xt = it & 1 ? xs1 : xs;
+    const float* w = wv + g * lp;
+    float* out = ws + (((long long)bi * H + h0 + g) * nc + c) * hd * N;
+    // warp item: state rows d0 + m0 .. + 15, columns n0 .. n0 + 31
+    for (int wi = warp; wi < 4 * ncb; wi += kWarps) {
+      const int m0 = (wi % 4) * 16, n0 = (wi / 4) * 32;
+      if (d0 + m0 >= hd) continue;
+      const int live = min(4, (np - n0) / 8);   // column tiles inside N
+      float acc[4][4] = {};
+      for (int j0 = 0; j0 < kend; j0 += 8) {
+        const int jp = j0 + 2 * tig;       // tokens of k slots t, t + 4
+        const float2 w2 = ld2(w + jp);
+        const T* x0 = xt + jp * xp + m0 + gid;
+        FragA fa;
+        fa.set(0, to_f32(x0[0]) * w2.x);
+        fa.set(1, to_f32(x0[8]) * w2.x);
+        fa.set(2, to_f32(x0[xp]) * w2.y);
+        fa.set(3, to_f32(x0[xp + 8]) * w2.y);
+        FragB fb[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt < live) {
+            const int o = (n0 + nt * 8 + gid) * tp + jp;
+            const uint2 big = *reinterpret_cast<const uint2*>(tb + o);
+            const uint2 small = *reinterpret_cast<const uint2*>(tsm + o);
+            fb[nt].big[0] = big.x;
+            fb[nt].big[1] = big.y;
+            fb[nt].small[0] = small.x;
+            fb[nt].small[1] = small.y;
+          }
+        }
+        mma3(acc, fa, fb, live);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int k = n0 + nt * 8 + 2 * tig;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int d = d0 + m0 + gid + 8 * half;
+          if (d < hd)
+            store_pair(out + (long long)d * N, k, N, acc[nt][2 * half],
+                       acc[nt][2 * half + 1]);
+        }
       }
     }
-    __syncthreads();
-    for (int j = tid; j < n; j += kThreads) {
-      els[j] = expf(ls[j]);
-      des[j] = expf(ls[n - 1] - ls[j]);
-    }
-    for (int e = tid; e < n * n; e += kThreads) {
-      const int t = e / n, j = e % n;
-      float w = 0.f;
-      if (j <= t) {
-        float s = 0.f;
-        for (int k = 0; k < N; ++k) s = fmaf(cs[t * NP + k], bs[j * NP + k], s);
-        w = expf(ls[t] - ls[j]) * s;
+    __syncthreads();   // the buffer is staged again two items on
+  }
+}
+
+// Grid ceil(B H hd N / (V kPassThreads)).  Each thread walks V neighbouring
+// elements of one (batch, head)'s state through the chunks in order: h_in[c]
+// = h written over S_c, then h = decay_c h + S_c; state0 in, the final
+// state out.  ws as ssd_chunk_state left it.
+template <typename T, int V>
+__global__ void __launch_bounds__(kPassThreads)
+ssd_chunk_pass(const T* __restrict__ state0, T* __restrict__ sf, float* ws,
+               const float* __restrict__ decay, long long total, int hdn,
+               int nc) {
+  const long long e =
+      ((long long)blockIdx.x * kPassThreads + threadIdx.x) * V;
+  if (e >= total) return;
+  const long long bh = e / hdn;
+  float* s = ws + bh * nc * hdn + e % hdn;
+  const float* dc = decay + bh * nc;
+  float h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) h[v] = to_f32(state0[e + v]);
+  for (int c0 = 0; c0 < nc; c0 += kPassAhead) {
+    float sv[kPassAhead][V], dv[kPassAhead];
+#pragma unroll
+    for (int u = 0; u < kPassAhead; ++u) {
+      if (c0 + u >= nc) break;
+      const float* p = s + (long long)(c0 + u) * hdn;
+      if constexpr (V == 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p);
+        sv[u][0] = q.x;
+        sv[u][1] = q.y;
+        sv[u][2] = q.z;
+        sv[u][3] = q.w;
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) sv[u][v] = p[v];
       }
-      ws[t * L + j] = w;
+      dv[u] = dc[c0 + u];
     }
-    __syncthreads();
-    // outputs: inter-chunk term from the carried state, intra-chunk term
-    for (int e = tid; e < n * hd; e += kThreads) {
-      const int t = e / hd, d = e % hd;
-      float inter = 0.f;
-      for (int k = 0; k < N; ++k) inter = fmaf(cs[t * NP + k], hs[d * NP + k], inter);
-      float intra = 0.f;
-      for (int j = 0; j <= t; ++j) intra = fmaf(ws[t * L + j], xs[j * hd + d], intra);
-      y[((row0 + t) * H + h) * hd + d] = from_f32<T>(fmaf(els[t], inter, intra));
+#pragma unroll
+    for (int u = 0; u < kPassAhead; ++u) {
+      if (c0 + u >= nc) break;
+      float* p = s + (long long)(c0 + u) * hdn;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(h[0], h[1], h[2], h[3]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) p[v] = h[v];
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        h[v] = __fadd_rn(__fmul_rn(dv[u], h[v]), sv[u][v]);
     }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) sf[e + v] = from_f32<T>(h[v]);
+}
+
+// Grid (nc, ceil(H / G), B), kThreads: chunk c of batch bi, heads h0 ..
+// h0 + G - 1.  Operands as for ssd_chunk_state, plus cm (C, (B, T, N)) and
+// ws as ssd_chunk_pass left it (h_in); writes y (B, T, H, hd).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ b,
+              const T* __restrict__ cm, const T* __restrict__ dt,
+              const T* __restrict__ a, const float* __restrict__ ws,
+              T* __restrict__ y, int Tn, int H, int hd, int N, int L, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lp = round_up(L, 16), np = round_up(N, 8);
+  const int cp = np + kPad, sp = lp + kPad, hp = np + kPad;   // row pitches
+  const int xp = kTileD + pad_x<T>();
+  const int tile = static_cast<int>(sizeof(T)) * lp * cp;
+  const int buf = out_buffer<T>(L, N);
+  T* cs = reinterpret_cast<T*>(smem);                          // (lp, cp)
+  float* cb = reinterpret_cast<float*>(smem + tile);           // (lp, sp)
+  unsigned char* bufs = smem + tile + 4 * lp * sp;             // 2 buffers
+  T* bs = reinterpret_cast<T*>(bufs + buf);    // (lp, cp): B, in buffer 1
+  float* dtv = reinterpret_cast<float*>(bufs + buf + (buf > tile ? buf
+                                                                 : tile));
+  float* lv = dtv + G * lp;                    // (G, lp): l
+  float* ev = lv + G * lp;                     // (G, lp): exp(l)
+  const int c = blockIdx.x, nc = gridDim.x, h0 = blockIdx.y * G;
+  const int bi = blockIdx.z;
+  const int t0 = c * L, n = min(L, Tn - t0), heads = min(G, H - h0);
+  const int tiles = (hd + kTileD - 1) / kTileD, items = heads * tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const long long row0 = (long long)bi * Tn + t0;
+  const int mtiles = lp / 16;
+
+  // buffer k: the x tile (lp, xp), then the h_in tile (kTileD, hp) fp32
+  auto xbuf = [&](int k) { return reinterpret_cast<T*>(bufs + k * buf); };
+  auto hbuf = [&](int k) {
+    return reinterpret_cast<float*>(bufs + k * buf +
+                                    sizeof(T) * lp * xp);
+  };
+  auto stage_item = [&](int it, int k) {
+    const int g = it / tiles, d0 = (it % tiles) * kTileD;
+    const int rows = min(kTileD, hd - d0);
+    stage<T, VEC>(xbuf(k), xp, x + (row0 * H + h0 + g) * hd + d0,
+                  (long long)H * hd, n, rows, lp, kTileD);
+    stage<float, VEC>(
+        hbuf(k), hp,
+        ws + (((long long)bi * H + h0 + g) * nc + c) * hd * N +
+            (long long)d0 * N,
+        N, rows, N, kTileD, np);
+  };
+  stage<T, VEC>(cs, cp, cm + row0 * N, N, n, N, lp, np);
+  stage<T, VEC>(bs, cp, b + row0 * N, N, n, N, lp, np);
+  stage_item(0, 0);
+  cp_async_commit();
+  load_dt(dtv, dt, row0, n, lp, H, h0, heads);
+  __syncthreads();
+  if (warp < heads) {
+    chunk_cumsum(dtv + warp * lp, to_f32(a[h0 + warp]), lv + warp * lp, lp,
+                 lane);
+    __syncwarp();
+    for (int j = lane; j < lp; j += 32)
+      ev[warp * lp + j] = expf(lv[warp * lp + j]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // C B^T on and below the diagonal: warp items of 16 rows x 32 columns
+  const int jcb = (lp + 31) / 32;
+  for (int wi = warp; wi < mtiles * jcb; wi += kWarps) {
+    const int m0 = (wi % mtiles) * 16, n0 = (wi / mtiles) * 32;
+    if (n0 > m0 + 15) continue;
+    // column tiles inside the chunk and at or below the diagonal
+    const int live = min(4, (min(lp, m0 + 16) - n0) / 8);
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < np; k0 += 8) {
+      const int kp = k0 + 2 * tig;
+      const float2 c0 = ld2(cs + (m0 + gid) * cp + kp);
+      const float2 c1 = ld2(cs + (m0 + gid + 8) * cp + kp);
+      FragA fa;
+      fa.set(0, c0.x);
+      fa.set(1, c1.x);
+      fa.set(2, c0.y);
+      fa.set(3, c1.y);
+      FragB fb[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < live) {
+          const float2 b2 = ld2(bs + (n0 + nt * 8 + gid) * cp + kp);
+          fb[nt].set(0, b2.x);
+          fb[nt].set(1, b2.y);
+        }
+      }
+      mma3(acc, fa, fb, live);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nt < live) {
+        float* r = cb + (m0 + gid) * sp + n0 + nt * 8 + 2 * tig;
+        *reinterpret_cast<float2*>(r) = make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(r + 8 * sp) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+  __syncthreads();     // B's buffer is free from here
+
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) stage_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // the state at the chunk's end; each thread owns its (d, k) entries
-    const float decay = els[n - 1];
-    for (int e = tid; e < hd * N; e += kThreads) {
-      const int d = e / N, k = e % N;
-      float acc = decay * hs[d * NP + k];
-      for (int j = 0; j < n; ++j)
-        acc = fmaf(des[j] * xs[j * hd + d], bs[j * NP + k], acc);
-      hs[d * NP + k] = acc;
+    const int g = it / tiles, d0 = (it % tiles) * kTileD;
+    const T* xt = xbuf(it & 1);
+    const float* ht = hbuf(it & 1);
+    const float* dg = dtv + g * lp;
+    const float* lg = lv + g * lp;
+    const float* eg = ev + g * lp;
+    T* yh = y + (row0 * H + h0 + g) * hd + d0;     // token r: + r H hd
+    // warp item: tokens m0 .. m0 + 15, state rows d0 + n0 .. + 31
+    for (int wi = warp; wi < 2 * mtiles; wi += kWarps) {
+      const int m0 = (wi % mtiles) * 16, n0 = (wi / mtiles) * 32;
+      if (d0 + n0 >= hd || m0 >= n) continue;
+      const int r0 = m0 + gid, r1 = r0 + 8;
+      float acc[4][4] = {};
+      // inter-chunk: C_t . h_in[d], then times exp(l_t)
+      for (int k0 = 0; k0 < np; k0 += 8) {
+        const int kp = k0 + 2 * tig;
+        const float2 c0 = ld2(cs + r0 * cp + kp);
+        const float2 c1 = ld2(cs + r1 * cp + kp);
+        FragA fa;
+        fa.set(0, c0.x);
+        fa.set(1, c1.x);
+        fa.set(2, c0.y);
+        fa.set(3, c1.y);
+        FragB fb[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float2 h2 = ld2(ht + (n0 + nt * 8 + gid) * hp + kp);
+          fb[nt].set(0, h2.x);
+          fb[nt].set(1, h2.y);
+        }
+        mma3(acc, fa, fb);
+      }
+      const float e0 = eg[r0], e1 = eg[r1];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        acc[nt][0] *= e0;
+        acc[nt][1] *= e0;
+        acc[nt][2] *= e1;
+        acc[nt][3] *= e1;
+      }
+      // intra-chunk: W_tj dt_j x_j over j <= t
+      const float l0 = lg[r0], l1 = lg[r1];
+      const int jend = min(m0 + 16, round_up(n, 8));
+      for (int j0 = 0; j0 < jend; j0 += 8) {
+        const int jp = j0 + 2 * tig;       // tokens of k slots t, t + 4
+        const float2 l2 = ld2(lg + jp);
+        const float2 w0 = ld2(cb + r0 * sp + jp);
+        const float2 w1 = ld2(cb + r1 * sp + jp);
+        FragA fa;
+        fa.set(0, jp <= r0 ? w0.x * __expf(l0 - l2.x) : 0.f);
+        fa.set(1, jp <= r1 ? w1.x * __expf(l1 - l2.x) : 0.f);
+        fa.set(2, jp + 1 <= r0 ? w0.y * __expf(l0 - l2.y) : 0.f);
+        fa.set(3, jp + 1 <= r1 ? w1.y * __expf(l1 - l2.y) : 0.f);
+        const float2 d2 = ld2(dg + jp);
+        const T* x0 = xt + jp * xp + n0 + gid;
+        FragB fb[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          fb[nt].set(0, to_f32(x0[nt * 8]) * d2.x);
+          fb[nt].set(1, to_f32(x0[xp + nt * 8]) * d2.y);
+        }
+        mma3(acc, fa, fb);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int k = n0 + nt * 8 + 2 * tig;
+        if (r0 < n)
+          store_pair(yh + (long long)r0 * H * hd, k, hd - d0, acc[nt][0],
+                     acc[nt][1]);
+        if (r1 < n)
+          store_pair(yh + (long long)r1 * H * hd, k, hd - d0, acc[nt][2],
+                     acc[nt][3]);
+      }
     }
     __syncthreads();
   }
-
-#pragma unroll 4
-  for (int e = tid; e < hd * N; e += kThreads)
-    sf[sbase + e] = from_f32<T>(hs[(e / N) * NP + e % N]);
 }
 
 // The column of slot e of the state values a lane holds, for a row held by
@@ -248,7 +790,7 @@ __device__ __forceinline__ void store_state(T* __restrict__ row, int lane,
 
 // Grid (B * H * ceil(hd / rows)), rows = kDecodeThreads / lanes: a block owns
 // rows d0 .. d0 + rows - 1 of head h of batch bi, a row `lanes` lanes.
-// Operands as for ssd_chunk_kernel.
+// Operands as for ssd_chunk_out, plus state0; writes y and sf.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kDecodeThreads)
 ssd_decode(const T* __restrict__ x, const T* __restrict__ b,
@@ -312,11 +854,51 @@ ssd_decode(const T* __restrict__ x, const T* __restrict__ b,
   if (live) store_state<T, VEC>(sf + srow, lane, lanes, N, s);
 }
 
+
+// The three chunk kernels, on the host plan (ssd_chunk.py: plan_ssd), checked:
+// a launch that does not match it is refused.
+template <typename T, bool VEC>
+int launch_chunks(int device, const T* x, const T* b, const T* c,
+                  const T* dt, const T* a, const T* state0, T* y, T* sf,
+                  float* ws, int B, int Tn, int H, int hd, int N, int L,
+                  int G, int smem_state, int smem_out, cudaStream_t stream) {
+  const int nc = (Tn + L - 1) / L, groups = (H + G - 1) / G;
+  const long long total = (long long)B * H * hd * N;
+  const int V = (hd * N) % kPassElems == 0 ? kPassElems : 1;
+  const long long pass_blocks =
+      (total / V + kPassThreads - 1) / kPassThreads;
+  if (B > 65535 || groups > 65535 || pass_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = configure_smem_once<ssd_chunk_state<T, VEC>>(device);
+  if (err == 0) err = configure_smem_once<ssd_chunk_out<T, VEC>>(device);
+  if (err != 0) return err;
+  float* decay = ws + total * nc;
+  const dim3 grid(nc, groups, B);
+  ssd_chunk_state<T, VEC><<<grid, kThreads, smem_state, stream>>>(
+      x, b, dt, a, ws, decay, Tn, H, hd, N, L, G);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  if (V == kPassElems)
+    ssd_chunk_pass<T, kPassElems>
+        <<<static_cast<unsigned>(pass_blocks), kPassThreads, 0, stream>>>(
+            state0, sf, ws, decay, total, hd * N, nc);
+  else
+    ssd_chunk_pass<T, 1>
+        <<<static_cast<unsigned>(pass_blocks), kPassThreads, 0, stream>>>(
+            state0, sf, ws, decay, total, hd * N, nc);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_chunk_out<T, VEC><<<grid, kThreads, smem_out, stream>>>(
+      x, b, c, dt, a, ws, y, Tn, H, hd, N, L, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(int device, const void* xv, const void* bv, const void* cv,
            const void* dtv, const void* av, const void* s0v, void* yv,
-           void* sfv, int B, int Tn, int H, int hd, int N, int variant,
-           int lanes, int L, int smem, cudaStream_t stream) {
+           void* sfv, void* wsv, int B, int Tn, int H, int hd, int N,
+           int variant, int lanes, int L, int smem, int heads,
+           int smem_state, int vec, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* b = static_cast<const T*>(bv);
   const T* c = static_cast<const T*>(cv);
@@ -328,12 +910,26 @@ int launch(int device, const void* xv, const void* bv, const void* cv,
   if (B < 1 || Tn < 1 || H < 1 || hd < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == kChunk) {
-    if (L < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const int set = configure_smem_once<ssd_chunk_kernel<T>>(device);
-    if (set != 0) return set;
-    ssd_chunk_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
-        x, b, c, dt, a, state0, y, sf, Tn, H, hd, N, L);
-    return static_cast<int>(cudaGetLastError());
+    auto aligned = [](const void* p) {
+      return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+    };
+    const bool stageable =
+        aligned(x) && aligned(b) && aligned(c) &&
+        (static_cast<long long>(hd) * sizeof(T)) % 16 == 0 &&
+        (static_cast<long long>(N) * sizeof(T)) % 16 == 0;
+    if (L < 1 || L > kMaxChunk || heads < 1 || heads > kMaxHeads ||
+        wsv == nullptr || smem_state != state_smem<T>(L, N, heads) ||
+        smem != out_smem<T>(L, N, heads) || (vec != 0 && vec != 1) ||
+        (vec == 1 && !stageable))
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* ws = static_cast<float*>(wsv);
+    if (vec)
+      return launch_chunks<T, true>(device, x, b, c, dt, a, state0, y, sf,
+                                    ws, B, Tn, H, hd, N, L, heads,
+                                    smem_state, smem, stream);
+    return launch_chunks<T, false>(device, x, b, c, dt, a, state0, y, sf, ws,
+                                   B, Tn, H, hd, N, L, heads, smem_state,
+                                   smem, stream);
   }
   // the host plan, checked: a launch that does not match it is refused
   const bool aligned =
@@ -367,24 +963,32 @@ int launch(int device, const void* xv, const void* bv, const void* cv,
 // x and y (B, T, H, hd), b and c (B, T, N), dt (B, T, H), a (H), state0 and
 // sf (B, H, hd, N).  The plan (ssd_chunk.py: plan_ssd): variant 0 and 1 are
 // the decode kernel with 16-byte and with scalar state loads, `lanes` lanes
-// per state row and smem = 4 T (1 + 2 N + 128 / lanes) bytes; variant 2 is
-// the chunk kernel with chunk length L and smem = 4 (hd (N+1) + L hd +
-// 2 L (N+1) + L^2 + 4 L) bytes, which the caller has checked fits a block.
-// Returns the CUDA error code of the launch.
+// per state row and smem = 4 T (1 + 2 N + 128 / lanes) bytes (ws, heads,
+// smem_state and vec unused); variant 2 is the three chunk kernels with
+// chunk length L (<= 128), `heads` (<= 4) heads a state and out block,
+// smem_state and smem bytes of dynamic shared memory for the state and out
+// blocks (state_smem and out_smem above, which the caller has checked fit
+// a block), vec 1 to stage with 16-byte cp.async copies (x, b and c 16-byte
+// aligned, hd and N whole 16-byte rows) and 0 for synchronous loads, and
+// ws the fp32 workspace of B H ceil(T / L) (hd N + 1) floats.  Returns the
+// CUDA error code of the first launch that failed, or 0.
 extern "C" int ssd_chunk_launch(int device, int dtype, const void* x,
                                 const void* b, const void* c, const void* dt,
                                 const void* a, const void* state0, void* y,
-                                void* sf, int B, int Tn, int H, int hd, int N,
-                                int variant, int lanes, int L, int smem,
+                                void* sf, void* ws, int B, int Tn, int H,
+                                int hd, int N, int variant, int lanes, int L,
+                                int smem, int heads, int smem_state, int vec,
                                 void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(device, x, b, c, dt, a, state0, y, sf, B, Tn, H, hd,
-                         N, variant, lanes, L, smem, s);
+    return launch<float>(device, x, b, c, dt, a, state0, y, sf, ws, B, Tn, H,
+                         hd, N, variant, lanes, L, smem, heads, smem_state,
+                         vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(device, x, b, c, dt, a, state0, y, sf, B,
-                                 Tn, H, hd, N, variant, lanes, L, smem, s);
+    return launch<__nv_bfloat16>(device, x, b, c, dt, a, state0, y, sf, ws,
+                                 B, Tn, H, hd, N, variant, lanes, L, smem,
+                                 heads, smem_state, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -116,18 +116,61 @@ HADAMARD_TILES = {(128, 128): 2, (128, 64): 3, (64, 128): 3}
 #: decode_attention: cache positions per tile (a run is whole tiles)
 ATTN_TILE = 32
 
-#: ssd_chunk_scan: the chunk kernel's default tokens per chunk, and the
-#: most tokens the decode kernel steps (longer scans take the chunk kernel)
+#: ssd_chunk_scan: the chunk kernels' default tokens per chunk, and the
+#: most tokens the decode kernel steps (longer scans take the chunk kernels)
 SSD_CHUNK = 64
 SSD_DECODE_T_MAX = 16
+#: the chunk kernels' limits: tokens per chunk (8 row tiles of 16), state
+#: rows per tile, and heads per state or out block
+SSD_MAX_CHUNK = 128
+SSD_TILE_D = 64
+SSD_MAX_HEADS = 4
 
 
-def ssd_smem_bytes(hd: int, n: int, chunk: int) -> int:
-    """Shared memory of one SSD chunk-kernel block: the (hd, N+1) state,
-    (L, hd) x * dt, (L, N+1) B and C, the (L, L) tile and four (L,)
-    vectors, in fp32."""
-    return 4 * (hd * (n + 1) + chunk * hd + 2 * chunk * (n + 1)
-                + chunk * chunk + 4 * chunk)
+def _ssd_dims(n: int, chunk: int) -> Tuple[int, int]:
+    """A chunk's rows padded to whole 16-row tiles, N to whole 8-wide
+    steps."""
+    return round_up(chunk, 16), round_up(n, 8)
+
+
+def _ssd_pad_x(elt: int) -> int:
+    """Row padding, in elements, of the kernels' x tiles."""
+    return 4 if elt == 4 else 8
+
+
+def ssd_state_smem(n: int, chunk: int, elt: int = 4,
+                   heads: int = SSD_MAX_HEADS) -> int:
+    """Shared memory of one `ssd_chunk_state` block (`csrc/ssd_chunk.cu`:
+    state_smem): B^T split into its two TF32 parts, fp32 words; two x
+    tiles, the second at least B's size as staged (rows padded by 8
+    elements); two (heads, chunk) fp32 vectors."""
+    lp, np_ = _ssd_dims(n, chunk)
+    x_tile = lp * (SSD_TILE_D + _ssd_pad_x(elt))
+    b_tile = lp * (np_ + 8)
+    return (4 * 2 * np_ * (lp + 8) + elt * (x_tile + max(x_tile, b_tile))
+            + 4 * 2 * heads * lp)
+
+
+def ssd_out_smem(n: int, chunk: int, elt: int = 4,
+                 heads: int = SSD_MAX_HEADS) -> int:
+    """Shared memory of one `ssd_chunk_out` block (`out_smem`): C, the
+    (chunk, chunk) fp32 C B^T, two buffers of an x tile and an fp32 h_in
+    tile (the second at least B's size) and three (heads, chunk) fp32
+    vectors."""
+    lp, np_ = _ssd_dims(n, chunk)
+    tile = elt * lp * (np_ + 8)
+    buf = (elt * lp * (SSD_TILE_D + _ssd_pad_x(elt))
+           + 4 * SSD_TILE_D * (np_ + 8))
+    return (tile + 4 * lp * (lp + 8) + buf + max(buf, tile)
+            + 4 * 3 * heads * lp)
+
+
+def ssd_smem_bytes(n: int, chunk: int, elt: int = 4,
+                   heads: int = SSD_MAX_HEADS) -> int:
+    """The larger block of the SSD chunk kernels' two tiled ones; hd does
+    not enter (the state is taken in tiles of SSD_TILE_D rows)."""
+    return max(ssd_state_smem(n, chunk, elt, heads),
+               ssd_out_smem(n, chunk, elt, heads))
 
 
 # ---------------------------------------------------------------- launches
@@ -169,7 +212,7 @@ class LaunchParam:
 
     ``extent`` names the key of the call's extents it may not exceed
     (padded to ``align``); ``applies`` says for which extents the kernel
-    reads it at all (the GEMV or the tiled product, the chunk kernel or
+    reads it at all (the GEMV or the tiled product, the chunk kernels or
     the decode kernel).  A ``closed`` parameter takes only its
     ``candidates`` (the instantiations the kernel has); an open one any
     aligned value, and ``candidates`` are what the autotuner searches.
@@ -362,12 +405,16 @@ def _check_attention(v: Dict[str, int], e: Mapping[str, int]) -> None:
 
 
 def _check_ssm(v: Dict[str, int], e: Mapping[str, int]) -> None:
-    smem = ssd_smem_bytes(e["hd"], e["n"], v["chunk"])
+    if v["chunk"] > SSD_MAX_CHUNK:
+        raise ValueError(f"illegal ssd_chunk_scan launch chunk={v['chunk']}:"
+                         f" the chunk kernels take at most {SSD_MAX_CHUNK} "
+                         f"tokens a chunk")
+    smem = ssd_smem_bytes(e["n"], v["chunk"])
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"illegal ssd_chunk_scan launch chunk={v['chunk']}:"
-                         f" {smem} B of shared memory at hd={e['hd']}, "
-                         f"N={e['n']}, over the {SMEM_PER_BLOCK} B a block "
-                         f"may use")
+                         f" {smem} B of shared memory at N={e['n']} (fp32, "
+                         f"{SSD_MAX_HEADS} heads a block), over the "
+                         f"{SMEM_PER_BLOCK} B a block may use")
 
 
 _SPECS: Dict[str, LaunchSpec] = {
@@ -406,7 +453,7 @@ _SPECS: Dict[str, LaunchSpec] = {
     "ssm": LaunchSpec(
         kind="ssm", kernel="ssd_chunk_scan",
         params=(
-            # tokens per chunk of the chunk kernel: regroups the scan
+            # tokens per chunk of the chunk kernels: regroups the scan
             LaunchParam("chunk", "t", 1, (8, 16, 32, 64, 128),
                         lambda e: e["t"] > SSD_DECODE_T_MAX, reduction=True),
         ),

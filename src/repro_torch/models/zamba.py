@@ -16,7 +16,7 @@ eagerly, so the port keeps one param dict per layer
 layout.  Prefill and decode write the cache in place.
 
 Every Mamba2 layer's SSD core is one `ssd_chunk_scan` call
-(`models/ssm.py`): on the card, prefill launches the chunk kernel and a
+(`models/ssm.py`): on the card, prefill launches the chunk kernels and a
 decode step the decode kernel, once per layer each.  The model is neither
 pad-aware nor per-slot: the reference's is not, so a left-padded prompt
 runs through the SSM as it does there, and the continuous scheduler

@@ -169,7 +169,8 @@ def test_the_table_and_the_kernel_planners_share_their_facts():
     assert da.TILE == tiles.ATTN_TILE
     assert (sc.CHUNK, sc.DECODE_T_MAX) == (tiles.SSD_CHUNK,
                                            tiles.SSD_DECODE_T_MAX)
-    assert sc.smem_bytes(64, 64, 128) == tiles.ssd_smem_bytes(64, 64, 128)
+    assert sc.smem_bytes is tiles.ssd_smem_bytes
+    assert sc.HEAD_GROUPS[0] == tiles.SSD_MAX_HEADS
     # every tile's resident blocks fit an SM's 228 KB together: a ring of
     # 3 fp32 K slices of 16 rows of A and of B per block
     for (bm, bn), resident in tiles.HADAMARD_TILES.items():

@@ -279,9 +279,14 @@ def test_decode_attention_is_bit_identical_from_call_to_call(
 @pytest.mark.parametrize("b,t,h,hd,n", [
     (1, 1, 112, 64, 64),              # zamba2-7b decode step
     (1, 16, 112, 64, 64),             # DECODE_T_MAX: the decode kernel
-    (1, 17, 112, 64, 64),             # one more: the chunk kernel
+    (1, 17, 112, 64, 64),             # one more: the chunk kernels
+    (1, 64, 8, 64, 64),               # chunk boundaries: one whole chunk,
+    (1, 65, 8, 64, 64),               # one more token, two chunks,
+    (1, 128, 8, 64, 64),              # two and a token
+    (1, 129, 8, 64, 64),
     (1, 300, 8, 64, 64),              # chunked, ragged last chunk
     (2, 100, 6, 32, 16),
+    (4, 512, 112, 64, 64),            # the zamba2-7b bf16 prefill's call
     (2, 3, 5, 20, 12),                # decode, ragged rows and N
 ])
 def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype,
@@ -311,6 +316,28 @@ def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype,
     sf_p, y_p = ssd_chunk_scan_plain(*ins)
     _close(y, y_p, dtype)
     _close(sf, sf_p, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hd,n,chunk", [
+    (4, 512, 112, 64, 64, None), (1, 4096, 112, 64, 64, None),
+    (2, 300, 6, 32, 16, 128), (1, 100, 5, 20, 12, 16)])
+def test_ssd_chunk_kernels_are_bit_identical_from_call_to_call(
+        cuda, b, t, h, hd, n, chunk, dtype):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
+    g = torch.Generator(device=cuda).manual_seed(b + t)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    ins = [u.to(dtype) for u in (
+        rand(b, t, h, hd), rand(b, t, n) / n ** 0.5, rand(b, t, n) / n ** 0.5,
+        0.05 + 0.2 * torch.sigmoid(rand(b, t, h)), -(0.1 + rand(h).abs()),
+        rand(b, h, hd, n) / n ** 0.5)]
+    launch = None if chunk is None else {"chunk": chunk}
+    sf, y = ssd_chunk_scan(*ins, launch=launch)
+    for _ in range(3):
+        again_sf, again_y = ssd_chunk_scan(*ins, launch=launch)
+        assert torch.equal(again_sf, sf) and torch.equal(again_y, y)
 
 
 def test_decode_kernels_refuse_what_they_do_not_take(cuda):
@@ -758,7 +785,7 @@ def _zamba_mixer(dtype, seed=0):
 def test_mamba2_mix_launches_the_ssd_kernel_and_matches_the_cpu(cuda, dtype,
                                                                  t):
     """One `ssd_chunk_scan` launch per call (the decode kernel at T = 1,
-    the chunk kernel above 16 tokens), and y, the final state and the
+    the chunk kernels above 16 tokens), and y, the final state and the
     conv carry within 1e-4 (fp32) or 5e-2 (bf16) of the same call on the
     CPU, which tests/test_torch_zamba.py ties to the reference's."""
     from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
@@ -782,7 +809,7 @@ def test_mamba2_mix_launches_the_ssd_kernel_and_matches_the_cpu(cuda, dtype,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reduced_zamba_on_the_card_matches_the_cpu(cuda, dtype):
-    """Prefill (T = 40: the chunk kernel) and three decode steps (the
+    """Prefill (T = 40: the chunk kernels) and three decode steps (the
     decode kernel) of reduced zamba2-7b with 4 layers: one SSD launch per
     Mamba2 layer each, and the logits within 1e-4 (fp32) or 5e-2 (bf16)
     of the same weights' on the CPU."""

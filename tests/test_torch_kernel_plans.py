@@ -3,9 +3,9 @@
 `plan_launch` (split_matmul's split-K GEMV), `plan_hadamard`
 (hadamard_matmul's register-blocked GEMM), `plan_attention`
 (decode_attention's runs over the attended range) and `plan_ssd`
-(ssd_chunk_scan's decode or chunk kernel) are the host halves of the CUDA
-kernels: the variant, the tiles, the splits or runs and the block shape
-that the C launchers take as arguments.  The shapes are the ones
+(ssd_chunk_scan's decode kernel or chunk kernels) are the host halves of
+the CUDA kernels: the variant, the tiles, the splits or runs and the block
+shape that the C launchers take as arguments.  The shapes are the ones
 `chip_smoke.py` runs on the card (`SPLIT_CASES`, `HADAMARD_CASES`,
 `ATTN_CASES`, `SSD_CASES`), read from the script so the two stay one list.
 """
@@ -397,8 +397,10 @@ def test_ssd_takes_the_decode_kernel_up_to_decode_t_max(case, dtype):
         assert plan.variant == sc.DECODE_VECTOR
         assert plan.smem == 4 * t * (1 + 2 * n + plan.rows)
     else:
-        assert plan.variant == sc.CHUNKED
-        assert (plan.blocks, plan.chunk) == (b * h, min(sc.CHUNK, t))
+        # the chunk kernels: every chunk, head group and batch a block
+        assert plan.variant == sc.CHUNKED and plan.chunk == min(sc.CHUNK, t)
+        assert plan.grid == (-(-t // plan.chunk), -(-h // plan.heads), b)
+        assert plan.blocks == plan.grid[0] * plan.grid[1] * b
 
 
 @pytest.mark.parametrize("t,variant", [
@@ -441,7 +443,7 @@ def test_ssd_decode_loads_16_bytes_only_where_aligned(offsets, n, elt,
 
 
 def test_ssd_wide_states_and_long_scans_take_the_chunk_kernel():
-    # N = 300 is over 32 lanes' registers; at T = 1 the chunk kernel runs
+    # N = 300 is over 32 lanes' registers; at T = 1 the chunk kernels run
     assert sc.plan_ssd(1, 1, 4, 16, 300, 4, (ALIGNED,) * 2).variant == \
         sc.CHUNKED
     assert sc.plan_ssd(1, 4096, 112, 64, 64, 4, (ALIGNED,) * 2).chunk == \
