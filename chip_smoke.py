@@ -36,7 +36,7 @@ the port cannot be imported, and otherwise runs, in order:
    to the committed artifact's (checksum included), then compiled again
    from the warm plan cache; cold and warm seconds, the host's CPU model
    (`lscpu`) and numpy's version printed;
-5. five main paths (`PATHS`), each running the network the port compiled
+5. seven main paths (`PATHS`), each running the network the port compiled
    in phase 4 (strict: the port's static verifier checks its plan) on two
    CUDA-stream groups for a few seeded inputs ("requests"), each output
    held against `run_oracle` on the card, with every kernel's launch
@@ -49,6 +49,15 @@ the port cannot be imported, and otherwise runs, in order:
      two streams, projection shortcuts through `_adapt`);
    - inception_v3 at 299x299x3 (`split_matmul`, `hadamard_matmul` on both
      sides of its one Winograd node; 68 fused segments);
+   - rwkv6-1.6b's two plans at full width and depth (24 blocks): the
+     decode step (every node on one group: `split_matmul` as a GEMV at
+     M = 1, `ssd_chunk_scan`'s decode kernel at H = 64, hd = 64, N = 16)
+     and the chunked prefill of 512 tokens (every node split:
+     `split_matmul`'s tiled product at M = 512 on channel panels,
+     `ssd_chunk_scan`'s chunk kernels on ssm-state halves); right after
+     each path's per-node walk, every distinct kernel call of one of its
+     requests is held against its plain version in float32 and bfloat16
+     and timed (`HELD_PATHS`, `hold_walk_calls`);
 6. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
 7. the fused segment walk of each path (`run(fused=True)`): every fused
@@ -126,9 +135,9 @@ the port cannot be imported, and otherwise runs, in order:
    held.  Each serve walk's launch counts are set
    to 0 just before it and read just after, and `split_matmul` and
    `decode_attention` must launch in each;
-12. the `zamba2-7b model` phase (`model_phase`): zamba2-7b (`MODEL_ARCH`)
-   at its published widths and full depth (81 Mamba2 layers of 112 SSM
-   heads x 64 and state 64, the shared attention applied 9 times: 6.6 B
+12. the model phases (`model_phase`, one per `MODEL_ARCHS` entry), first
+   zamba2-7b at its published widths and full depth (81 Mamba2 layers of
+   112 SSM heads x 64 and state 64, the shared attention applied 9 times: 6.6 B
    parameters), its weights seeded draws made on the card; every Mamba2
    layer's SSD core is one `ssd_chunk_scan` launch per pass (the chunk
    kernel in a prefill, the decode kernel in a decode step).  In fp32
@@ -146,7 +155,15 @@ the port cannot be imported, and otherwise runs, in order:
    `MODEL_SERVE_NEW` new tokens each (tokens/s), a prefill at that batch
    timed bare and under torch.profiler (device time by kernel, idle
    share, the SSD chunk kernels' share), and a decode step at batch 1 and
-   4 (`decode_breakdown`), each beside the card's name and power limit;
+   4 (`decode_breakdown`), each beside the card's name and power limit.
+   Then rwkv6-1.6b the same way (24 RWKV6 layers, d_model 2048, 32 WKV
+   heads x 64, channel mix d_ff 7168, vocab 65536: 1.4 B parameters): its
+   WKV is plain PyTorch in both of the reference's branches, so each of
+   its passes launches none of the port's kernels (its plans, phase 5,
+   run them); the 512-token prompt takes the chunked WKV and `forward`
+   over 516 tokens the step recurrence, so that check holds one against
+   the other at full width; the profiled prefill sums the chunked WKV's
+   eager ops apart (`wkv_range`);
 13. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
@@ -216,6 +233,9 @@ REQUESTS = 4
 
 VGG, ZAMBA = "vgg16", "zamba2-7b"
 R18, R34, INC = "resnet18", "resnet34", "inception_v3"
+#: rwkv6-1.6b's two plans: the decode step and the chunked prefill of 512
+#: tokens (the reference models chunked prefill for pure-SSM configs only)
+RWKV, RWKV_PREFILL = "rwkv6-1.6b", "rwkv6-1.6b tokens=512"
 
 #: end-to-end tolerance against run_oracle, relative to the largest |oracle|
 #: value.  VGG16: Winograd reassociates every eligible conv's fp32 sums and
@@ -224,8 +244,12 @@ R18, R34, INC = "resnet18", "resnet34", "inception_v3"
 #: chunked SSD form against the step-by-step scan, and the kv-block
 #: log-sum-exp merge, through 9 residual blocks.  The resnets and
 #: inception_v3: the same fp32 reorderings (split and unsplit direct convs,
-#: inception's one Winograd node), held to the VGG16 bound.
-E2E_RTOL = {VGG: 2e-3, ZAMBA: 1e-4, R18: 2e-3, R34: 2e-3, INC: 2e-3}
+#: inception's one Winograd node), held to the VGG16 bound.  rwkv6-1.6b's
+#: plans: split/unsplit fp32 sums (GEMVs, and the tiled product at M = 512,
+#: K up to 4096), the SSD kernels against the step-by-step scan (the chunk
+#: kernels' 3xTF32 products at T = 512), through 24 residual blocks.
+E2E_RTOL = {VGG: 2e-3, ZAMBA: 1e-4, R18: 2e-3, R34: 2e-3, INC: 2e-3,
+            RWKV: 1e-4, RWKV_PREFILL: 1e-4}
 
 
 #: per-node/fused request pairs of the alternating wall measurement
@@ -266,6 +290,11 @@ SPLIT_CASES = [
     ("scalar c0=3 M=4", 4, 4096, 1000, 3, 997, {}),
     ("ragged M=17", 17, 100, 301, 96, 128, {}),
     ("ragged M=50", 50, 768, 3072, 2480, 592, {}),
+    # rwkv6-1.6b's prefill plan at M = 512 (the tiled product), whole
+    # weights; its walk's own split panels are held in `hold_walk_calls`
+    ("rwkv6 embed M=512", 512, 2048, 2048, 0, 2048, {}),
+    ("rwkv6 in_proj M=512", 512, 2048, 4096, 0, 4096, {}),
+    ("rwkv6 out_proj M=512", 512, 4096, 2048, 0, 2048, {}),
 ]
 
 #: (label, P, K, N, launches per request): P = ceil(H/2) * ceil(W/2) tiles
@@ -302,6 +331,10 @@ SSD_CASES = [
     ("prefill B=4 T=512", 4, 512, 112, 64, 64, {}),
     ("prefill T=4096", 1, 4096, 112, 64, 64, {}),
     ("ragged T=100", 2, 100, 6, 32, 16, {}),
+    # rwkv6-1.6b's plans at N = 16, whole: the decode step and the chunked
+    # prefill (its walks' ssm-state halves are held in `hold_walk_calls`)
+    ("rwkv6 b*.ssm decode", 1, 1, 64, 64, 16, {}),
+    ("rwkv6 b*.ssm T=512", 1, 512, 64, 64, 16, {}),
 ]
 
 #: the SSD chunk kernels' comparison shapes at zamba2-7b's widths (H = 112,
@@ -845,8 +878,8 @@ def compile_phase(paths) -> dict:
         for name, artifact, _, _ in paths:
             doc = json.loads(artifact.read_text())
             target = repro_torch.Target.from_json(doc["target"])
-            network = (from_model(ZAMBA, **ZAMBA_GRAPH) if name == ZAMBA
-                       else name)
+            network = (from_model(GRAPHS[name][0], **GRAPHS[name][1])
+                       if name in GRAPHS else name)
             before = predictor_files(predictors)
             t = time.perf_counter()
             net = repro_torch.compile(network, target, mode=doc["mode"],
@@ -1373,6 +1406,13 @@ def hold_model_calls(label: str, calls: dict, want: int, peaks: dict,
           f"{worst[torch.bfloat16]:.3e}", flush=True)
 
 
+def ssd_per_pass(cfg) -> int:
+    """`ssd_chunk_scan` launches of one model pass: one per Mamba2 layer;
+    none for RWKV6, whose WKV is plain PyTorch in both branches, as the
+    reference's is no Pallas kernel."""
+    return cfg.n_layers if cfg.ssm_kind == "mamba2" else 0
+
+
 def model_check(name: str, model, params, batch: int, t: int, rng,
                 smi: str) -> dict:
     """fp32: a prefill of `batch` seeded prompts of `t` tokens, then
@@ -1380,9 +1420,9 @@ def model_check(name: str, model, params, batch: int, t: int, rng,
     against `forward` over the same t + steps tokens within
     `MODEL_LOGIT_RTOL` of its largest |logit|.  The counts are set to 0
     just before the prefill and before the steps and read just after
-    each; every Mamba2 layer launches `ssd_chunk_scan` once per pass.
-    Returns the two walks."""
-    steps, layers = MODEL_DECODE_STEPS, model.cfg.n_layers
+    each; each pass launches `ssd_chunk_scan` `ssd_per_pass` times and no
+    other kernel.  Returns the two walks."""
+    steps, layers = MODEL_DECODE_STEPS, ssd_per_pass(model.cfg)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
                                          (batch, t + steps))).cuda()
     cache = model.init_cache(batch, t + steps, device="cuda")
@@ -1421,8 +1461,8 @@ def model_check(name: str, model, params, batch: int, t: int, rng,
                              f"differ from forward by {err:.3e} > "
                              f"{MODEL_LOGIT_RTOL} x {scale:.3g}")
     print(f"{label}: fp32 prefill of {batch} x {t} tokens in {wall:.3f} s "
-          f"({layers} ssd_chunk_scan launches: the chunk kernels) + {steps} "
-          f"decode steps ({steps * layers} launches: the decode kernel); "
+          f"({layers} ssd_chunk_scan launches) + {steps} decode steps "
+          f"({steps * layers} launches); "
           f"their last-position logits within {err:.3e} of forward over "
           f"{t + steps} tokens (largest |logit| {scale:.3g}, "
           f"{err / scale:.2e} of it, limit {MODEL_LOGIT_RTOL:g}); {smi}",
@@ -1430,26 +1470,32 @@ def model_check(name: str, model, params, batch: int, t: int, rng,
     return walks
 
 
-def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
-    """zamba2-7b (`MODEL_ARCH`) at its published widths and full depth (81
-    Mamba2 layers, the shared attention applied 9 times), its weights
-    seeded draws made on the card; every Mamba2 layer's SSD core is one
-    `ssd_chunk_scan` launch per pass:
+def model_phase(arch: str, peaks: dict, tallies: dict, smi: str) -> dict:
+    """A model of `MODEL_ARCHS` at its published widths and full depth,
+    its weights seeded draws made on the card: zamba2-7b (81 Mamba2
+    layers, the shared attention applied 9 times), every Mamba2 layer's
+    SSD core one `ssd_chunk_scan` launch per pass; rwkv6-1.6b (24 RWKV6
+    layers), which launches none of the port's kernels (its WKV is plain
+    PyTorch, as the reference's is no Pallas kernel; its plans run the
+    kernels, `PATHS`):
 
     - fp32, TF32 off: prefills of `MODEL_PROMPTS` tokens (a multiple of
-      256, the reference's chunked branch, and one that is not) and decode
-      steps held against `forward` (`model_check`); every SSD call of one
-      prefill and one decode step captured and held against its plain
-      version in float32 and bfloat16 (`hold_model_calls`); the
+      the reference's chunk, its chunked branch, and one that is not, its
+      step branch) and decode steps held against `forward` (`model_check`;
+      for rwkv6-1.6b `forward` over 516 tokens takes the step recurrence,
+      so the 512-token check holds the chunked WKV against it); every SSD
+      call of one prefill and one decode step captured and held against
+      its plain version in float32 and bfloat16 (`hold_model_calls`); the
       fixed-batch `ServingEngine` on `MODEL_EQUAL_REQUESTS` equal-length
       greedy prompts, each completion equal to the request served alone,
-      token for token (Zamba is not pad-aware, in the reference too, so
-      only equal lengths batch exactly);
+      token for token (neither model is pad-aware, in the reference too,
+      so only equal lengths batch exactly);
     - bf16: the fixed-batch engine on `MODEL_SERVE_REQUESTS` requests of
       `MODEL_SERVE_PROMPT` tokens at batch `MODEL_SERVE_BATCH`, its
       tokens/s; a prefill at that batch timed bare and under
-      torch.profiler (device time by kernel, the SSD kernel's share);
-      decode steps at batch 1 and 4 (`decode_breakdown`).
+      torch.profiler (device time by kernel; the SSD kernels' share, or
+      the chunked WKV's eager ops summed apart, `WKV_RANGE`); decode steps
+      at batch 1 and 4 (`decode_breakdown`).
 
     Returns the walks as {walk: (times key, launch counts)}: counters set
     to 0 just before each walk, read just after."""
@@ -1458,13 +1504,19 @@ def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(MODEL_ARCH)
-    name, n, layers = cfg.name, cfg.param_count(), cfg.n_layers
-    print(f"model {name}: {layers} Mamba2 layers (d_model {cfg.d_model}, "
-          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads x "
-          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), the shared "
-          f"attention ({cfg.n_heads} heads x {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff}) every {cfg.attn_every}, vocab {cfg.vocab_size}: "
+    cfg = get_config(arch)
+    name, n, layers = cfg.name, cfg.param_count(), ssd_per_pass(cfg)
+    if cfg.ssm_kind == "mamba2":
+        what = (f"{cfg.n_layers} Mamba2 layers (d_model {cfg.d_model}, "
+                f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM "
+                f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}), the "
+                f"shared attention ({cfg.n_heads} heads x {cfg.head_dim}, "
+                f"d_ff {cfg.d_ff}) every {cfg.attn_every}")
+    else:
+        what = (f"{cfg.n_layers} RWKV6 layers (d_model {cfg.d_model}, "
+                f"{cfg.d_model // cfg.ssm_head_dim} WKV heads x "
+                f"{cfg.ssm_head_dim}, channel mix d_ff {cfg.d_ff})")
+    print(f"model {name}: {what}, vocab {cfg.vocab_size}: "
           f"{n / 1e9:.3f} B parameters ({2 * n / 1e9:.1f} GB bf16, "
           f"{4 * n / 1e9:.1f} GB fp32); "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the "
@@ -1481,19 +1533,21 @@ def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
         walks.update(model_check(name, model, params, MODEL_FP32_BATCH,
                                  t_len, rng, smi))
 
-    # every SSD call of one prefill and one decode step, held
-    label = f"{name} model prefill"
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
-        MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1))).cuda()
-    cache = model.init_cache(MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1,
-                             device="cuda")
-    calls = capture_calls(lambda: model.prefill(
-        params, toks[:, :-1], cache), every=True)
-    hold_model_calls(label, calls, layers, peaks, tallies)
-    calls = capture_calls(lambda: model.decode_step(
-        params, toks[:, -1:], cache, MODEL_PROMPTS[0]), every=True)
-    hold_model_calls(f"{name} model decode", calls, layers, peaks, tallies)
-    del calls, cache
+    if layers:
+        # every SSD call of one prefill and one decode step, held
+        label = f"{name} model prefill"
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1))).cuda()
+        cache = model.init_cache(MODEL_FP32_BATCH, MODEL_PROMPTS[0] + 1,
+                                 device="cuda")
+        calls = capture_calls(lambda: model.prefill(
+            params, toks[:, :-1], cache), every=True)
+        hold_model_calls(label, calls, layers, peaks, tallies)
+        calls = capture_calls(lambda: model.decode_step(
+            params, toks[:, -1:], cache, MODEL_PROMPTS[0]), every=True)
+        hold_model_calls(f"{name} model decode", calls, layers, peaks,
+                         tallies)
+        del calls, cache
 
     # the fixed-batch engine: batched greedy tokens against solo runs
     max_len = MODEL_EQUAL_PROMPT + MODEL_EQUAL_NEW
@@ -1571,17 +1625,24 @@ def model_phase(peaks: dict, tallies: dict, smi: str) -> dict:
         prefill()
         torch.cuda.synchronize()
         bare.append((time.perf_counter() - t) * 1e3)
-    rows, busy, wall, host_calls = _profile(f"{name} prefill", prefill, 2)
-    ssd, phases = ssd_device_ms(rows)
+    with wkv_range():
+        rows, busy, wall, host_calls, spans = _profile(
+            f"{name} prefill", prefill, 2, spans=(WKV_RANGE,))
+    if layers:
+        ssd, phases = ssd_device_ms(rows)
+        part = (f"the SSD chunk kernels {ssd:.3f} ms ({ssd / busy:.1%} of "
+                f"the device time: {phases})")
+    else:
+        wkv = spans[WKV_RANGE]
+        part = (f"the chunked WKV's eager ops {wkv:.3f} ms ({wkv / busy:.1%}"
+                f" of the device time)")
     print(f"profile {name} bf16 prefill of {b} x {t_len} tokens: wall "
           f"{statistics.median(bare):.3f} ms bare (median of 3: "
           + ", ".join(f"{w:.3f}" for w in bare) + f"), {wall:.3f} ms under "
           f"the profiler; kernels {busy:.3f} ms of device time in "
           f"{sum(r[1] for r in rows) / 2:g} launches (idle >= "
-          f"{1 - busy / wall:.1%} of the profiled wall); the SSD chunk "
-          f"kernels {ssd:.3f} ms ({ssd / busy:.1%} of the device time: "
-          f"{phases}); host launch calls {sum(host_calls.values()):g}; "
-          f"{smi}", flush=True)
+          f"{1 - busy / wall:.1%} of the profiled wall); {part}; host launch "
+          f"calls {sum(host_calls.values()):g}; {smi}", flush=True)
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms {count / 2:6g}x {key[:100]}", flush=True)
     for batch in (1, b):
@@ -1667,14 +1728,18 @@ def _first_divergence(model, params, req, got, want,
             f"top-2 logit gap there {float(top[0] - top[1]):.3e}")
 
 
-def _profile(label: str, fn, n: int):
+def _profile(label: str, fn, n: int, spans=()):
     """`n` calls of `fn` under torch.profiler: the CUDA kernels' rows
     (device ms per call, launches over the `n` calls, name) by falling
     device time, their device ms per call, the wall per call in ms (host
-    clock around the calls and a sync), and per call the host calls that
-    put work on the card (kernel launches, copies and graph launches: the
-    CUDA runtime's API events in the trace), by name.  Raises if the
-    trace holds no device time."""
+    clock around the calls and a sync), per call the host calls that put
+    work on the card (kernel launches, copies and graph launches: the
+    CUDA runtime's API events in the trace), by name, and the device ms
+    per call of the kernels launched inside each `record_function` range
+    named in `spans`.  A range also shows on the device timeline as one
+    annotation as long as its first kernel's start to its last kernel's
+    end: that is not a kernel, so it is left out of the rows and of the
+    ranges' sums.  Raises if the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1688,7 +1753,8 @@ def _profile(label: str, fn, n: int):
     events = prof.key_averages()
     rows = sorted(((e.self_device_time_total / 1e3 / n, e.count, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0 and e.key not in spans),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0.0:
         raise AssertionError(f"profile {label}: the trace holds no device "
@@ -1697,7 +1763,41 @@ def _profile(label: str, fn, n: int):
     for e in events:
         if e.key.startswith(HOST_LAUNCH_CALLS):
             calls[e.key] = calls.get(e.key, 0) + e.count / n
-    return rows, busy, wall, calls
+    def kernel_us(e) -> float:
+        """Device time of the kernels an event and its callees launched."""
+        return (sum(k.duration for k in e.kernels if k.name not in spans)
+                + sum(kernel_us(c) for c in e.cpu_children))
+
+    ranges = {k: sum(kernel_us(e) for e in prof.events()
+                     if e.name == k and e.device_type == DeviceType.CPU)
+              / 1e3 / n for k in spans}
+    return rows, busy, wall, calls, ranges
+
+
+#: the profiler range around each chunked WKV call (`wkv_range`)
+WKV_RANGE = "rwkv6 chunked wkv"
+
+
+@contextlib.contextmanager
+def wkv_range():
+    """Each `_wkv_chunked` call inside the block runs in a `record_function`
+    range named `WKV_RANGE`, so a profile sums its eager ops' device time
+    apart (`_profile`'s `spans`).  The block's model code is not changed:
+    `rwkv6_mix` looks the function up in its module at each call."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import ssm
+    real = ssm._wkv_chunked
+
+    def ranged(*args):
+        with record_function(WKV_RANGE):
+            return real(*args)
+
+    ssm._wkv_chunked = ranged
+    try:
+        yield
+    finally:
+        ssm._wkv_chunked = real
 
 
 def ssd_device_ms(rows) -> tuple:
@@ -1737,7 +1837,7 @@ def decode_breakdown(label: str, model, params, batch: int,
         step()
     torch.cuda.synchronize()
     bare = (time.perf_counter() - t) * 1e3 / steps
-    rows, busy, wall, calls = _profile(label, step, steps)
+    rows, busy, wall, calls, _ = _profile(label, step, steps)
     print(f"profile {label}: decode step of {batch} slots, wall {bare:.3f} "
           f"ms bare, {wall:.3f} ms under the profiler; kernels {busy:.3f} "
           f"ms of device time in {sum(r[1] for r in rows) / steps:g} "
@@ -2443,13 +2543,15 @@ def decode_input(batch: int, d: int = None):
 
 
 
-#: the device-kernel name of each wrapper's main pass on the main paths
-#: (both paths run `split_matmul` at M = 1: the split-K GEMV; the
-#: zamba2-7b step runs the SSD scan at T = 1: the decode kernel)
-TRACE_NAMES = {"split_matmul": "splitk_gemv<float",
-               "hadamard_matmul": "hadamard_gemm<float",
-               "decode_attention": "attn_runs<float",
-               "ssd_chunk_scan": "ssd_decode<float"}
+#: the device-kernel names of each wrapper's main pass on the main paths,
+#: one of which runs per launch: `split_matmul`'s split-K GEMV (M <= 8) or
+#: tiled product (rwkv6-1.6b's prefill plan, M = 512); the SSD scan's
+#: decode kernel (T <= 16) or the first of its chunk kernels
+TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tiled_gemm<float"),
+               "hadamard_matmul": ("hadamard_gemm<float",),
+               "decode_attention": ("attn_runs<float",),
+               "ssd_chunk_scan": ("ssd_decode<float",
+                                  "ssd_chunk_state<float")}
 #: CUDA runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
                      "cudaMemset", "cudaGraphLaunch")
@@ -2471,7 +2573,8 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
     before = {k: fn.launches for k, fn in counters.items()}
     if fused:
         name = f"{name} fused"
-    rows, busy, wall, calls = _profile(name, lambda: exe.run(x, fused=fused),
+    rows, busy, wall, calls, _ = _profile(name,
+                                          lambda: exe.run(x, fused=fused),
                                        requests)
     print(f"profile {name}: {requests} requests; per request wall "
           f"{wall:.3f} ms under the profiler, kernels {busy:.3f} ms of "
@@ -2482,7 +2585,8 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
           + ", ".join(f"{k} {n:g}" for k, n in sorted(calls.items())) + ")")
     for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {count:4d}x {key[:100]}")
-    seen = {k: sum(c for _, c, key in rows if TRACE_NAMES[k] in key)
+    seen = {k: sum(c for _, c, key in rows
+                   if any(name in key for name in TRACE_NAMES[k]))
             for k in KERNEL_NAMES}
     second = {k: sum(c for _, c, key in rows if pattern in key)
               for k, pattern in SECOND_PASSES.items()}
@@ -2506,6 +2610,17 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
 #: model width (d_model)
 ZAMBA_GRAPH = dict(blocks=9, cache_len=4096)
 ZAMBA_D = 3584
+#: rwkv6-1.6b's model width, and its plans' prefill tokens
+RWKV_D = 2048
+RWKV_TOKENS = 512
+#: the model-graph paths: (model, `from_model` arguments) of each
+GRAPHS = {ZAMBA: ("zamba2-7b", ZAMBA_GRAPH),
+          RWKV: ("rwkv6-1.6b", dict(blocks=24)),
+          RWKV_PREFILL: ("rwkv6-1.6b", dict(blocks=24, tokens=RWKV_TOKENS))}
+#: the paths whose every distinct kernel call of one request is held
+#: against its plain version and timed (`hold_walk_calls`) right after
+#: the path: their times in the kernels line are those calls' own
+HELD_PATHS = (RWKV, RWKV_PREFILL)
 
 #: the calibrate phase: its paths, the per-node runs it records (then one
 #: fused run), and the requests each replanned walk runs
@@ -2546,15 +2661,17 @@ SERVE_FIDELITY_EVERY = 8
 SERVE_LOGIT_RTOL = 1e-4
 SERVE_E2E_RTOL = 1e-4
 
-#: the model phase: zamba2-7b at its published widths and full depth; the
-#: fp32 prompt lengths (a multiple of the reference's 256-token chunk and
-#: one that is not) at batch MODEL_FP32_BATCH, the decode steps after
-#: each, and the tolerance of their logits against `forward`, relative to
-#: the largest |logit| (the zamba2-7b plan's: fp32 sums of the chunk and
-#: decode kernels in another order than one chunk pass, through 81
-#: layers); the fp32 engine's equal-length greedy requests; the bf16
-#: engine's requests, batch, prompt and new tokens
-MODEL_ARCH = "zamba2_7b"
+#: the model phases: zamba2-7b and rwkv6-1.6b at their published widths
+#: and full depth; the fp32 prompt lengths (a multiple of the reference's
+#: chunk, 256 tokens for Mamba2's SSD and 64 for RWKV6's WKV, and one that
+#: is not) at batch MODEL_FP32_BATCH, the decode steps after each, and the
+#: tolerance of their logits against `forward`, relative to the largest
+#: |logit| (the zamba2-7b plan's: fp32 sums of the chunk and decode
+#: kernels in another order than one chunk pass, through 81 layers; for
+#: rwkv6-1.6b the chunked WKV against the step recurrence through 24); the
+#: fp32 engine's equal-length greedy requests; the bf16 engine's
+#: requests, batch, prompt and new tokens
+MODEL_ARCHS = ("zamba2_7b", "rwkv6_1b6")
 MODEL_PROMPTS = (512, 300)
 MODEL_FP32_BATCH = 2
 MODEL_DECODE_STEPS = 4
@@ -2581,6 +2698,10 @@ PATHS = [
      (1, 1000)),
     (INC, ARTIFACTS / "inception_v3_moto2022.coexec.json", image_input(299),
      (1, 1000)),
+    (RWKV, ARTIFACTS / "rwkv6-1.6b_b24_moto2022_t1.coexec.json",
+     decode_input(1, RWKV_D), (1, RWKV_D)),
+    (RWKV_PREFILL, ARTIFACTS / "rwkv6-1.6b_b24_tok512_moto2022_t1.coexec.json",
+     decode_input(RWKV_TOKENS, RWKV_D), (RWKV_TOKENS, RWKV_D)),
 ]
 
 
@@ -2643,7 +2764,7 @@ def ssd_times(src: Path) -> int:
                       "tf32_bound_ms": max(t_bytes,
                                            3 * ops / peaks["tf32"] * 1e3)})
         del ins
-    cfg = get_config(MODEL_ARCH)
+    cfg = get_config("zamba2_7b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     b, t_len = MODEL_SERVE_BATCH, MODEL_SERVE_PROMPT
@@ -2662,7 +2783,7 @@ def ssd_times(src: Path) -> int:
         prefill()
         torch.cuda.synchronize()
         bare.append((time.perf_counter() - t) * 1e3)
-    rows, busy, wall, _ = _profile(f"{cfg.name} prefill", prefill, 2)
+    rows, busy, wall, _, _ = _profile(f"{cfg.name} prefill", prefill, 2)
     ssd, phases = ssd_device_ms(rows)
     print(json.dumps({"ssd_times": {
         "src": str(src), "card": smi, "cases": cases,
@@ -2730,6 +2851,9 @@ def main() -> int:
                                             E2E_RTOL[name])
         walks[name] = (name, counts)
         device_breakdown(name, exe, make_input(REQUESTS))
+        if name in HELD_PATHS:
+            hold_walk_calls(name, kernel_calls(exe, make_input(0)), want,
+                            peaks, results)
         phases.done(f"{name} per-node")
         walks[f"{name} fused"] = (name, fused_path(name, exe, want, refs,
                                                    E2E_RTOL[name]))
@@ -2760,8 +2884,9 @@ def main() -> int:
     phases.done("portfolio")
     walks.update(serve_phase(peaks, results, smi))
     phases.done("serve")
-    walks.update(model_phase(peaks, results, smi))
-    phases.done("zamba2-7b model")
+    for arch in MODEL_ARCHS:
+        walks.update(model_phase(arch, peaks, results, smi))
+        phases.done(f"{arch} model")
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
@@ -2800,10 +2925,12 @@ def main() -> int:
                 f"of each tuned walk, the serve walks' plan executions "
                 f"(every "
                 f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
-                f"and the zamba2-7b model walks (each prefill, its "
+                f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
                 f"{MODEL_DECODE_STEPS} decode steps, the engines' runs); "
-                f"times: one request of each main path and one prefill and "
-                f"one decode step of the zamba2-7b model, float32 (by_path: "
+                f"times: one request of each main path (rwkv6-1.6b's two "
+                f"plans: the calls of one request, each held) and one "
+                f"prefill and one decode step of the zamba2-7b model, "
+                f"float32 (by_path: "
                 f"one request, prefill or decode step of each walk)"),
         "by_path": by_path(name, t)}
         for name, t in results.items()]}

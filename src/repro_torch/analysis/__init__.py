@@ -5,8 +5,8 @@
 without executing anything.  It backs `python -m repro_torch verify` and
 the strict-load paths in `runtime.plan`, `runtime.cache` and `api`.
 `rejections` records which rule each plan-cache entry the cache refused
-failed.  The reference's repo-contract linter belongs to the JAX
-package's source tree and is not part of the port.
+failed.  `analysis.lint` is the port's repo-contract linter (`python -m
+repro_torch lint`), under the reference's rule ids.
 """
 import logging
 from typing import Dict, List, Tuple

@@ -1,6 +1,6 @@
 """`python -m repro_torch` — the port's CLI.
 
-Six subcommands so far:
+Seven subcommands so far:
 
   * `plan` — compile (or fetch from the plan cache) a co-execution plan
     with the port's planning half, as `python -m repro plan` does, with
@@ -65,6 +65,13 @@ Six subcommands so far:
     the tune cache `reports/tune/`; a tuned artifact's sidecar verifies
     with it.
 
+  * `lint` — run the port's repo-contract linter
+    (`repro_torch/analysis/lint.py`) over the port's package, or the
+    package directory `--src` names, with the reference's rule ids; print
+    each finding and a count, exit 1 on any finding.
+
+        python -m repro_torch lint [--src DIR]
+
   * `serve` — serve seeded requests with a model of the registry: a
     fixed batch through the `ServingEngine` (optionally shipping a
     `--compiled` artifact, executed once after serving), or Poisson
@@ -76,6 +83,8 @@ Six subcommands so far:
                                     [--arrivals poisson --portfolio P]
                                     [--torch-device cpu]
         python -m repro_torch serve --arch zamba2_7b [--reduced]
+                                    [--torch-device cpu]
+        python -m repro_torch serve --arch rwkv6_1b6 [--reduced]
                                     [--torch-device cpu]
 
     Zamba2 serves through the fixed batch only: the scheduler refuses
@@ -407,6 +416,18 @@ def _cmd_verify(args) -> int:
     return 1 if n_err else 0
 
 
+def _cmd_lint(args) -> int:
+    """Run the repo-contract linter; exit 1 on any finding."""
+    from repro_torch.analysis.lint import LINT_RULES, lint_repo, package_root
+    pkg = Path(args.src) if args.src else package_root()
+    diags = lint_repo(pkg)
+    for d in diags:
+        print(d)
+    rules = ", ".join(sorted(LINT_RULES))
+    print(f"lint {pkg}: {len(diags)} finding(s) across [{rules}]")
+    return 1 if diags else 0
+
+
 def _print_per_op(report) -> None:
     for t in report.timings:
         extra = " chained" if t.chained_input else ""
@@ -505,9 +526,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p_verify.add_argument("-v", "--verbose", action="store_true",
                           help="also print info diagnostics (static "
                                "resource accounting)")
+    p_lint = sub.add_parser(
+        "lint", help="run the repo-contract linter (import-light, "
+                     "registry completeness, no-silent-clamp)")
+    p_lint.add_argument("--src", default=None,
+                        help="package directory to lint (default: the "
+                             "repro_torch package)")
     args = ap.parse_args(argv)
     if args.cmd == "verify":
         return _cmd_verify(args)
+    if args.cmd == "lint":
+        return _cmd_lint(args)
     if args.cmd in ("plan", "calibrate", "tune"):
         cmd = {"plan": _cmd_plan, "calibrate": _cmd_calibrate,
                "tune": _cmd_tune}[args.cmd]

@@ -210,7 +210,7 @@ def ssd_chunk_scan_plain(x, b, c, dt, a, state0, *, chunk: int = CHUNK
     t = x.shape[1]
     ys = []
     for t0 in range(0, t, chunk):
-        sl = slice(t0, min(t, t0 + chunk))
+        sl = slice(t0, t0 + chunk)        # a slice stops at the tensor's end
         xc, bc, cc, dtc = xf[:, sl], bf[:, sl], cf[:, sl], dtf[:, sl]
         n = xc.shape[1]
         l = torch.cumsum(dtc * af, dim=1)                       # (B, L, H)

@@ -7,15 +7,15 @@ unless `--torch-device cpu`; without CUDA and without that flag the
 command fails, it never carries on on the CPU).  `--device` stays the
 simulated phone a portfolio is compiled for.
 
-Fixed-batch mode (a dense transformer, or the Zamba2 hybrid
-`--arch zamba2_7b`):
+Fixed-batch mode (a dense transformer, the Zamba2 hybrid
+`--arch zamba2_7b`, or RWKV6 `--arch rwkv6_1b6`):
 
     python -m repro_torch serve --arch codeqwen15_7b --requests 8 \
         --max-new 12 [--compiled ARTIFACT] [--reduced --torch-device cpu]
 
 Continuous-batching mode (`--arrivals poisson`; the scheduler refuses a
-model without per-slot positions, such as Zamba2, and the command exits
-2 with its message):
+model without per-slot positions, such as Zamba2 and RWKV6, and the
+command exits 2 with its message):
 
     python -m repro_torch serve --arch codeqwen15_7b --arrivals poisson \
         --rate 200 --requests 50 --portfolio reports/portfolio.json

@@ -1,19 +1,20 @@
 """The port's models: configurations, their name tables, the dense GQA
-transformer and the Zamba2 hybrid.
+transformer, the Zamba2 hybrid and RWKV6.
 
 The port's copies of `repro.models.config`, `registry`, `layers`, `flash`,
-`transformer`, `zamba` and the Mamba2 half of `ssm` (PyTorch), plus
+`transformer`, `zamba`, `rwkv` and `ssm` (PyTorch), plus
 `weights.params_from_numpy`, which takes the reference's parameter
 pytree.  `build_model` raises for the families not ported yet (MLA/MoE
-blocks, RWKV6, Whisper).
+blocks, Whisper).
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import (ALIASES, ARCH_IDS, build, build_model,
                                          get_config)
+from repro_torch.models.rwkv import RWKVModel
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.models.zamba import ZambaModel
 
-__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "TransformerModel",
-           "ZambaModel", "build", "build_model", "get_config",
+__all__ = ["ModelConfig", "ALIASES", "ARCH_IDS", "RWKVModel",
+           "TransformerModel", "ZambaModel", "build", "build_model", "get_config",
            "params_from_numpy"]

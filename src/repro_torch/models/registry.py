@@ -10,8 +10,8 @@ reference's):
     prefill(params, tokens, cache[, start]) -> (logits, cache)
     decode_step(params, tokens, cache, pos[, start]) -> (logits, cache)
 
-The port has the dense GQA transformer and the Zamba2 hybrid; the other
-families raise.
+The port has the dense GQA transformer, the Zamba2 hybrid and RWKV6; the
+other families raise.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv import RWKVModel
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.models.zamba import ZambaModel
 
@@ -66,8 +67,7 @@ def build_model(cfg: ModelConfig):
         raise NotImplementedError(_NOT_PORTED.format(
             family="encoder-decoder (Whisper)", item="5: Whisper"))
     if cfg.ssm_kind == "rwkv6":
-        raise NotImplementedError(_NOT_PORTED.format(family="RWKV6",
-                                                     item="3: RWKV6"))
+        return RWKVModel(cfg)
     if cfg.attn_every:
         return ZambaModel(cfg)
     return TransformerModel(cfg)

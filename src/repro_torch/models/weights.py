@@ -3,10 +3,12 @@
 The JAX package's `TransformerModel.init` returns a pytree whose `pattern`
 entries stack each pattern position's blocks over a leading `n_repeats`
 axis (for its layer scan), and its `ZambaModel.init` one whose `mamba`
-entry stacks every Mamba2 layer over (n_groups, attn_every).  The port
-keeps one block dict per layer (`models/transformer.py`,
-`models/zamba.py`).  `params_from_numpy` takes either reference tree with
-numpy leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
+entry stacks every Mamba2 layer over (n_groups, attn_every), and its
+`RWKVModel.init` one whose `blocks` entry stacks every layer over a
+leading L axis.  The port keeps one block dict per layer
+(`models/transformer.py`, `models/zamba.py`, `models/rwkv.py`).
+`params_from_numpy` takes any of these reference trees with numpy
+leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
 layout on a torch device, so both packages compute with the same
 numbers.  JAX and PyTorch draw different numbers from the same seed, so
 parity goes through this function, never through equal seeds.
@@ -37,12 +39,14 @@ def _tensor(a: np.ndarray, device: Union[str, torch.device, None]
 
 #: Mamba2 leaves the reference draws in fp32 whatever the model dtype
 _FP32_LEAVES = ("A_log", "D", "dt_bias")
+#: RWKV6 time-mix leaves the reference draws in fp32 whatever the dtype
+_RWKV_FP32_LEAVES = ("w0", "u")
 
 
-def _tree(a, device, dtype, name: str = ""):
+def _tree(a, device, dtype, name: str = "", fp32=_FP32_LEAVES):
     if isinstance(a, dict):
-        return {k: _tree(v, device, dtype, k) for k, v in a.items()}
-    return _tensor(a, device, None if name in _FP32_LEAVES else dtype)
+        return {k: _tree(v, device, dtype, k, fp32) for k, v in a.items()}
+    return _tensor(a, device, None if name in fp32 else dtype)
 
 
 def _unstack(tree, r: int):
@@ -58,10 +62,17 @@ def params_from_numpy(ref: Params, device: Union[str, torch.device, None]
     one block per layer and each stacked `pattern` entry split along its
     leading repeat axis into a list of per-layer blocks; for Zamba
     (a `mamba` key), `shared_attn` as it is and `mamba` split into
-    `[group][layer]` dicts.  `dtype` casts every tensor but the Mamba2
-    fp32 leaves (default: the reference's own dtype)."""
+    `[group][layer]` dicts; for RWKV6 (a `blocks` key), `blocks` split
+    along its leading layer axis into a list.  `dtype` casts every tensor
+    but the Mamba2 and RWKV6 fp32 leaves (default: the reference's own
+    dtype)."""
     out = {k: _tensor(ref[k], device, dtype)
            for k in ("embed", "unembed", "ln_f")}
+    if "blocks" in ref:
+        whole = _tree(ref["blocks"], device, dtype, fp32=_RWKV_FP32_LEAVES)
+        n_layers = _first_leaf(whole).shape[0]
+        out["blocks"] = [_unstack(whole, i) for i in range(n_layers)]
+        return out
     if "mamba" in ref:
         out["shared_attn"] = _tree(ref["shared_attn"], device, dtype)
         whole = _tree(ref["mamba"], device, dtype)

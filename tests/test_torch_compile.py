@@ -1,5 +1,5 @@
 """`repro_torch.compile` and `python -m repro_torch plan` against the
-reference: the five committed artifacts reproduced byte for byte at the
+reference: the seven committed artifacts reproduced byte for byte at the
 default predictor sizes, the plan key and predictor checksum of both
 planning modes, the plan cache shared both ways, the errors `compile`
 raises, and the CLI round trip with jax and `repro` kept from import."""
@@ -29,6 +29,9 @@ COMMITTED = {
     "inception_v3_moto2022": ("inception_v3", None, 3),
     "zamba2-7b_b9_s4096_moto2022_t1": ("zamba2-7b",
                                        dict(blocks=9, cache_len=4096), 1),
+    "rwkv6-1.6b_b24_moto2022_t1": ("rwkv6-1.6b", dict(blocks=24), 1),
+    "rwkv6-1.6b_b24_tok512_moto2022_t1": ("rwkv6-1.6b",
+                                          dict(blocks=24, tokens=512), 1),
 }
 
 SMALL = dict(samples=120, estimators=25)
@@ -194,13 +197,22 @@ def test_target_validates_against_the_simulator_tables():
             _error(lambda: repro.Target(**bad))
 
 
-@pytest.mark.parametrize("stem", ["vgg16_moto2022",
-                                  "zamba2-7b_b9_s4096_moto2022_t1"])
+#: the CLI's flags for each artifact its byte-for-byte test writes
+CLI_FLAGS = {
+    "vgg16_moto2022": ["--network", "vgg16", "--threads", "3"],
+    "zamba2-7b_b9_s4096_moto2022_t1": [
+        "--model", "zamba2-7b", "--blocks", "9", "--cache-len", "4096",
+        "--threads", "1"],
+    "rwkv6-1.6b_b24_tok512_moto2022_t1": [
+        "--model", "rwkv6-1.6b", "--blocks", "24", "--tokens", "512",
+        "--threads", "1"],
+}
+
+
+@pytest.mark.parametrize("stem", sorted(CLI_FLAGS))
 def test_cli_plan_saves_the_committed_artifact_byte_for_byte(
         stem, predictor_cache, tmp_path):
-    net = (["--network", "vgg16", "--threads", "3"] if stem.startswith("vgg")
-           else ["--model", "zamba2-7b", "--blocks", "9", "--cache-len",
-                 "4096", "--threads", "1"])
+    net = CLI_FLAGS[stem]
     out = tmp_path / "artifact.json"
     args = ["plan", *net, "--device", "moto2022", "--cache-dir",
             str(tmp_path / "plans"), "--predictor-cache",

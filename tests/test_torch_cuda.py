@@ -52,7 +52,10 @@ def _close(got, want, dtype):
     (4, 100, 301, 96, 128),           # ragged N: scalar loads
     (8, 515, 300, 3, 257),            # odd c0, eight rows of X
     (3, 768, 3072, 2480, 592),        # the ViT example split, M <= 8
-    (1, 40, 4096, 0, 4096)])          # K below a block's floor: 1 split
+    (1, 40, 4096, 0, 4096),           # K below a block's floor: 1 split
+    (512, 2048, 4096, 0, 4096),       # rwkv6-1.6b prefill plan, M = 512:
+    (512, 2048, 4096, 280, 3816),     # the tiled product, in_proj whole
+    (512, 4096, 2048, 0, 280)])       # and its fast/slow channel panels
 def test_split_matmul_kernel_matches_plain(cuda, m, k, n, c0, width, dtype):
     from repro_torch.kernels.split_matmul import (split_matmul,
                                                   split_matmul_plain)
@@ -288,6 +291,10 @@ def test_decode_attention_is_bit_identical_from_call_to_call(
     (2, 100, 6, 32, 16),
     (4, 512, 112, 64, 64),            # the zamba2-7b bf16 prefill's call
     (2, 3, 5, 20, 12),                # decode, ragged rows and N
+    (1, 1, 64, 64, 16),               # rwkv6-1.6b plans at N = 16: the
+    (1, 512, 64, 64, 16),             # decode step, the chunked prefill
+    (1, 512, 21, 64, 16),             # and its ssm-state halves
+    (1, 512, 43, 64, 16),
 ])
 def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype,
                                              odd):
@@ -936,3 +943,38 @@ def test_a_tuned_compile_on_the_card(cuda, tmp_path):
     y = tuned.run(x, device=cuda)
     assert torch.equal(y, base.run(x, device=cuda))
     assert torch.equal(tuned.run(x, device=cuda, fused=True), y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_rwkv_on_the_card_matches_the_cpu(cuda, dtype):
+    """Prefill (T = 64: the chunked WKV) and three decode steps (the step
+    recurrence) of reduced rwkv6-1.6b: no launch of the port's kernels
+    (the WKV is plain PyTorch, as the reference's), and the logits within
+    1e-4 (fp32) or 5e-2 (bf16) of the same weights' on the CPU, which
+    tests/test_torch_rwkv.py ties to the reference's."""
+    import dataclasses
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.runtime.segments import launch_counters
+    cfg = dataclasses.replace(get_config("rwkv6_1b6").reduced(),
+                              dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, (3, 67)))
+    counters = launch_counters()
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _on(params, cuda))):
+        cache = model.init_cache(3, device=dev)
+        before = {k: fn.launches for k, fn in counters.items()}
+        logits, cache = model.prefill(p, toks[:, :64].to(dev), cache)
+        got = [logits]
+        for i in range(3):
+            logits, cache = model.decode_step(
+                p, toks[:, 64 + i:65 + i].to(dev), cache, 64 + i)
+            got.append(logits)
+        assert {k: fn.launches for k, fn in counters.items()} == before
+        out[dev] = torch.stack(got, dim=1).cpu().float()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err <= tol * float(out["cpu"].abs().max())

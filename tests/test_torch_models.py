@@ -100,7 +100,7 @@ def test_codeqwen_full_width_counts():
 
 
 @pytest.mark.parametrize("arch,what,item", [
-    ("rwkv6_1b6", "RWKV6", 3), ("whisper_large_v3", "Whisper", 5),
+    ("whisper_large_v3", "Whisper", 5),
     ("deepseek_v2_lite", "MLA", 4), ("llama4_scout", "MoE", 4)])
 def test_unported_families_raise_naming_the_roadmap(arch, what, item):
     with pytest.raises(NotImplementedError,

@@ -460,6 +460,6 @@ def test_serve_cli_refuses_to_fall_back_to_the_cpu(tmp_path):
     assert out.returncode == 2
     assert "CUDA is not available" in out.stderr
     assert "completions" not in out.stdout
-    bad = blocked_cli(["serve", "--arch", "rwkv6_1b6", "--reduced",
+    bad = blocked_cli(["serve", "--arch", "whisper_large_v3", "--reduced",
                        "--torch-device", "cpu"], tmp_path)
     assert bad.returncode == 2 and "ROADMAP" in bad.stderr
