@@ -6,6 +6,8 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py --kernels-only   # build and kernel phases only
     python3 chip_smoke.py --ssd-times SRC  # the SSD scan of the checkout
                                            # at SRC, timed (`ssd_times`)
+    python3 chip_smoke.py --split-times SRC  # split_matmul of the checkout
+                                             # at SRC (`split_times`)
 
 It fails (non-zero exit, no result line) when CUDA is unavailable or when
 the port cannot be imported, and otherwise runs, in order:
@@ -22,9 +24,11 @@ the port cannot be imported, and otherwise runs, in order:
    from CUDA events (`time_ms`: L2 flushed before every timed call, host
    launch time kept out), the bound the card's published rates give for
    the same work and the kernel's share of it (bound / kernel time), and
-   each case's launch plan (for the SSD chunk kernels, whose products run
-   in 3xTF32 on the tensor cores, the tensor-core bound beside the fp32
-   one); `split_matmul`, `decode_attention` and `ssd_chunk_scan` are
+   each case's launch plan (for the SSD chunk kernels and `split_matmul`'s
+   tiled product, whose fp32 products run in 3xTF32 on the tensor cores,
+   the tensor-core bound beside the fp32 one; the tiled product's block,
+   grid and K splits); `split_matmul`, `decode_attention` and
+   `ssd_chunk_scan` are
    also called twice on the same inputs and must give bit-identical
    outputs (their split reductions and the SSD chunk walk are
    deterministic); the SSD scan's decode and chunk kernels are both timed
@@ -295,6 +299,11 @@ SPLIT_CASES = [
     ("rwkv6 embed M=512", 512, 2048, 2048, 0, 2048, {}),
     ("rwkv6 in_proj M=512", 512, 2048, 4096, 0, 4096, {}),
     ("rwkv6 out_proj M=512", 512, 4096, 2048, 0, 2048, {}),
+    # the tiled product's narrow-copy variant (W[0, c0] 12 bytes into a
+    # row in fp32, 6 in bf16) and short M: 9 rows, 64 rows at K = 3584
+    ("odd c0=3 M=512", 512, 2048, 4096, 3, 1000, {}),
+    ("M=9", 9, 768, 3072, 2480, 592, {}),
+    ("M=64", 64, 3584, 3584, 0, 3584, {}),
 ]
 
 #: (label, P, K, N, launches per request): P = ceil(H/2) * ceil(W/2) tiles
@@ -341,6 +350,13 @@ SSD_CASES = [
 #: hd = N = 64), (B, T): the model phase's fp32 and bf16 prefills and a
 #: long one (`--ssd-times`)
 SSD_COMPARE = ((2, 512), (4, 512), (1, 4096))
+
+#: `--split-times`: the tiled product's shapes (K, N, width) at M = 512 in
+#: rwkv6-1.6b's 512-token prefill plan: its three whole weights, then the
+#: panels both sides of its channel splits run on (`plan_panels`)
+SPLIT_WHOLE = ((2048, 2048, 2048), (2048, 4096, 4096), (4096, 2048, 2048))
+#: and the most splits its launch sweep times a candidate at
+SWEEP_MAX_SPLITS = 16
 
 _TIMES = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
 
@@ -466,16 +482,44 @@ def hold_split_matmul(label: str, args: tuple, peaks: dict):
         raise AssertionError(f"split_matmul {label} {dtype}: two calls on "
                              f"the same inputs differ")
     plan = plan_call(x, w, c0, width, launch)
+    ops = 2 * m * k * width
     times = _times(lambda: split_matmul(x, w, c0, width, launch=launch),
                    lambda: split_matmul_plain(x, w, c0, width),
                    lambda: torch.matmul(x, w[:, c0:c0 + width]),
                    x.element_size() * (m * k + k * width + m * width),
-                   2 * m * k * width, dtype, peaks)
+                   ops, dtype, peaks)
     _report("split_matmul", label, dtype, err, times,
-            f"M={m} K={k} N={n} c0={c0} width={width} [variant "
-            f"{plan.variant} {plan.col_tiles}x{plan.splits} blocks, k_chunk "
-            f"{plan.k_chunk}]")
+            f"M={m} K={k} N={n} c0={c0} width={width} "
+            f"[{split_plan_text(plan, times, ops, dtype, peaks)}]")
     return err, times
+
+
+def split_plan_text(plan, times: dict, ops: float, dtype, peaks: dict) -> str:
+    """One `split_matmul` launch plan, as the kernel phases print it; for
+    the tiled product in float32 the 3xTF32 tensor-core bound beside the
+    fp32 one (three TF32 products per fp32 one; bound_ms divides by the
+    CUDA cores' fp32 rate, and in bf16 by the tensor cores' bf16 rate)."""
+    from repro_torch.kernels.split_matmul.split_matmul import (TILED,
+                                                               TILED_NARROW)
+    if plan.variant not in (TILED, TILED_NARROW):
+        return (f"variant {plan.variant} {plan.col_tiles}x{plan.splits} "
+                f"blocks, k_chunk {plan.k_chunk}")
+    text = (f"tiled variant {plan.variant}, {plan.mt}x{plan.tile} blocks, "
+            f"grid {plan.col_tiles}x{plan.row_tiles}x{plan.splits} "
+            f"({plan.blocks} blocks), splits {plan.splits}, k_chunk "
+            f"{plan.k_chunk}")
+    if dtype == torch.float32:
+        tc = tf32_bound_ms(times["t_bytes"], ops, peaks)
+        text += (f"; 3xTF32 tensor-core bound {tc:.4f} ms "
+                 f"({tc / times['ms']:.1%} of it)")
+    return text
+
+
+def tf32_bound_ms(t_bytes: float, ops: float, peaks: dict) -> float:
+    """The least time of `ops` fp32 operations taken as three TF32
+    tensor-core products each (3xTF32), or of the bytes, whichever is
+    larger."""
+    return max(t_bytes, 3 * ops / peaks["tf32"] * 1e3)
 
 
 def hold_hadamard_matmul(label: str, args: tuple, peaks: dict):
@@ -581,7 +625,7 @@ def hold_ssd_chunk_scan(label: str, args: tuple, peaks: dict):
     if plan.variant == CHUNKED:
         # the units the chunk kernels use: three TF32 tensor-core products
         # per fp32 one (bound_ms divides by the input type's CUDA-core rate)
-        tc = max(times["t_bytes"], 3 * ops / peaks["tf32"] * 1e3)
+        tc = tf32_bound_ms(times["t_bytes"], ops, peaks)
         text += (f"; 3xTF32 tensor-core bound {tc:.4f} ms "
                  f"({tc / times['ms']:.1%} of it)")
     _report("ssd_chunk_scan", label, dtype, err, times,
@@ -2547,7 +2591,7 @@ def decode_input(batch: int, d: int = None):
 #: one of which runs per launch: `split_matmul`'s split-K GEMV (M <= 8) or
 #: tiled product (rwkv6-1.6b's prefill plan, M = 512); the SSD scan's
 #: decode kernel (T <= 16) or the first of its chunk kernels
-TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tiled_gemm<float"),
+TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tc_gemm<float"),
                "hadamard_matmul": ("hadamard_gemm<float",),
                "decode_attention": ("attn_runs<float",),
                "ssd_chunk_scan": ("ssd_decode<float",
@@ -2556,8 +2600,9 @@ TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tiled_gemm<float"),
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
                      "cudaMemset", "cudaGraphLaunch")
 #: second passes, counted apart from their wrappers' launches
-SECOND_PASSES = {"split_matmul": "splitk_reduce<float",
-                 "decode_attention": "attn_merge<float"}
+SECOND_PASSES = {"split_matmul": ("splitk_reduce<float",
+                                  "splitk_reduce_rows<float"),
+                 "decode_attention": ("attn_merge<float",)}
 
 
 def device_breakdown(name: str, exe, x, requests: int = 2,
@@ -2588,8 +2633,9 @@ def device_breakdown(name: str, exe, x, requests: int = 2,
     seen = {k: sum(c for _, c, key in rows
                    if any(name in key for name in TRACE_NAMES[k]))
             for k in KERNEL_NAMES}
-    second = {k: sum(c for _, c, key in rows if pattern in key)
-              for k, pattern in SECOND_PASSES.items()}
+    second = {k: sum(c for _, c, key in rows
+                     if any(pattern in key for pattern in patterns))
+              for k, patterns in SECOND_PASSES.items()}
     graphs = round(calls.get("cudaGraphLaunch", 0) * requests)
     print(f"profile {name}: launches in the trace / by the counters over "
           f"the {requests} requests: " + ", ".join(
@@ -2761,8 +2807,7 @@ def ssd_times(src: Path) -> int:
                                    torch.float32, peaks)
         ms = time_ms(lambda: ssd_chunk_scan(*ins), reps=20)
         cases.append({"B": b, "T": t, "ms": ms, "bound_ms": bnd,
-                      "tf32_bound_ms": max(t_bytes,
-                                           3 * ops / peaks["tf32"] * 1e3)})
+                      "tf32_bound_ms": tf32_bound_ms(t_bytes, ops, peaks)})
         del ins
     cfg = get_config("zamba2_7b")
     model = build_model(cfg)
@@ -2795,12 +2840,154 @@ def ssd_times(src: Path) -> int:
     return 0
 
 
+def plan_panels(compiled) -> dict:
+    """{(K, N, width): calls per request} of the tiled `split_matmul`
+    calls of a prefill plan: both sides of each channel-split linear node,
+    each on its (K, c_pad) panel of the packed weights."""
+    from repro_torch.core.coexec import SplitPlan
+    out = {}
+    for d in compiled.decisions:
+        if type(d.op).__name__ != "LinearOp" or d.axis != "channel":
+            continue
+        split = SplitPlan(c_out=d.op.C_out, c_fast=d.c_gpu)
+        for side in range(2):
+            key = (d.op.C_in, split.c_pad, split.width(side))
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def split_times(src: Path) -> int:
+    """`--split-times SRC`: `split_matmul` of the checkout at SRC (its
+    `src/repro_torch`, its kernels built under SRC), on the card:
+    - the tiled product at M = 512 on rwkv6-1.6b's whole weights
+      (`SPLIT_WHOLE`) and the panels of its 512-token plan
+      (`plan_panels`), in float32 and bfloat16, with `torch.matmul` on the
+      same operands (`time_ms`, median of 20), each held against the plain
+      version; the sum over one request of the plan's calls, beside the
+      fp32, 3xTF32 and bf16 bounds;
+    - the launch sweep: every candidate of the "linear" launch spec at
+      each of those shapes (both search modes, splits up to
+      `SWEEP_MAX_SPLITS`), timed, its fastest beside the default;
+    - the GEMV's time per request of VGG16 and the zamba2-7b step
+      (`SPLIT_CASES` with their launches per request);
+    - the plan's per-node and fused request walls (`alternating_walls`,
+      `WALL_PAIRS` rounds) after one request held against `run_oracle`.
+    Prints one JSON line.  Run it for two checkouts in turns (parent,
+    change, change, parent) in one call to compare them on one card."""
+    sys.path.insert(0, str(src.resolve() / "src"))
+    import repro_torch
+    from repro_torch.kernels import build, tiles
+    from repro_torch.kernels.split_matmul.split_matmul import (
+        plan_call, split_matmul, split_matmul_plain)
+
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["split_matmul"])
+    peaks = card_peaks()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    artifact = ARTIFACTS / "rwkv6-1.6b_b24_tok512_moto2022_t1.coexec.json"
+    compiled = repro_torch.CompiledNetwork.load(artifact)
+    panels = plan_panels(compiled)
+    spec = tiles.launch_spec("linear")
+    m = RWKV_TOKENS
+    cases, sweep = [], []
+    totals = {}
+    for dtype in DTYPES:
+        name = str(dtype).split(".")[-1]
+        for (k, n, width), per in ([(w, 0) for w in SPLIT_WHOLE]
+                                   + sorted(panels.items())):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / k ** 0.5).to(dtype)
+            want = split_matmul_plain(x, w, 0, width)
+            err = check(f"split_times {k}x{n}|{width} {name}",
+                        split_matmul(x, w, 0, width), want,
+                        KERNEL_RTOL[dtype])
+            ms = time_ms(lambda: split_matmul(x, w, 0, width), reps=20)
+            lib = time_ms(lambda: torch.matmul(x, w[:, :width]), reps=20)
+            ops = 2 * m * k * width
+            _, t_bytes, t_ops = bound_ms(
+                x.element_size() * (m * k + k * width + m * width), ops,
+                dtype, peaks)
+            plan = plan_call(x, w, 0, width)
+            cases.append({"dtype": name, "K": k, "N": n, "width": width,
+                          "per_request": per, "ms": ms, "library_ms": lib,
+                          "max_abs_err": err, "plan": str(plan),
+                          "bound_ms": max(t_bytes, t_ops),
+                          "tf32_bound_ms": tf32_bound_ms(t_bytes, ops,
+                                                         peaks)})
+            agg = totals.setdefault(name, dict.fromkeys(
+                ("ms", "library_ms", "bound_ms", "tf32_bound_ms"), 0.0))
+            for key in agg:
+                agg[key] += cases[-1][key] * per
+            timed = {}
+            for launch in spec.configs({"m": m, "k": k, "n": width},
+                                       preserve_numerics=False):
+                if (launch.get("splits") or 0) > SWEEP_MAX_SPLITS:
+                    continue
+                check(f"split_times sweep {launch.label()}",
+                      split_matmul(x, w, 0, width, launch=launch), want,
+                      KERNEL_RTOL[dtype])
+                timed[launch.label()] = time_ms(
+                    lambda: split_matmul(x, w, 0, width, launch=launch))
+            best = min(timed, key=timed.get)
+            sweep.append({"dtype": name, "K": k, "width": width,
+                          "default_ms": timed["default"], "best": best,
+                          "best_ms": timed[best], "ms": timed})
+            print(f"split_times {name} M={m} K={k} N={n} width={width} "
+                  f"x{per}: kernel {ms:.4f} ms, torch.matmul {lib:.4f} ms; "
+                  f"sweep: default {timed['default']:.4f}, best {best} "
+                  f"{timed[best]:.4f} ms; {plan}", flush=True)
+            del x, w, want
+    gemv = {}
+    for label, gm, k, n, c0, width, per_path in SPLIT_CASES:
+        for path in (VGG, ZAMBA):
+            if path not in per_path:
+                continue
+            x = torch.randn((gm, k), generator=gen, device="cuda")
+            w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+            gemv[path] = gemv.get(path, 0.0) + per_path[path] * time_ms(
+                lambda: split_matmul(x, w, c0, width), reps=20)
+    exe = compiled.executor(device="cuda")
+    x = decode_input(RWKV_TOKENS, RWKV_D)(0)
+    exe.run(warmup=True)
+    y, _ = exe.run(x)
+    oracle = exe.run_oracle(x)
+    err = float((y - oracle).abs().max()) / max(1.0, float(
+        oracle.abs().max()))
+    if not err <= E2E_RTOL[RWKV_PREFILL]:
+        raise AssertionError(f"split_times: the plan's output is {err:.3e} "
+                             f"of its largest |oracle| from run_oracle")
+    fused, _ = exe.run(x, fused=True)
+    if not torch.equal(fused, y):
+        raise AssertionError("split_times: the fused walk's output differs "
+                             "from the per-node walk's")
+    walls = {}
+    for _ in range(WALL_PAIRS):
+        for walk in (False, True):
+            t = time.perf_counter()
+            exe.run(x, fused=walk)
+            walls.setdefault("fused" if walk else "per-node", []).append(
+                (time.perf_counter() - t) * 1e3)
+    print(json.dumps({"split_times": {
+        "src": str(src), "card": smi, "per_request": totals,
+        "gemv_per_request_ms": gemv, "cases": cases,
+        "plan_walls_ms": {k: statistics.median(v) for k, v in walls.items()},
+        "plan_walls_all_ms": walls, "plan_rel_err": err,
+        "sweep": sweep}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if "--ssd-times" in sys.argv[1:]:
         return ssd_times(Path(sys.argv[sys.argv.index("--ssd-times") + 1]))
+    if "--split-times" in sys.argv[1:]:
+        return split_times(Path(sys.argv[sys.argv.index("--split-times")
+                                         + 1]))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 

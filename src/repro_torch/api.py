@@ -30,7 +30,7 @@ share one on-disk plan cache.  Predictor caches are the port's own
 `compile(tune=True)` times the Hopper kernels' launch candidates on the
 card (`runtime/autotune.py`) and runs the plan with the winners; the plan
 document differs from the untuned one only in its provenance `tune` tag
-(the port's own, `hopper-tune-v1.k1`), and `save` writes the launches
+(the port's own, `hopper-tune-v1.k2`), and `save` writes the launches
 beside the artifact, as `<stem>.hopper_tiles.json`.
 
 `record()` / `recalibrate()` / `replan()` close the measurement loop

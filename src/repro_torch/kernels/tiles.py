@@ -11,7 +11,8 @@ Two parts, importing nothing:
 
 * The Hopper launch table: one `LaunchSpec` per op kind, holding the legal
   values of its kernel's launch parameters (`split_matmul`'s split-K
-  `splits` and tiled-product `bm`/`bn`, `hadamard_matmul`'s `bm`/`bn`,
+  `splits`, of the GEMV or the tiled product, and the tiled product's
+  block `bm`/`bn`, `hadamard_matmul`'s `bm`/`bn`,
   `decode_attention`'s `run_tiles`, `ssd_chunk_scan`'s `chunk`).  A
   `Launch` names some of them; a parameter it leaves out is what the
   kernel's own launch planner picks (`plan_launch`, `plan_hadamard`,
@@ -28,7 +29,8 @@ Two parts, importing nothing:
   the tile sizes a kernel has an instantiation of (the Winograd tiles'
   resident blocks fit an SM's 228 KB together, by the kernel's launch
   bounds); and the exact-split rule (`splits` chunks of K with none
-  empty).  How many blocks fill one
+  empty, of whole `GEMM_BK` steps for the tiled product).  How many
+  blocks fill one
   wave is the planners' business, not a legality rule: the second passes
   of `split_matmul` and `decode_attention` are separate launches, so no
   block waits on another and any grid the rules above allow is correct.
@@ -92,7 +94,7 @@ def check_chunk(name: str, v, default: int, extent: int) -> int:
 
 #: version of the Hopper launch table; folded into the port's tune-cache
 #: digests and tag, so cached launches die when the kernels change shape
-HOPPER_KERNEL_TILE_VERSION = 1
+HOPPER_KERNEL_TILE_VERSION = 2
 
 #: shared memory one Hopper block may use (the opt-in maximum, 227 KB)
 SMEM_PER_BLOCK = 232448
@@ -106,8 +108,10 @@ SMEM_PER_BLOCK = 232448
 #: tile (8 warps' partial sums of 256 bf16 columns, fp32)
 MAX_GEMV_ROWS = 8
 GEMV_STATIC_SMEM = 8 * 256 * 4
-#: split_matmul's tiled product: the block edges it has instantiations of
+#: split_matmul's tiled product: the block edges it has instantiations of,
+#: and the K rows of one step of its ring (its split chunks are whole steps)
 GEMM_EDGES = (64, 128)
+GEMM_BK = 64
 
 #: hadamard_matmul: its tiles, (rows, columns) of M[g] per block, with the
 #: blocks of each an SM holds at once (the kernel's launch bounds)
@@ -321,7 +325,8 @@ class LaunchSpec:
                 v = max(fits)
             vals[name] = v
         if "splits" in vals:
-            vals["splits"] = exact_splits(extents["k"], vals["splits"])
+            vals["splits"] = exact_splits(extents["k"], vals["splits"],
+                                          split_step(extents))
         try:
             return self.validate(self.config(**vals), extents)
         except ValueError:
@@ -330,19 +335,24 @@ class LaunchSpec:
     def configs(self, extents: Mapping[str, int], *,
                 preserve_numerics: bool = True) -> List[Launch]:
         """The legal candidate grid for a call of these extents, the
-        default first.  With ``preserve_numerics`` (the autotuner's
-        default) reduction-axis parameters stay at the planner's choice,
-        so every candidate computes bit-identical fp32 results to the
-        default; without, they are searched too (tolerance-exact)."""
-        grids: List[List[Tuple[str, int]]] = []
+        default first: each parameter the call's kernel reads at the
+        planner's choice or one of its candidates.  With
+        ``preserve_numerics`` (the autotuner's default) reduction-axis
+        parameters stay at the planner's choice, so every candidate
+        computes bit-identical fp32 results to the default; without, they
+        are searched too (tolerance-exact), so that grid holds this one."""
+        grids: List[List[Optional[Tuple[str, int]]]] = []
         for p in self.params:
             if not p.applies(extents) or (p.reduction and preserve_numerics):
                 continue
-            grids.append([(p.name, v) for v in p.candidates])
+            grids.append([None] + [(p.name, v) for v in p.candidates])
         out = [self.default()]
         for combo in (_product(grids) if grids else []):
+            fixed = dict(c for c in combo if c is not None)
+            if not fixed:
+                continue
             try:
-                cand = self.validate(self.config(**dict(combo)), extents)
+                cand = self.validate(self.config(**fixed), extents)
             except ValueError:
                 continue
             if cand not in out:
@@ -357,12 +367,23 @@ def _product(grids):
     return combos
 
 
-def exact_splits(k: int, splits: int) -> int:
-    """The split-K count the GEMV launches for `splits` requested over K
-    rows: chunks of ceil(K / splits) rows, the last one possibly shorter,
-    none empty."""
-    splits = max(1, min(splits, k))
-    return -(-k // -(-k // splits))
+def exact_splits(k: int, splits: int, step: int = 1) -> int:
+    """The split-K count a kernel launches for `splits` requested over K
+    rows taken in whole steps of `step` rows (1 for the GEMV, GEMM_BK for
+    the tiled product): chunks of ceil(steps / splits) steps, the last one
+    possibly shorter, none empty."""
+    steps = -(-k // step)
+    if steps <= 1:
+        return 1
+    splits = max(1, min(splits, steps))
+    return -(-steps // -(-steps // splits))
+
+
+def split_step(e: Mapping[str, int]) -> int:
+    """The K rows a split chunk of split_matmul's kernel is a multiple of,
+    for a call of extents `e`: 1 for the GEMV, GEMM_BK for the tiled
+    product."""
+    return 1 if _gemv(e) else GEMM_BK
 
 
 # ------------------------------------------------------------ the table
@@ -377,11 +398,16 @@ def _gemv_rows(m: int) -> int:
 
 def _check_linear(v: Dict[str, int], e: Mapping[str, int]) -> None:
     if "splits" in v:
-        s, k = v["splits"], e["k"]
-        if exact_splits(k, s) != s:
+        s, k, step = v["splits"], e["k"], split_step(e)
+        if exact_splits(k, s, step) != s:
+            chunk = -(-(-(-k // step)) // s) * step
             raise ValueError(f"illegal split_matmul launch splits={s}: "
-                             f"chunks of {-(-k // s)} of K = {k} rows make "
-                             f"{exact_splits(k, s)} splits")
+                             f"chunks of {chunk} of K = {k} rows"
+                             + (f" (whole {step}-row steps)" if step > 1
+                                else "")
+                             + f" make {exact_splits(k, s, step)} splits")
+        if step > 1:
+            return
         stage = 4 * _gemv_rows(e["m"]) * -(-k // s)
         if stage > SMEM_PER_BLOCK - GEMV_STATIC_SMEM:
             raise ValueError(f"illegal split_matmul launch splits={s}: its "
@@ -421,12 +447,15 @@ _SPECS: Dict[str, LaunchSpec] = {
     "linear": LaunchSpec(
         kind="linear", kernel="split_matmul",
         params=(
-            # the GEMV's split-K factor: regroups the sum over K
+            # the split-K factor of the GEMV and of the tiled product:
+            # regroups the sum over K
             LaunchParam("splits", "k", 1,
-                        (1, 2, 4, 8, 16, 32, 64, 128, 256), _gemv,
+                        (1, 2, 4, 8, 16, 32, 64, 128, 256), lambda e: True,
                         reduction=True),
-            # the tiled product's block: every output is summed over K in
-            # the same order whatever block computes it
+            # the tiled product's block: with the split fixed (a launch
+            # that names no splits keeps the planner's), every output is
+            # summed over its chunk in the same k order whatever block
+            # computes it
             LaunchParam("bm", "m", 64, GEMM_EDGES,
                         lambda e: not _gemv(e), closed=True),
             LaunchParam("bn", "n", 64, GEMM_EDGES,

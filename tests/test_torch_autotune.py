@@ -151,6 +151,11 @@ def test_preserving_grids_collapse_where_only_reductions_are_tuned():
         registry.launch_extents(OPS["linear tiled"]))
     assert [c.label() for c in tiled] == [
         "default", "bm64/bn64", "bm64/bn128"]
+    # the tiled product's K split regroups its sum too: searched only
+    # without preserve_numerics (K = 256 is four 64-row steps)
+    relaxed = tiles.launch_spec("linear").configs(
+        registry.launch_extents(OPS["linear tiled"]), preserve_numerics=False)
+    assert sorted({c.get("splits") for c in relaxed} - {None}) == [1, 2, 4]
     # a direct conv launches no kernel of the port: nothing to tune
     direct = ConvOp(H_in=8, W_in=8, C_in=3, C_out=16)
     assert registry.launch_extents(direct) == {}
@@ -166,6 +171,9 @@ def test_the_table_and_the_kernel_planners_share_their_facts():
                                 "winograd_conv.winograd_conv"))
     assert wc.TILES is tiles.HADAMARD_TILES
     assert sm.MAX_GEMV_ROWS == tiles.MAX_GEMV_ROWS
+    assert sm.GEMM_BK == tiles.GEMM_BK
+    assert set(sm.GEMM_BLOCKS) == {(bm, bn) for bm in tiles.GEMM_EDGES
+                                   for bn in tiles.GEMM_EDGES}
     assert da.TILE == tiles.ATTN_TILE
     assert (sc.CHUNK, sc.DECODE_T_MAX) == (tiles.SSD_CHUNK,
                                            tiles.SSD_DECODE_T_MAX)
@@ -195,8 +203,15 @@ def test_explicit_launches_fix_what_the_planners_pick():
                         lin.config(bm=128, bn=64))
     assert (tiled.variant, tiled.mt, tiled.tile, tiled.col_tiles) == \
         (TILED, 128, 64, 4)
-    assert (plan_launch(64, 256, 200, 0, 200, 4, 0, 132, 1).mt,
-            plan_launch(64, 256, 200, 0, 200, 4, 0, 132, 1).tile) == (64, 64)
+    default = plan_launch(64, 256, 200, 0, 200, 4, 0, 132, 1)
+    assert (default.mt, default.tile) == (64, 64)
+    # a named block keeps the planner's split (two chunks of two 64-row
+    # steps); named splits keep the planner's block
+    assert (tiled.splits, tiled.k_chunk) == (default.splits,
+                                             default.k_chunk) == (2, 128)
+    four = plan_launch(64, 256, 200, 0, 200, 4, 0, 132, 1,
+                       lin.config(splits=4))
+    assert (four.mt, four.tile, four.splits, four.k_chunk) == (64, 64, 4, 64)
     had = plan_hadamard(16, 256, 32, 128, 4, (0, 0, 0), 132,
                         tiles.launch_spec("conv").config(bm=64, bn=128))
     assert (had.bm, had.bn, had.grid) == (64, 128, (1, 4, 16))
@@ -210,7 +225,9 @@ def test_explicit_launches_fix_what_the_planners_pick():
     ("split_matmul GEMV bm", "linear"), ("split_matmul inexact splits",
                                          "linear"),
     ("split_matmul X stage", "linear"), ("split_matmul bm alone", "linear"),
-    ("split_matmul bm 96", "linear"), ("hadamard 64x64", "conv"),
+    ("split_matmul bm 96", "linear"),
+    ("split_matmul tiled inexact splits", "linear"),
+    ("hadamard 64x64", "conv"),
     ("hadamard bm alone", "conv"), ("hadamard over extent", "conv"),
     ("attention run_tiles", "attention"), ("attention kind", "attention"),
     ("ssd chunk at decode", "ssm"), ("ssd chunk smem", "ssm"),
@@ -237,6 +254,9 @@ def test_illegal_explicit_launches_raise_in_every_wrapper(case):
             r(16, 10), r(10, 40), 0, 40, launch={"bm": 64}),
         "split_matmul bm 96": lambda: split_matmul(
             r(100, 10), r(10, 40), 0, 40, launch={"bm": 96, "bn": 64}),
+        # K = 300 is five 64-row steps: chunks of two make three splits
+        "split_matmul tiled inexact splits": lambda: split_matmul(
+            r(16, 300), r(300, 40), 0, 40, launch={"splits": 4}),
         "hadamard 64x64": lambda: hadamard_matmul(
             r(16, 100, 8), r(16, 8, 100), launch={"bm": 64, "bn": 64}),
         "hadamard bm alone": lambda: hadamard_matmul(
@@ -311,9 +331,15 @@ def test_clamp_fits_a_side_and_falls_back_to_the_planner():
 def test_tune_key_digest_is_the_references(name):
     op = OPS[name]
     jop = jax_registry.op_from_json(registry.op_to_json(op))
+    # the port's Hopper launch table has its own version (2 since the
+    # tiled product's redesign, where the reference's TPU table is at 1):
+    # with the version equal, the fields and the digest are the reference's
+    assert TuneKey.for_op(op, *CARD).kernel_version == \
+        tiles.HOPPER_KERNEL_TILE_VERSION == 2
     for fields in (dict(), dict(preserve_numerics=False)):
         port = TuneKey.for_op(op, *CARD, **fields)
-        ref = jax_at.TuneKey.for_op(jop, *CARD, **fields)
+        ref = dataclasses.replace(jax_at.TuneKey.for_op(jop, *CARD, **fields),
+                                  kernel_version=port.kernel_version)
         assert port._canonical() == ref._canonical()
         assert port.key == ref.key
     for version in (1, 2, 7):
@@ -322,7 +348,7 @@ def test_tune_key_digest_is_the_references(name):
         ref = dataclasses.replace(jax_at.TuneKey.for_op(jop, *CARD),
                                   kernel_version=version)
         assert port.key == ref.key
-    assert tune_cache_version() == "hopper-tune-v1.k1" != \
+    assert tune_cache_version() == "hopper-tune-v1.k2" != \
         jax_at.tune_cache_version()
 
 
@@ -356,8 +382,11 @@ def test_the_two_packages_refuse_each_others_entries(tmp_path):
     other's entry instead of trusting it."""
     op = OPS["conv"]
     jop = jax_registry.op_from_json(registry.op_to_json(op))
-    key, jkey = TuneKey.for_op(op, "host", "cpu"), \
-        jax_at.TuneKey.for_op(jop, "host", "cpu")
+    # the port's launch table is at version 2 and the reference's at 1, so
+    # only a reference key of the same version shares the port's digest
+    key = TuneKey.for_op(op, "host", "cpu")
+    jkey = dataclasses.replace(jax_at.TuneKey.for_op(jop, "host", "cpu"),
+                               kernel_version=key.kernel_version)
     assert key.key == jkey.key
     jax_at.TuneCache(tmp_path).put(
         jkey, jax_registry.tile_spec("conv").config(bm=64, bn=128, bk=256),

@@ -55,7 +55,10 @@ def _close(got, want, dtype):
     (1, 40, 4096, 0, 4096),           # K below a block's floor: 1 split
     (512, 2048, 4096, 0, 4096),       # rwkv6-1.6b prefill plan, M = 512:
     (512, 2048, 4096, 280, 3816),     # the tiled product, in_proj whole
-    (512, 4096, 2048, 0, 280)])       # and its fast/slow channel panels
+    (512, 4096, 2048, 0, 280),        # and its fast/slow channel panels
+    (512, 2048, 4096, 3, 1000),       # odd c0: the narrow-copy variant
+    (9, 768, 3072, 2480, 592), (17, 100, 301, 96, 128),
+    (64, 3584, 3584, 0, 3584)])       # short M on the tensor cores
 def test_split_matmul_kernel_matches_plain(cuda, m, k, n, c0, width, dtype):
     from repro_torch.kernels.split_matmul import (split_matmul,
                                                   split_matmul_plain)
@@ -99,7 +102,10 @@ def test_split_matmul_on_packed_panels_and_odd_pointers(cuda, dtype):
 
 @pytest.mark.parametrize("m,k,n,c0,width", [(1, 25088, 3368, 0, 728),
                                             (1, 14336, 2296, 0, 1288),
-                                            (5, 1000, 301, 7, 200)])
+                                            (5, 1000, 301, 7, 200),
+                                            (512, 4096, 1768, 0, 280),
+                                            (512, 2048, 3816, 0, 3816),
+                                            (512, 2048, 4096, 3, 1000)])
 def test_split_matmul_is_bit_identical_from_call_to_call(cuda, m, k, n, c0,
                                                          width):
     from repro_torch.kernels.split_matmul import split_matmul
@@ -109,6 +115,57 @@ def test_split_matmul_is_bit_identical_from_call_to_call(cuda, m, k, n, c0,
     first = split_matmul(x, w, c0, width)
     for _ in range(3):
         assert torch.equal(split_matmul(x, w, c0, width), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c0", [0, 3])
+def test_tiled_product_split_and_unsplit_at_m512(cuda, dtype, c0):
+    """rwkv6-1.6b's 280-wide K = 4096 panel at M = 512, with one split, the
+    planner's and 16, by 16-byte copies and (c0 = 3) the narrow ones:
+    each within RTOL of the plain version, and two calls bit-identical."""
+    from repro_torch.kernels.split_matmul import (split_matmul,
+                                                  split_matmul_plain)
+    from repro_torch.kernels.split_matmul.split_matmul import (
+        TILED, TILED_NARROW, plan_call)
+    g = torch.Generator(device=cuda).manual_seed(4096 + c0)
+    x = torch.randn((512, 4096), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((4096, 1768), generator=g, device=cuda) / 64).to(dtype)
+    want = split_matmul_plain(x, w, c0, 280)
+    assert plan_call(x, w, c0, 280).variant == (TILED if c0 == 0
+                                                else TILED_NARROW)
+    for launch in (None, {"splits": 1}, {"splits": 16}):
+        got = split_matmul(x, w, c0, 280, launch=launch)
+        _close(got, want, dtype)
+        assert torch.equal(split_matmul(x, w, c0, 280, launch=launch), got)
+
+
+def test_a_tiled_call_in_a_graph_capture_needs_an_eager_one_first(cuda,
+                                                                 monkeypatch):
+    """The tiled product's occupancy query and shared-memory attributes are
+    runtime calls, made once per dtype and device: a first call inside a
+    CUDA graph capture raises; after an eager call a captured one replays
+    to the eager result."""
+    import importlib
+
+    from repro_torch.kernels.split_matmul import split_matmul
+    sm_mod = importlib.import_module(
+        "repro_torch.kernels.split_matmul.split_matmul")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((64, 256), generator=g, device=cuda)
+    w = torch.randn((256, 200), generator=g, device=cuda)
+    monkeypatch.setattr(sm_mod, "_TILED_RESIDENT", {})
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="graph capture"):
+        with torch.cuda.graph(graph, stream=side):
+            split_matmul(x, w, 0, 200)
+    eager = split_matmul(x, w, 0, 200)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = split_matmul(x, w, 0, 200)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -854,6 +911,8 @@ def test_reduced_zamba_on_the_card_matches_the_cpu(cuda, dtype):
 TUNE_OPS = {
     "gemv": ("linear", dict(L=4, C_in=3000, C_out=520)),
     "tiled": ("linear", dict(L=70, C_in=300, C_out=200)),
+    # rwkv6-1.6b's 280-wide K = 4096 panel: blocks and splits
+    "tiled m512": ("linear", dict(L=512, C_in=4096, C_out=280)),
     "conv": ("conv", dict(H_in=40, W_in=40, C_in=40, C_out=136)),
     "attention": ("attention", dict(H=8, S=700, KV=2, hd=64)),
     "ssm": ("ssm", dict(T=200, H=6, hd=32, N=16)),

@@ -21,7 +21,8 @@ from repro_torch.core.coexec import SplitPlan, pack_weights
 from repro_torch.kernels import build
 from repro_torch.kernels.split_matmul import split_matmul
 from repro_torch.kernels.split_matmul.split_matmul import (
-    MIN_BLOCK_BYTES, SCALAR, TILED, VECTOR, X_STAGE_BYTES, plan_launch)
+    MIN_BLOCK_BYTES, SCALAR, TILED, TILED_NARROW, VECTOR, X_STAGE_BYTES,
+    plan_launch, tiled_splits)
 from repro_torch.kernels.winograd_conv.winograd_conv import (TILES,
                                                              plan_hadamard)
 
@@ -88,7 +89,7 @@ def test_no_block_streams_less_than_the_floor(case, dtype):
     _, m, k, n, c0, width = case
     elt = ELTS[dtype]
     plan = plan_launch(m, k, n, c0, width, elt, ALIGNED, SMS, RESIDENT)
-    if plan.variant == TILED:
+    if plan.variant in (TILED, TILED_NARROW):
         return
     assert plan.splits == 1 or \
         plan.k_chunk * plan.tile * elt >= MIN_BLOCK_BYTES
@@ -148,8 +149,13 @@ def test_rows_of_x_round_up_to_a_power_of_two(m, mt):
 
 
 def test_more_than_eight_rows_take_the_tiled_product():
+    """... split over K so that its 10 tiles of 64 x 64 fill part of one
+    wave (test_torch_tiled_gemm.py holds the tiled planner)."""
     plan = plan_launch(9, 768, 3072, 2480, 592, 4, ALIGNED, SMS, RESIDENT)
-    assert (plan.variant, plan.splits) == (TILED, 1)
+    assert (plan.variant, plan.mt, plan.tile, plan.row_tiles) == \
+        (TILED, 64, 64, 1)
+    assert plan.splits == tiled_splits(768, 10, RESIDENT * SMS) == 6
+    assert plan.blocks <= RESIDENT * SMS
 
 
 @pytest.mark.parametrize("ptr_offset,c0,n,elt,variant", [
