@@ -40,7 +40,7 @@ the port cannot be imported, and otherwise runs, in order:
    to the committed artifact's (checksum included), then compiled again
    from the warm plan cache; cold and warm seconds, the host's CPU model
    (`lscpu`) and numpy's version printed;
-5. seven main paths (`PATHS`), each running the network the port compiled
+5. eight main paths (`PATHS`), each running the network the port compiled
    in phase 4 (strict: the port's static verifier checks its plan) on two
    CUDA-stream groups for a few seeded inputs ("requests"), each output
    held against `run_oracle` on the card, with every kernel's launch
@@ -58,10 +58,16 @@ the port cannot be imported, and otherwise runs, in order:
      M = 1, `ssd_chunk_scan`'s decode kernel at H = 64, hd = 64, N = 16)
      and the chunked prefill of 512 tokens (every node split:
      `split_matmul`'s tiled product at M = 512 on channel panels,
-     `ssd_chunk_scan`'s chunk kernels on ssm-state halves); right after
-     each path's per-node walk, every distinct kernel call of one of its
-     requests is held against its plain version in float32 and bfloat16
-     and timed (`HELD_PATHS`, `hold_walk_calls`);
+     `ssd_chunk_scan`'s chunk kernels on ssm-state halves);
+   - deepseek-v2-lite-16b's decode step at full width and depth (27
+     blocks, a 128-position cache): `split_matmul` as a GEMV (2048² and
+     10944→2048 on one group, 2048→10944 on channel panels of 3408 and
+     7536) and `decode_attention` at H = KV = 16, hd = 128 split by head
+     (7 | 9);
+   right after each of the last three paths' per-node walk, every
+   distinct kernel call of one of its requests is held against its plain
+   version in float32 and bfloat16 and timed (`HELD_PATHS`,
+   `hold_walk_calls`);
 6. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
 7. the fused segment walk of each path (`run(fused=True)`): every fused
@@ -168,7 +174,24 @@ the port cannot be imported, and otherwise runs, in order:
    over 516 tokens the step recurrence, so that check holds one against
    the other at full width; the profiled prefill sums the chunked WKV's
    eager ops apart (`wkv_range`);
-13. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
+13. the MLA and MoE model phases: deepseek-v2-lite-16b at its published
+   widths and full depth (`deepseek_phase`: 27 layers of MLA attention,
+   a dense first layer then 64 routed experts top-6 and 2 shared; 15.7 B
+   parameters drawn on the card) and llama4-scout at its published
+   widths and 6 of its 48 layers (`llama4_phase`, reduced: depth only).
+   Neither model's passes launch a kernel of the port (the reference's
+   MLA and MoE are no Pallas kernels); MoE capacity is per call, so each
+   check compares calls on the same tokens: fp32 `prefill` against
+   `forward`, one MLA layer in both branches against the dense pass, one
+   MoE layer against a per-token loop (its dropped pairs printed); bf16,
+   the engine against the model's own greedy loop, how many batched
+   completions differ from solo runs (printed, not asserted), a profiled
+   prefill, decode steps at batch 1 and 4, and the engine shipping the
+   committed deepseek plan (`execute_plan` within `E2E_RTOL` of
+   `run_oracle`, `split_matmul` and `decode_attention` launched);
+   llama4-scout's bf16 `prefill` against `forward`, decode steps at
+   batch 1 and 4, and the continuous scheduler completing its requests;
+14. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
    zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernels at
@@ -188,7 +211,7 @@ the port cannot be imported, and otherwise runs, in order:
    alike and its kernel calls held against their plain versions
    (`hold_walk_calls`); tuned, relaxed and untuned walls in turns, no
    claim;
-14. a JSON line of per-kernel numbers (launches summed over every walk
+15. a JSON line of per-kernel numbers (launches summed over every walk
    above, `by_path` per walk with the float32 times of one request, one
    prefill or one decode step where the walk's calls were held), then the
    result line.  Each phase prints its seconds.
@@ -240,6 +263,8 @@ R18, R34, INC = "resnet18", "resnet34", "inception_v3"
 #: rwkv6-1.6b's two plans: the decode step and the chunked prefill of 512
 #: tokens (the reference models chunked prefill for pure-SSM configs only)
 RWKV, RWKV_PREFILL = "rwkv6-1.6b", "rwkv6-1.6b tokens=512"
+#: deepseek-v2-lite-16b's decode-step plan (27 blocks, a 128-position cache)
+DS = "deepseek-v2-lite-16b"
 
 #: end-to-end tolerance against run_oracle, relative to the largest |oracle|
 #: value.  VGG16: Winograd reassociates every eligible conv's fp32 sums and
@@ -252,8 +277,10 @@ RWKV, RWKV_PREFILL = "rwkv6-1.6b", "rwkv6-1.6b tokens=512"
 #: plans: split/unsplit fp32 sums (GEMVs, and the tiled product at M = 512,
 #: K up to 4096), the SSD kernels against the step-by-step scan (the chunk
 #: kernels' 3xTF32 products at T = 512), through 24 residual blocks.
+#: deepseek-v2-lite-16b's plan: split/unsplit fp32 GEMV sums (K up to
+#: 10944) and the head-split attention, through 27 residual blocks.
 E2E_RTOL = {VGG: 2e-3, ZAMBA: 1e-4, R18: 2e-3, R34: 2e-3, INC: 2e-3,
-            RWKV: 1e-4, RWKV_PREFILL: 1e-4}
+            RWKV: 1e-4, RWKV_PREFILL: 1e-4, DS: 1e-4}
 
 
 #: per-node/fused request pairs of the alternating wall measurement
@@ -299,6 +326,9 @@ SPLIT_CASES = [
     ("rwkv6 embed M=512", 512, 2048, 2048, 0, 2048, {}),
     ("rwkv6 in_proj M=512", 512, 2048, 4096, 0, 4096, {}),
     ("rwkv6 out_proj M=512", 512, 4096, 2048, 0, 2048, {}),
+    # deepseek-v2-lite-16b's plan, whole: mlp_up unsplit (its walk's two
+    # channel panels are held in `hold_walk_calls`)
+    ("deepseek mlp_up whole", 1, 2048, 10944, 0, 10944, {}),
     # the tiled product's narrow-copy variant (W[0, c0] 12 bytes into a
     # row in fp32, 6 in bf16) and short M: 9 rows, 64 rows at K = 3584
     ("odd c0=3 M=512", 512, 2048, 4096, 3, 1000, {}),
@@ -326,6 +356,9 @@ ATTN_CASES = [
     ("b8.attn fast", 32, 32, 112, 3072, 3071, 0, {ZAMBA: 1}),
     ("b8.attn slow", 32, 32, 112, 1024, 1023, 0, {ZAMBA: 1}),
     ("b8.attn unsplit", 32, 32, 112, 4096, 4095, 0, {}),
+    # deepseek-v2-lite-16b's b*.attn unsplit (its walk's 9- and 7-head
+    # halves are held in `hold_walk_calls`)
+    ("deepseek attn unsplit", 16, 16, 128, 128, 127, 0, {}),
     ("GQA g=4 hd=128", 32, 8, 128, 32768, 32767, 0, {}),
     ("window 1024", 32, 8, 128, 8192, 5000, 1024, {}),
     ("ragged S=1000", 16, 4, 64, 1000, 999, 0, {}),
@@ -1514,6 +1547,42 @@ def model_check(name: str, model, params, batch: int, t: int, rng,
     return walks
 
 
+def prefill_breakdown(name: str, model, params, b: int, t_len: int,
+                      max_len: int, rng, smi: str, part=None,
+                      spans=()) -> None:
+    """A bf16 prefill of `b` x `t_len` seeded tokens into a `max_len`
+    cache: walls bare (median of 3), then device time by kernel under
+    torch.profiler (`_profile`, with its `spans`), launches and the idle
+    share, and `part(rows, busy, ranges)`'s text where given."""
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         (b, t_len))).cuda()
+    cache = model.init_cache(b, max_len, device="cuda")
+
+    def prefill():
+        model.prefill(params, toks, cache)
+
+    prefill()
+    torch.cuda.synchronize()
+    bare = []
+    for _ in range(3):
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t) * 1e3)
+    rows, busy, wall, host_calls, ranges = _profile(f"{name} prefill",
+                                                    prefill, 2, spans=spans)
+    extra = "" if part is None else f"{part(rows, busy, ranges)}; "
+    print(f"profile {name} bf16 prefill of {b} x {t_len} tokens: wall "
+          f"{statistics.median(bare):.3f} ms bare (median of 3: "
+          + ", ".join(f"{w:.3f}" for w in bare) + f"), {wall:.3f} ms under "
+          f"the profiler; kernels {busy:.3f} ms of device time in "
+          f"{sum(r[1] for r in rows) / 2:g} launches (idle >= "
+          f"{1 - busy / wall:.1%} of the profiled wall); {extra}host launch "
+          f"calls {sum(host_calls.values()):g}; {smi}", flush=True)
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.3f} ms {count / 2:6g}x {key[:100]}", flush=True)
+
+
 def model_phase(arch: str, peaks: dict, tallies: dict, smi: str) -> dict:
     """A model of `MODEL_ARCHS` at its published widths and full depth,
     its weights seeded draws made on the card: zamba2-7b (81 Mamba2
@@ -1654,45 +1723,453 @@ def model_phase(arch: str, peaks: dict, tallies: dict, smi: str) -> dict:
           flush=True)
 
     # the prefill: bare walls, then device time by kernel
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                         (b, t_len))).cuda()
-    cache = model.init_cache(b, t_len + new, device="cuda")
-
-    def prefill():
-        model.prefill(params, toks, cache)
-
-    prefill()
-    torch.cuda.synchronize()
-    bare = []
-    for _ in range(3):
-        t = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        bare.append((time.perf_counter() - t) * 1e3)
-    with wkv_range():
-        rows, busy, wall, host_calls, spans = _profile(
-            f"{name} prefill", prefill, 2, spans=(WKV_RANGE,))
-    if layers:
-        ssd, phases = ssd_device_ms(rows)
-        part = (f"the SSD chunk kernels {ssd:.3f} ms ({ssd / busy:.1%} of "
-                f"the device time: {phases})")
-    else:
+    def part(rows, busy, spans) -> str:
+        if layers:
+            ssd, phases = ssd_device_ms(rows)
+            return (f"the SSD chunk kernels {ssd:.3f} ms ({ssd / busy:.1%} "
+                    f"of the device time: {phases})")
         wkv = spans[WKV_RANGE]
-        part = (f"the chunked WKV's eager ops {wkv:.3f} ms ({wkv / busy:.1%}"
-                f" of the device time)")
-    print(f"profile {name} bf16 prefill of {b} x {t_len} tokens: wall "
-          f"{statistics.median(bare):.3f} ms bare (median of 3: "
-          + ", ".join(f"{w:.3f}" for w in bare) + f"), {wall:.3f} ms under "
-          f"the profiler; kernels {busy:.3f} ms of device time in "
-          f"{sum(r[1] for r in rows) / 2:g} launches (idle >= "
-          f"{1 - busy / wall:.1%} of the profiled wall); {part}; host launch "
-          f"calls {sum(host_calls.values()):g}; {smi}", flush=True)
-    for ms, count, key in rows[:8]:
-        print(f"  {ms:8.3f} ms {count / 2:6g}x {key[:100]}", flush=True)
+        return (f"the chunked WKV's eager ops {wkv:.3f} ms "
+                f"({wkv / busy:.1%} of the device time)")
+
+    with wkv_range():
+        prefill_breakdown(name, model, params, b, t_len, t_len + new, rng,
+                          smi, part, spans=(WKV_RANGE,))
     for batch in (1, b):
         decode_breakdown(f"{name} model bf16", model, params, batch)
     print(f"model {name}: {smi}", flush=True)
-    del model, params, engine, cache
+    del model, params, engine
+    torch.cuda.empty_cache()
+    return walks
+
+
+# ------------------------------------------------------- MLA and MoE models
+
+def mla_dense(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Causal MLA over all of `x` through the dense latent scores:
+    `mla_full`'s branch below its flash threshold, at any length
+    (`mla_full` takes the flash walk from 2048 tokens on, which needs
+    whole 1024-token chunks)."""
+    from repro_torch.models import mla
+    b, t, _ = x.shape
+    ar = torch.arange(t, device=x.device)
+    pos = ar.expand(b, t)
+    q_nope, q_rope = mla._queries(p, x, cfg, pos)
+    c_kv, k_rope = mla._latents(p, x, cfg, pos)
+    return mla._attend_latent(p, q_nope, q_rope, c_kv, k_rope,
+                              ar[None, :] <= ar[:, None], cfg)
+
+
+def mla_layer_check(p: dict, cfg, gen, smi: str) -> None:
+    """fp32, TF32 off: one MLA layer's `mla_prefill` over T seeded inputs,
+    then one `mla_decode` step into an S-position latent cache, against
+    the dense causal pass over the T + 1 inputs, within
+    `MODEL_LOGIT_RTOL` of its largest |value|, for each (T, S) of
+    `DS_MLA_CASES`: both dense, then both flash (`flash_latent_full`,
+    `flash_latent_decode`)."""
+    from repro_torch.models import mla
+    for t, s in DS_MLA_CASES:
+        x = torch.randn((1, t + 1, cfg.d_model), generator=gen,
+                        device="cuda")
+        want = mla_dense(p, x, cfg)
+        wall = time.perf_counter()
+        out, (c_kv, k_rope) = mla.mla_prefill(p, x[:, :t], cfg)
+        cache_c = torch.zeros((1, s, cfg.kv_lora_rank), device="cuda")
+        cache_k = torch.zeros((1, s, cfg.qk_rope_head_dim), device="cuda")
+        cache_c[:, :t], cache_k[:, :t] = c_kv, k_rope
+        step, _, _ = mla.mla_decode(p, x[:, t:], cfg, cache_c, cache_k, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        got = torch.cat([out, step], dim=1)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        branch = (("flash" if t >= mla._FLASH_THRESHOLD else "dense")
+                  + " prefill, "
+                  + ("flash" if s >= mla._DECODE_FLASH_THRESHOLD
+                     else "dense") + " decode")
+        if not (np.isfinite(err) and err <= MODEL_LOGIT_RTOL * scale):
+            raise AssertionError(f"mla layer T={t} S={s} ({branch}): "
+                                 f"prefill + decode differ from the dense "
+                                 f"pass by {err:.3e} > {MODEL_LOGIT_RTOL} x "
+                                 f"{scale:.3g}")
+        print(f"mla layer T={t} S={s} ({branch}): mla_prefill over {t} "
+              f"inputs + one mla_decode step within {err:.3e} of the dense "
+              f"causal pass over {t + 1} ({err / scale:.2e} of its largest "
+              f"|value| {scale:.3g}, limit {MODEL_LOGIT_RTOL:g}); "
+              f"{wall:.3f} s; {smi}", flush=True)
+
+
+def moe_loop(p: dict, x: torch.Tensor, cfg, capacity: int) -> tuple:
+    """The MoE layer's capacity semantics one (token, slot) at a time: each
+    token's fp32 router probabilities ranked on the host (a tie to the
+    lower expert), its top-k gates renormalised, then its slots in flat
+    (token, slot) order, each kept while its expert has taken fewer than
+    `capacity` pairs and run through that expert's FFN alone; plus the
+    shared experts.  Returns (y, dropped pairs)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import mlp
+    e, k = cfg.n_experts, cfg.experts_per_token
+    xt = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1).cpu().numpy()
+    taken = [0] * e
+    dropped = 0
+    y = torch.zeros_like(xt)
+    for i, row in enumerate(probs):
+        top = sorted(range(e), key=lambda j: (-row[j], j))[:k]
+        gates = row[top] / max(float(row[top].sum()), 1e-9)
+        for g, j in zip(gates, top):
+            if taken[j] >= capacity:
+                dropped += 1
+                continue
+            taken[j] += 1
+            h = F.silu(xt[i] @ p["w_gate"][j]) * (xt[i] @ p["w_up"][j])
+            y[i] += float(g) * (h @ p["w_down"][j])
+    if "shared" in p:
+        y = y + mlp(p["shared"], xt)
+    return y.reshape(x.shape), dropped
+
+
+def moe_layer_check(p: dict, cfg, gen, smi: str) -> None:
+    """fp32, TF32 off: one MoE layer on `DS_MOE_TOKENS` seeded inputs
+    against `moe_loop` at the same capacity, within `MODEL_LOGIT_RTOL` of
+    its largest |value|; both must drop the same number of (token, slot)
+    pairs.  The count is printed; none dropped is a finding of these
+    draws, not a pass of the drop path (the CPU tests hold a binding
+    case against the reference)."""
+    from repro_torch.models import moe
+    b, t = DS_MOE_TOKENS
+    k = cfg.experts_per_token
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device="cuda")
+    cap = moe.expert_capacity(b * t, cfg)
+    wall = time.perf_counter()
+    y, aux = moe.moe_layer(p, x, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    *_, keep = moe.route(p, x.reshape(b * t, -1), cfg, cap)
+    drops = int((~keep).sum())
+    want, loop_drops = moe_loop(p, x, cfg, cap)
+    err = float((y - want).abs().max())
+    scale = float(want.abs().max())
+    if drops != loop_drops or not (np.isfinite(err)
+                                   and err <= MODEL_LOGIT_RTOL * scale):
+        raise AssertionError(f"moe layer: {drops} drops against the loop's "
+                             f"{loop_drops}; max |err| {err:.3e} > "
+                             f"{MODEL_LOGIT_RTOL} x {scale:.3g}?")
+    note = ("" if drops else " (none dropped: a finding of these draws, "
+            "not a pass of the drop path)")
+    print(f"moe layer ({cfg.n_experts} experts, top-{k}, "
+          f"{cfg.n_shared_experts} shared, ff {cfg.moe_d_ff}) on {b} x {t} "
+          f"tokens: capacity {cap} per expert; {drops} of {b * t * k} "
+          f"(token, slot) pairs dropped{note}; within {err:.3e} of the "
+          f"per-token loop ({err / scale:.2e} of its largest |value| "
+          f"{scale:.3g}, limit {MODEL_LOGIT_RTOL:g}); aux {float(aux):.4f}; "
+          f"layer {wall:.3f} s; {smi}", flush=True)
+
+
+def greedy_loop(model, params, batch: list, max_len: int, new: int) -> list:
+    """Greedy tokens of `batch` (equal-length prompts) from the model's own
+    prefill and `decode_step` loop, as the engine's greedy sampling takes
+    them (argmax)."""
+    toks = torch.from_numpy(np.stack([r.prompt for r in batch]).astype(
+        np.int64)).cuda()
+    t = toks.shape[1]
+    cache = model.init_cache(len(batch), max_len, device="cuda")
+    logits, cache = model.prefill(params, toks, cache)
+    tok = logits.argmax(-1)
+    out = [tok]
+    for step in range(1, new):
+        logits, cache = model.decode_step(params, tok[:, None], cache,
+                                          t + step - 1)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).tolist()
+
+
+def deepseek_phase(smi: str, compiled) -> dict:
+    """deepseek-v2-lite-16b (`DS_ARCH`) at its published widths and full
+    depth (27 layers: MLA attention with kv_lora_rank 512, a dense first
+    layer, then 64 routed experts top-6 and 2 shared of ff 1408), its
+    weights seeded draws made on the card.  Its model path is plain
+    PyTorch (the reference's MLA and MoE are no Pallas kernels), so no
+    model pass launches a kernel of the port; its decode-step plan
+    (`PATHS`, and the engine below) runs `split_matmul` and
+    `decode_attention`.  MoE capacity is per call (a token's output
+    depends on the other tokens of its call), so each check compares
+    calls with the same tokens:
+
+    - fp32, TF32 off: `prefill` on `DS_FP32_BATCH` x `DS_FP32_PROMPT`
+      tokens against `forward` on the same tokens (the same N, so the
+      same capacity and drops) within `MODEL_LOGIT_RTOL` of its largest
+      |logit|; one MLA layer in both branches (`mla_layer_check`); one MoE
+      layer against its per-token loop (`moe_layer_check`);
+    - bf16: the fixed-batch engine on `MODEL_SERVE_REQUESTS` equal-length
+      prompts of `MODEL_SERVE_PROMPT` tokens at batch `MODEL_SERVE_BATCH`
+      (tokens/s), equal token for token to the model's own prefill and
+      greedy decode loop at that batch (`greedy_loop`); how many batched
+      completions differ from the request served alone, printed, not
+      asserted (capacity drops make a difference legitimate); a prefill at
+      that batch bare and under torch.profiler; decode steps at batch 1
+      and 4 (`decode_breakdown`); the engine shipping the deepseek plan
+      (`compiled=`, as `serve --compiled` ships it: `compiled` is the
+      network the compile phase held equal to the committed artifact,
+      whose executor its main path built, so the plan's 1.4 B seeded
+      weights are not drawn again), its `execute_plan()` within
+      `E2E_RTOL` of `run_oracle` with the plan's launch counts.
+
+    Returns the walks as {walk: (times key, launch counts)}: counters set
+    to 0 just before each walk, read just after."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(DS_ARCH)
+    name, n = cfg.name, cfg.param_count()
+    print(f"model {name}: {cfg.n_layers} layers (d_model {cfg.d_model}, "
+          f"MLA {cfg.n_heads} heads, kv_lora_rank {cfg.kv_lora_rank}, rope "
+          f"{cfg.qk_rope_head_dim}, nope {cfg.qk_nope_head_dim}, v "
+          f"{cfg.v_head_dim}; {cfg.first_dense_layers} dense layer of d_ff "
+          f"{cfg.d_ff}, then {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token} + {cfg.n_shared_experts} shared of ff "
+          f"{cfg.moe_d_ff}), vocab {cfg.vocab_size}: {n / 1e9:.3f} B "
+          f"parameters, {cfg.active_param_count() / 1e9:.3f} B active "
+          f"({2 * n / 1e9:.1f} GB bf16, {4 * n / 1e9:.1f} GB fp32): full "
+          f"width and depth, not reduced; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the "
+          f"card before the phase", flush=True)
+    walks = {}
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def no_kernels(label: str, counts: dict) -> None:
+        if counts != none:
+            raise AssertionError(f"{label}: launches {counts}; the model "
+                                 f"path launches none of the port's "
+                                 f"kernels")
+
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model fp32 weights: drawn on the card in "
+          f"{time.perf_counter() - t:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated",
+          flush=True)
+    rng = np.random.default_rng(25)
+    b, t_len = DS_FP32_BATCH, DS_FP32_PROMPT
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (b, t_len))).cuda()
+    cache = model.init_cache(b, t_len, device="cuda")
+    label = f"{name} model prefill"
+    zero_counts()
+    wall = time.perf_counter()
+    logits, _ = model.prefill(params, toks, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    walks[label] = (None, read_counts())
+    no_kernels(label, walks[label][1])
+    full, aux = model.forward(params, toks)
+    want = full[:, -1]
+    err = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    if not (logits.shape == want.shape and np.isfinite(err)
+            and err <= MODEL_LOGIT_RTOL * scale):
+        raise AssertionError(f"{label}: prefill logits differ from forward "
+                             f"by {err:.3e} > {MODEL_LOGIT_RTOL} x "
+                             f"{scale:.3g}")
+    print(f"{label}: fp32 prefill of {b} x {t_len} tokens in {wall:.3f} s, "
+          f"its last-position logits within {err:.3e} of forward on the "
+          f"same tokens (largest |logit| {scale:.3g}, {err / scale:.2e} of "
+          f"it, limit {MODEL_LOGIT_RTOL:g}); aux loss {float(aux):.4f}; no "
+          f"kernel of the port launched; {smi}", flush=True)
+    del cache, full, logits
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    layer = params["pattern"][0][0]
+    mla_layer_check(layer["attn"], cfg, gen, smi)
+    moe_layer_check(layer["ffn"], cfg, gen, smi)
+    del model, params, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16, the configuration's serving dtype, at full depth
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, t_len, new = MODEL_SERVE_BATCH, MODEL_SERVE_PROMPT, MODEL_SERVE_NEW
+    max_len = t_len + new
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, t_len).astype(np.int32),
+                max_new_tokens=new) for i in range(MODEL_SERVE_REQUESTS)]
+    engine = ServingEngine(cfg, model, params, max_batch=b, max_len=max_len,
+                           device="cuda")
+    engine.run([dataclasses.replace(reqs[0], max_new_tokens=2)])   # warm
+    label = f"{name} model serve bf16"
+    zero_counts()
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    host = time.perf_counter() - t
+    walks[label] = (None, read_counts())
+    no_kernels(label, walks[label][1])
+    tokens = sum(len(c.tokens) for c in done)
+    if tokens != len(reqs) * new or not all(
+            0 <= v < cfg.vocab_size for c in done for v in c.tokens):
+        raise AssertionError(f"{label}: {tokens} tokens, want "
+                             f"{len(reqs) * new} in [0, {cfg.vocab_size})")
+    for i in range(0, len(reqs), b):
+        loop = greedy_loop(model, params, reqs[i:i + b], max_len, new)
+        got = [c.tokens for c in done[i:i + b]]
+        if got != loop:
+            raise AssertionError(f"{label}: the engine's tokens of requests "
+                                 f"{i}..{i + b - 1} differ from the model's "
+                                 f"own prefill + greedy decode loop at "
+                                 f"batch {b}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    solo = ServingEngine(cfg, model, params, max_batch=1, max_len=max_len,
+                         device="cuda")
+    differ = sum(solo.run([r])[0].tokens != c.tokens
+                 for r, c in zip(reqs[:b], done))
+    print(f"{label}: {len(reqs)} greedy requests of {t_len} tokens in "
+          f"batches of {b}, {new} new tokens each: {tokens} tokens in "
+          f"{host:.3f} s ({tokens / host:.1f} tok/s); equal token for token "
+          f"to the model's own prefill + greedy decode loop at batch {b}; "
+          f"{differ} of the first batch's {b} completions differ from the "
+          f"request served alone (not asserted: a decode step's {b} tokens "
+          f"share "
+          f"each expert's capacity of {expert_capacity(b, cfg)}, the "
+          f"prefill's {b * t_len} a capacity of "
+          f"{expert_capacity(b * t_len, cfg)}); peak memory {peak:.1f} GB; "
+          f"{smi}", flush=True)
+    prefill_breakdown(name, model, params, b, t_len, max_len, rng, smi)
+    for batch in (1, b):
+        decode_breakdown(f"{name} model bf16", model, params, batch)
+
+    # the engine shipping the decode-step plan, as `serve --compiled`
+    # ships the committed artifact; the executor is warm from the main path
+    engine = ServingEngine(cfg, model, params, max_batch=b,
+                           max_len=max_len, compiled=compiled,
+                           device="cuda")
+    engine.plan_executor.run(warmup=True)
+    label = f"{name} serve --compiled"
+    zero_counts()
+    engine.run([dataclasses.replace(r, max_new_tokens=4)
+                for r in reqs[:b]])
+    y, report = engine.execute_plan()
+    walks[label] = (None, read_counts())
+    oracle = engine.plan_executor.run_oracle()
+    torch.cuda.synchronize()
+    err = float((y - oracle).abs().max())
+    scale = max(1.0, float(oracle.abs().max()))
+    want = expected_counts(compiled.plan)
+    got = walks[label][1]
+    if not (np.isfinite(err) and err <= E2E_RTOL[DS] * scale) or any(
+            got[k] != want[k] for k in KERNEL_NAMES):
+        raise AssertionError(f"{label}: execute_plan within {err:.3e} of "
+                             f"run_oracle (limit {E2E_RTOL[DS]} x "
+                             f"{scale:.3g}); launches {got}, want {want}")
+    print(f"{label}: the bf16 engine served {b} requests shipping the "
+          f"plan (key {compiled.key}, equal to {DS_ARTIFACT.name}); "
+          f"execute_plan within {err:.3e} of run_oracle (scale "
+          f"{scale:.3g}, limit {E2E_RTOL[DS]:g}); launches split_matmul "
+          f"{got['split_matmul']}, decode_attention "
+          f"{got['decode_attention']}; {report.fidelity_summary()}",
+          flush=True)
+    print(f"model {name}: {smi}", flush=True)
+    del model, params, engine, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return walks
+
+
+def llama4_phase(smi: str) -> dict:
+    """llama4-scout-17b-a16e (`L4_ARCH`) at its published widths, cut to
+    `L4_LAYERS` of its 48 layers (reduced: depth only; the whole model,
+    215.5 GB in bf16, does not fit one card), bf16, its weights seeded
+    draws made on the card: GQA attention (40 heads, 8 KV) and 16 routed
+    experts top-1 plus one shared on every layer.  `prefill` on
+    `L4_BATCH` x `L4_PROMPT` tokens against `forward` on the same tokens
+    within `BF16_RTOL` of its largest |logit|; decode steps at batch 1
+    and 4 at per-slot positions (`decode_breakdown`); the continuous
+    scheduler (per-slot positions: GQA) on `L4_REQUESTS` greedy Poisson
+    requests on the wall clock, every one completed.  No pass launches a
+    kernel of the port.  Returns the walks."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import (ContinuousScheduler, SchedulerConfig,
+                                     poisson_requests)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = get_config(L4_ARCH)
+    cfg = dataclasses.replace(whole, n_layers=L4_LAYERS)
+    name, n = cfg.name, cfg.param_count()
+    print(f"model {name}: {cfg.n_layers} of {whole.n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, kv "
+          f"{cfg.n_kv_heads}; {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token} + {cfg.n_shared_experts} shared of ff "
+          f"{cfg.moe_d_ff}), vocab {cfg.vocab_size}: {n / 1e9:.3f} B "
+          f"parameters ({2 * n / 1e9:.1f} GB bf16; the whole model "
+          f"{whole.param_count() / 1e9:.2f} B, "
+          f"{2 * whole.param_count() / 1e9:.1f} GB): reduced, depth only; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the "
+          f"card before the phase", flush=True)
+    walks = {}
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model bf16 weights: drawn on the card in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    rng = np.random.default_rng(27)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (L4_BATCH, L4_PROMPT))).cuda()
+    cache = model.init_cache(L4_BATCH, L4_PROMPT, device="cuda")
+    label = f"{name} model prefill"
+    zero_counts()
+    wall = time.perf_counter()
+    logits, _ = model.prefill(params, toks, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    walks[label] = (None, read_counts())
+    full, aux = model.forward(params, toks)
+    want = full[:, -1]
+    err = float((logits.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not (logits.shape == want.shape and np.isfinite(err)
+            and err <= BF16_RTOL * scale) or any(walks[label][1].values()):
+        raise AssertionError(f"{label}: bf16 prefill logits differ from "
+                             f"forward by {err:.3e} (limit {BF16_RTOL} x "
+                             f"{scale:.3g}), or launches "
+                             f"{walks[label][1]}")
+    print(f"{label}: bf16 prefill of {L4_BATCH} x {L4_PROMPT} tokens in "
+          f"{wall:.3f} s, its last-position logits within {err:.3e} of "
+          f"forward on the same tokens (largest |logit| {scale:.3g}, "
+          f"{err / scale:.2e} of it, limit {BF16_RTOL:g}); aux loss "
+          f"{float(aux):.4f}; {smi}", flush=True)
+    del cache, full, logits
+    for batch in (1, MODEL_SERVE_BATCH):
+        decode_breakdown(f"{name} model bf16", model, params, batch)
+    reqs = poisson_requests(L4_REQUESTS, rate=50.0,
+                            vocab_size=cfg.vocab_size,
+                            prompt_lens=(4, 8, 16), max_new=(4, 8, 12),
+                            temperatures=(0.0,), seed=29)
+    label = f"{name} scheduler"
+    zero_counts()
+    rep = ContinuousScheduler(
+        cfg, model, params, device="cuda",
+        config=SchedulerConfig(max_batch=MODEL_SERVE_BATCH, max_len=64,
+                               clock="wall")).run(reqs)
+    walks[label] = (None, read_counts())
+    if (sorted(c.rid for c in rep.completions) != [r.rid for r in reqs]
+            or rep.total_tokens != sum(r.max_new_tokens for r in reqs)):
+        raise AssertionError(f"{label}: {len(rep.completions)} completions, "
+                             f"{rep.total_tokens} tokens, want every one of "
+                             f"{len(reqs)} requests")
+    print(f"{label}: " + rep.summary().replace("\n", "; ")
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+          f"GB; {smi}", flush=True)
+    del model, params
+    gc.collect()
     torch.cuda.empty_cache()
     return walks
 
@@ -2659,14 +3136,18 @@ ZAMBA_D = 3584
 #: rwkv6-1.6b's model width, and its plans' prefill tokens
 RWKV_D = 2048
 RWKV_TOKENS = 512
+#: deepseek-v2-lite-16b's model width and its committed plan
+DS_D = 2048
+DS_ARTIFACT = ARTIFACTS / "deepseek-v2-lite-16b_b27_moto2022_t1.coexec.json"
 #: the model-graph paths: (model, `from_model` arguments) of each
 GRAPHS = {ZAMBA: ("zamba2-7b", ZAMBA_GRAPH),
           RWKV: ("rwkv6-1.6b", dict(blocks=24)),
-          RWKV_PREFILL: ("rwkv6-1.6b", dict(blocks=24, tokens=RWKV_TOKENS))}
+          RWKV_PREFILL: ("rwkv6-1.6b", dict(blocks=24, tokens=RWKV_TOKENS)),
+          DS: ("deepseek-v2-lite-16b", dict(blocks=27))}
 #: the paths whose every distinct kernel call of one request is held
 #: against its plain version and timed (`hold_walk_calls`) right after
 #: the path: their times in the kernels line are those calls' own
-HELD_PATHS = (RWKV, RWKV_PREFILL)
+HELD_PATHS = (RWKV, RWKV_PREFILL, DS)
 
 #: the calibrate phase: its paths, the per-node runs it records (then one
 #: fused run), and the requests each replanned walk runs
@@ -2733,6 +3214,23 @@ MODEL_SERVE_NEW = 32
 #: main paths': one prefill and one decode step
 MODEL_TIMED = (f"{ZAMBA} model prefill", f"{ZAMBA} model decode")
 
+#: the deepseek-v2-lite-16b phase (full width and depth): its fp32
+#: prefill-vs-forward batch and prompt; one MLA layer's (prefill T, cache
+#: S), dense then flash in both (the reference's thresholds: T 2048, S
+#: 8192); one MoE layer's (batch, tokens)
+DS_ARCH = "deepseek_v2_lite"
+DS_FP32_BATCH = 2
+DS_FP32_PROMPT = 512
+DS_MLA_CASES = ((512, 1024), (2048, 8192))
+DS_MOE_TOKENS = (2, 256)
+#: the llama4-scout phase: its layers (of 48; reduced: depth only), the
+#: bf16 prefill-vs-forward batch and prompt, the scheduler's requests
+L4_ARCH = "llama4_scout"
+L4_LAYERS = 6
+L4_BATCH = 2
+L4_PROMPT = 512
+L4_REQUESTS = 8
+
 #: the main paths: (name, committed artifact, request maker, output shape);
 #: the compile phase compiles each and must reproduce its artifact
 PATHS = [
@@ -2748,6 +3246,7 @@ PATHS = [
      decode_input(1, RWKV_D), (1, RWKV_D)),
     (RWKV_PREFILL, ARTIFACTS / "rwkv6-1.6b_b24_tok512_moto2022_t1.coexec.json",
      decode_input(RWKV_TOKENS, RWKV_D), (RWKV_TOKENS, RWKV_D)),
+    (DS, DS_ARTIFACT, decode_input(1, DS_D), (1, DS_D)),
 ]
 
 
@@ -3053,6 +3552,8 @@ def main() -> int:
             phases.done(f"{name} bf16")
         if name in CALIBRATE_PATHS:
             kept[name] = (compiled, make_input, out_shape)
+        if name == DS:
+            ds_compiled = compiled       # its executor serves the engine
         del compiled, exe, refs
         torch.cuda.empty_cache()
     for k in KERNEL_NAMES:
@@ -3074,6 +3575,11 @@ def main() -> int:
     for arch in MODEL_ARCHS:
         walks.update(model_phase(arch, peaks, results, smi))
         phases.done(f"{arch} model")
+    walks.update(deepseek_phase(smi, ds_compiled))
+    del ds_compiled
+    phases.done(f"{DS_ARCH} model")
+    walks.update(llama4_phase(smi))
+    phases.done(f"{L4_ARCH} model")
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
@@ -3113,9 +3619,11 @@ def main() -> int:
                 f"(every "
                 f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
                 f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
-                f"{MODEL_DECODE_STEPS} decode steps, the engines' runs); "
+                f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
+                f"deepseek-v2-lite-16b engine's execute_plan; "
                 f"times: one request of each main path (rwkv6-1.6b's two "
-                f"plans: the calls of one request, each held) and one "
+                f"plans and deepseek-v2-lite-16b's: the calls of one "
+                f"request, each held) and one "
                 f"prefill and one decode step of the zamba2-7b model, "
                 f"float32 (by_path: "
                 f"one request, prefill or decode step of each walk)"),

@@ -1,11 +1,11 @@
-"""The port's models: configurations, their name tables, the dense GQA
-transformer, the Zamba2 hybrid and RWKV6.
+"""The port's models: configurations, their name tables, the decoder-only
+transformers (GQA or MLA attention, dense or MoE feed-forward), the Zamba2
+hybrid and RWKV6.
 
 The port's copies of `repro.models.config`, `registry`, `layers`, `flash`,
-`transformer`, `zamba`, `rwkv` and `ssm` (PyTorch), plus
+`mla`, `moe`, `transformer`, `zamba`, `rwkv` and `ssm` (PyTorch), plus
 `weights.params_from_numpy`, which takes the reference's parameter
-pytree.  `build_model` raises for the families not ported yet (MLA/MoE
-blocks, Whisper).
+pytree.  `build_model` raises for the family not ported yet (Whisper).
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import (ALIASES, ARCH_IDS, build, build_model,

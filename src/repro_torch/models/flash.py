@@ -1,19 +1,22 @@
 """Memory-bounded attention by chunked online softmax (plain PyTorch).
 
-The port's counterpart of `repro.models.flash`'s `flash_full` and
-`flash_decode`: above a sequence threshold the attention paths of
-`models/layers.py` stop materialising (T, S) scores and walk key chunks
-with a running (max, sum, accumulator) per query row instead.
+The port's counterpart of `repro.models.flash`: above a sequence
+threshold the attention paths of `models/layers.py` and `models/mla.py`
+stop materialising (T, S) scores and walk key chunks with a running
+(max, sum, accumulator) per query row instead.
 
   * flash_full: an outer loop over query chunks, an inner loop over key
     chunks; live intermediates are (bq, bk) score tiles per (batch, head).
   * flash_decode: one query position against a long cache, walked over
     key chunks (the plain twin of the `decode_attention` kernel).
+  * flash_latent_full / flash_latent_decode: the same two walks for MLA's
+    absorbed attention, whose keys are the shared latent `c_kv` plus one
+    rope head and whose values are `c_kv` itself; they return the latent
+    context, which `models/mla.py` maps through W_uv.
 
 Causality and sliding windows are positional masks applied per tile;
 fully masked tiles still run, as in the reference.  All sums are fp32;
-outputs come back in q's dtype.  The latent (MLA) variants come with the
-MLA blocks.
+outputs come back in the query's dtype.
 """
 from __future__ import annotations
 
@@ -110,3 +113,77 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_run = m_new
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def flash_latent_full(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor, scale: float,
+                      *, bq: int = 1024, bk: int = 1024) -> torch.Tensor:
+    """Causal MLA latent attention.  q_lat: (B,T,H,r) absorbed queries;
+    q_rope: (B,T,H,rd); c_kv: (B,S,r); k_rope: (B,S,rd) -> the latent
+    context (B,T,H,r) in q_lat's dtype."""
+    b, t, h, r = q_lat.shape
+    s = c_kv.shape[1]
+    bq = min(bq, t)
+    bk = min(bk, s)
+    if t % bq or s % bk:
+        raise ValueError(f"flash_latent_full: T={t} and S={s} must be "
+                         f"multiples of the chunks bq={bq}, bk={bk}")
+    chunks = []
+    for qi in range(t // bq):
+        qlf = q_lat[:, qi * bq:(qi + 1) * bq].float()        # (B,bq,H,r)
+        qrf = q_rope[:, qi * bq:(qi + 1) * bq].float()
+        m_run = torch.full((b, h, bq), _NEG_INF, device=q_lat.device)
+        l_run = torch.zeros((b, h, bq), device=q_lat.device)
+        acc = torch.zeros((b, h, bq, r), device=q_lat.device)
+        for ki in range(s // bk):
+            ck = c_kv[:, ki * bk:(ki + 1) * bk].float()       # (B,bk,r)
+            kr = k_rope[:, ki * bk:(ki + 1) * bk].float()
+            scores = (torch.einsum("bqhr,bkr->bhqk", qlf, ck)
+                      + torch.einsum("bqhd,bkd->bhqk", qrf, kr)) * scale
+            mask = _tile_mask(qi * bq, ki * bk, bq, bk, 0, q_lat.device)
+            scores = torch.where(mask, scores, _NEG_INF)
+            m_new = torch.maximum(m_run, scores.amax(-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bkr->bhqr",
+                                                        p, ck)
+            m_run = m_new
+        ctx = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        chunks.append(ctx.to(q_lat.dtype))                   # (B,H,bq,r)
+    return torch.cat(chunks, dim=2).permute(0, 2, 1, 3)
+
+
+def flash_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                        c_kv: torch.Tensor, k_rope: torch.Tensor,
+                        pos: Union[int, torch.Tensor], scale: float, *,
+                        bk: int = 2048) -> torch.Tensor:
+    """One-token MLA decode.  q_lat: (B,1,H,r); q_rope: (B,1,H,rd); caches
+    (B,S,r) and (B,S,rd); `pos` is the shared position of the query (keys
+    above it are masked) -> the latent context (B,1,H,r)."""
+    b, _, h, r = q_lat.shape
+    s = c_kv.shape[1]
+    bk = min(bk, s)
+    if s % bk:
+        raise ValueError(f"flash_latent_decode: S={s} must be a multiple "
+                         f"of the chunk bk={bk}")
+    qlf = q_lat.reshape(b, h, r).float()
+    qrf = q_rope.reshape(b, h, -1).float()
+    m_run = torch.full((b, h), _NEG_INF, device=q_lat.device)
+    l_run = torch.zeros((b, h), device=q_lat.device)
+    acc = torch.zeros((b, h, r), device=q_lat.device)
+    for ki in range(s // bk):
+        ck = c_kv[:, ki * bk:(ki + 1) * bk].float()
+        kr = k_rope[:, ki * bk:(ki + 1) * bk].float()
+        scores = (torch.einsum("bhr,bkr->bhk", qlf, ck)
+                  + torch.einsum("bhd,bkd->bhk", qrf, kr)) * scale
+        k_pos = ki * bk + torch.arange(bk, device=q_lat.device)
+        scores = torch.where(k_pos <= pos, scores, _NEG_INF)
+        m_new = torch.maximum(m_run, scores.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhk,bkr->bhr", p, ck)
+        m_run = m_new
+    ctx = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return ctx.reshape(b, 1, h, r).to(q_lat.dtype)

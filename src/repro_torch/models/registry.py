@@ -10,8 +10,9 @@ reference's):
     prefill(params, tokens, cache[, start]) -> (logits, cache)
     decode_step(params, tokens, cache, pos[, start]) -> (logits, cache)
 
-The port has the dense GQA transformer, the Zamba2 hybrid and RWKV6; the
-other families raise.
+The port has the decoder-only transformers (GQA or MLA attention, dense
+or MoE feed-forward), the Zamba2 hybrid and RWKV6; the encoder-decoder
+family (Whisper) raises.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-#: what the families not ported yet wait for (ROADMAP Queue 1)
+#: what the family not ported yet waits for (ROADMAP Queue 1)
 _NOT_PORTED = ("{family} models are not in the port yet (ROADMAP Queue 1 "
                "item {item})")
 

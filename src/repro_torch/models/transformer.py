@@ -5,16 +5,22 @@ is a repeating *pattern* of block kinds, as in the reference
 (`layer_program`):
 
   codeqwen1.5-7b, qwen2.5-32b, llama3-405b, chameleon-34b:
-                 prologue=[]  pattern=[gqa+mlp] x n_layers
-  gemma3-12b:    prologue=[]  pattern=[5 x local(gqa+mlp, window),
-                                       1 x global(gqa+mlp)] x8
+                 prologue=[]         pattern=[gqa+mlp] x n_layers
+  deepseek-v2-lite-16b:
+                 prologue=[mla+mlp]  pattern=[mla+moe] x26
+  llama4-scout:  prologue=[]         pattern=[gqa+moe] x48
+  gemma3-12b:    prologue=[]         pattern=[5 x local(gqa+mlp, window),
+                                              1 x global(gqa+mlp)] x8
 
 The reference stacks each pattern position's parameters over the repeat
 axis and scans; PyTorch runs eagerly, so the port keeps one parameter dict
-and one KV-cache pair per layer and loops over them in the reference's
-order (repeat, then pattern position).  `models/weights.py` turns the
-reference's stacked pytree into this layout.  MLA and MoE blocks (the
-deepseek and llama4 configs) are not ported yet and raise.
+and one cache pair per layer and loops over them in the reference's order
+(repeat, then pattern position).  `models/weights.py` turns the
+reference's stacked pytree into this layout.  A GQA layer caches (k, v)
+pairs of (B, S, kv, hd); an MLA layer (`models/mla.py`) its latent and
+rope key, (B, S, kv_lora_rank) and (B, S, qk_rope_head_dim).  An MoE
+layer (`models/moe.py`) returns its aux loss.  MLA stacks mask no pads
+and take only a shared decode position (`pad_aware`), as the reference's.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.coexec import resolve_device
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnSpec, attention_decode,
                                        attention_full, attention_prefill,
@@ -34,10 +42,6 @@ from repro_torch.models.layers import (AttnSpec, attention_decode,
 Params = Dict[str, Any]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-#: what the blocks not ported yet wait for
-_NOT_PORTED = ("{what} blocks are not in the port yet (ROADMAP Queue 1 item "
-               "4: MLA and MoE blocks with flash_latent_*)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,48 +83,60 @@ def _attn_spec(cfg: ModelConfig, window: int) -> AttnSpec:
                     sliding_window=window)
 
 
-def _check_kind(kind: BlockKind) -> None:
-    if kind.attn == "mla":
-        raise NotImplementedError(_NOT_PORTED.format(what="MLA attention"))
-    if kind.ffn == "moe":
-        raise NotImplementedError(_NOT_PORTED.format(what="MoE"))
-
-
 # ------------------------------------------------------------------ blocks
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: BlockKind,
                dtype: torch.dtype) -> Params:
-    _check_kind(kind)
     dev = generator.device
-    return {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "attn": init_attention(generator, cfg.d_model,
-                                   _attn_spec(cfg, kind.window), dtype),
-            "ffn": init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)}
+    p: Params = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+                 "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
+    if kind.attn == "mla":
+        p["attn"] = mla_mod.init_mla(generator, cfg, dtype)
+    else:
+        p["attn"] = init_attention(generator, cfg.d_model,
+                                   _attn_spec(cfg, kind.window), dtype)
+    if kind.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(generator, cfg, dtype)
+    else:
+        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig,
+         kind: BlockKind) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward half on the normed `h`: (out, aux loss)."""
+    if kind.ffn == "moe":
+        return moe_mod.moe_layer(p["ffn"], h, cfg)
+    return mlp(p["ffn"], h), torch.zeros((), dtype=torch.float32,
+                                         device=h.device)
 
 
 def block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   kind: BlockKind) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attention_full(p["attn"], h, _attn_spec(cfg, kind.window))
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp(p["ffn"], h), aux
+    if kind.attn == "mla":
+        h = mla_mod.mla_full(p["attn"], h, cfg)
+    else:
+        h = attention_full(p["attn"], h, _attn_spec(cfg, kind.window))
+    x = x + h
+    h, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, kind)
+    return x + h, aux
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   kind: BlockKind, start: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Tuple[torch.Tensor, torch.Tensor]]:
-    """Like block_forward but also returns the (k, v) pair to cache."""
-    _check_kind(kind)
+    """Like block_forward but also returns the pair to cache: (k, v) for
+    GQA, (c_kv, k_rope) for MLA."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, kv = attention_prefill(p["attn"], h, _attn_spec(cfg, kind.window),
-                              start=start)
+    if kind.attn == "mla":
+        h, kv = mla_mod.mla_prefill(p["attn"], h, cfg)
+    else:
+        h, kv = attention_prefill(p["attn"], h, _attn_spec(cfg, kind.window),
+                                  start=start)
     x = x + h
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp(p["ffn"], h), aux, kv
+    h, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, kind)
+    return x + h, aux, kv
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -128,13 +144,21 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  pos: Union[int, torch.Tensor],
                  start: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, ck, cv = attention_decode(p["attn"], h, _attn_spec(cfg, kind.window),
-                                 cache[0], cache[1], pos, start=start)
+    if kind.attn == "mla":
+        h, ck, cv = mla_mod.mla_decode(p["attn"], h, cfg, cache[0], cache[1],
+                                       pos)
+    else:
+        h, ck, cv = attention_decode(p["attn"], h,
+                                     _attn_spec(cfg, kind.window), cache[0],
+                                     cache[1], pos, start=start)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["ffn"], h), (ck, cv)
+    if kind.ffn == "moe":
+        h, _ = moe_mod.moe_layer(p["ffn"], h, cfg)
+    else:
+        h = mlp(p["ffn"], h)      # no aux: a decode step makes no zeros
+    return x + h, (ck, cv)
 
 
 # ------------------------------------------------------------------- model
@@ -143,16 +167,13 @@ class TransformerModel:
 
     `params["prologue"]` holds one block dict per prologue layer and
     `params["pattern"][j][r]` the block of pattern position j in repeat r;
-    caches mirror that layout with one (k, v) pair of (B, S, kv, hd)
-    tensors per layer.  Every tensor lives on the device the caller chose
+    caches mirror that layout with one pair per layer (`cache_spec`).  Every tensor lives on the device the caller chose
     (`init(generator)` draws on the generator's device; `init_cache(...,
     device=)`)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.prologue, self.pattern, self.n_repeats = layer_program(cfg)
-        for kind in self.prologue + self.pattern:
-            _check_kind(kind)
         self.dtype = DTYPES[cfg.dtype]
 
     def _layers(self, params: Params, cache=None
@@ -214,16 +235,23 @@ class TransformerModel:
     # ------------------------------------------------------------ serving
     def cache_spec(self, batch: int, max_len: int,
                    device: Union[str, torch.device, None] = None):
-        """The KV cache: one zeroed (k, v) pair of (batch, max_len, kv, hd)
-        tensors per layer, in the params' layout, on `device` (CUDA unless
-        given; raises where CUDA is missing)."""
+        """The cache: one zeroed pair per layer, in the params' layout, on
+        `device` (CUDA unless given; raises where CUDA is missing): (k, v)
+        of (batch, max_len, kv, hd) each, or for an MLA stack (c_kv,
+        k_rope) of (batch, max_len, kv_lora_rank) and (batch, max_len,
+        qk_rope_head_dim)."""
         cfg = self.cfg
         device = resolve_device(device)
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.attn_kind == "mla":
+            k_shape = (batch, max_len, cfg.kv_lora_rank)
+            v_shape = (batch, max_len, cfg.qk_rope_head_dim)
+        else:
+            k_shape = v_shape = (batch, max_len, cfg.n_kv_heads,
+                                 cfg.head_dim)
 
         def pair():
-            return (torch.zeros(shape, dtype=self.dtype, device=device),
-                    torch.zeros(shape, dtype=self.dtype, device=device))
+            return (torch.zeros(k_shape, dtype=self.dtype, device=device),
+                    torch.zeros(v_shape, dtype=self.dtype, device=device))
         return {"prologue": [pair() for _ in self.prologue],
                 "pattern": [[pair() for _ in range(self.n_repeats)]
                             for _ in self.pattern]}
@@ -232,11 +260,21 @@ class TransformerModel:
                    device: Union[str, torch.device, None] = None):
         return self.cache_spec(batch, max_len, device)
 
-    # prefill/decode accept a per-row `start` pad boundary, and decode_step
-    # a (B,) pos vector (one timeline per batch slot): the GQA attention
-    # path, the only one the port has (MLA stacks raise in __init__)
-    pad_aware = True
-    per_slot_pos = True
+    @property
+    def pad_aware(self) -> bool:
+        """True when prefill/decode accept a per-row `start` pad boundary
+        (the GQA attention path; MLA caches latents and cannot mask pads
+        without re-deriving per-row keys)."""
+        return all(k.attn != "mla" for k in self.prologue + self.pattern)
+
+    # decode_step accepts a (B,) pos vector (one timeline per batch slot)
+    # on the same attention paths that support pad masking
+    per_slot_pos = pad_aware
+
+    def _check_padded(self, start) -> None:
+        if start is not None and not self.pad_aware:
+            raise ValueError("per-row start masking requires pad_aware "
+                             "attention (gqa); this stack contains mla")
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache,
                 start: Optional[torch.Tensor] = None):
@@ -245,6 +283,7 @@ class TransformerModel:
         `start` (B,) marks each row's first real token in a left-padded
         batch; positions before it are masked out of every softmax."""
         cfg = self.cfg
+        self._check_padded(start)
         x = params["embed"][tokens.long()]
         t = x.shape[1]
         for p, kind, (ck, cv) in self._layers(params, cache):
@@ -263,6 +302,10 @@ class TransformerModel:
         masks cache entries before each row's first real token.  Writes
         the cache in place; returns (logits (B, V), cache)."""
         cfg = self.cfg
+        self._check_padded(start)
+        if torch.is_tensor(pos) and pos.dim() == 1 and not self.per_slot_pos:
+            raise ValueError("per-slot pos vector requires gqa attention; "
+                             "this stack contains mla")
         x = params["embed"][tokens.long()]
         for p, kind, c in self._layers(params, cache):
             x, _ = block_decode(p, x, cfg, kind, c, pos, start=start)

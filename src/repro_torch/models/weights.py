@@ -41,6 +41,8 @@ def _tensor(a: np.ndarray, device: Union[str, torch.device, None]
 _FP32_LEAVES = ("A_log", "D", "dt_bias")
 #: RWKV6 time-mix leaves the reference draws in fp32 whatever the dtype
 _RWKV_FP32_LEAVES = ("w0", "u")
+#: the MoE router, which the reference draws in fp32 whatever the dtype
+_MOE_FP32_LEAVES = ("router",)
 
 
 def _tree(a, device, dtype, name: str = "", fp32=_FP32_LEAVES):
@@ -60,12 +62,13 @@ def params_from_numpy(ref: Params, device: Union[str, torch.device, None]
     """The reference's params (numpy leaves) in the port's layout:
     `embed`, `unembed`, `ln_f` as they are; for a transformer, `prologue`
     one block per layer and each stacked `pattern` entry split along its
-    leading repeat axis into a list of per-layer blocks; for Zamba
+    leading repeat axis into a list of per-layer blocks (nested dicts,
+    such as an MoE layer's `shared` MLP, carried across); for Zamba
     (a `mamba` key), `shared_attn` as it is and `mamba` split into
     `[group][layer]` dicts; for RWKV6 (a `blocks` key), `blocks` split
     along its leading layer axis into a list.  `dtype` casts every tensor
-    but the Mamba2 and RWKV6 fp32 leaves (default: the reference's own
-    dtype)."""
+    but the Mamba2, RWKV6 and MoE-router fp32 leaves (default: the
+    reference's own dtype)."""
     out = {k: _tensor(ref[k], device, dtype)
            for k in ("embed", "unembed", "ln_f")}
     if "blocks" in ref:
@@ -81,10 +84,11 @@ def params_from_numpy(ref: Params, device: Union[str, torch.device, None]
                          for k in range(per_group)]
                         for g in range(n_groups)]
         return out
-    out["prologue"] = [_tree(p, device, dtype) for p in ref["prologue"]]
+    out["prologue"] = [_tree(p, device, dtype, fp32=_MOE_FP32_LEAVES)
+                       for p in ref["prologue"]]
     out["pattern"] = []
     for stacked in ref["pattern"]:
-        whole = _tree(stacked, device, dtype)
+        whole = _tree(stacked, device, dtype, fp32=_MOE_FP32_LEAVES)
         n_repeats = _first_leaf(whole).shape[0]
         out["pattern"].append([_unstack(whole, r) for r in range(n_repeats)])
     return out

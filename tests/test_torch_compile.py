@@ -1,5 +1,5 @@
 """`repro_torch.compile` and `python -m repro_torch plan` against the
-reference: the seven committed artifacts reproduced byte for byte at the
+reference: the eight committed artifacts reproduced byte for byte at the
 default predictor sizes, the plan key and predictor checksum of both
 planning modes, the plan cache shared both ways, the errors `compile`
 raises, and the CLI round trip with jax and `repro` kept from import."""
@@ -32,6 +32,8 @@ COMMITTED = {
     "rwkv6-1.6b_b24_moto2022_t1": ("rwkv6-1.6b", dict(blocks=24), 1),
     "rwkv6-1.6b_b24_tok512_moto2022_t1": ("rwkv6-1.6b",
                                           dict(blocks=24, tokens=512), 1),
+    "deepseek-v2-lite-16b_b27_moto2022_t1": ("deepseek-v2-lite-16b",
+                                             dict(blocks=27), 1),
 }
 
 SMALL = dict(samples=120, estimators=25)
@@ -206,6 +208,9 @@ CLI_FLAGS = {
     "rwkv6-1.6b_b24_tok512_moto2022_t1": [
         "--model", "rwkv6-1.6b", "--blocks", "24", "--tokens", "512",
         "--threads", "1"],
+    "deepseek-v2-lite-16b_b27_moto2022_t1": [
+        "--model", "deepseek-v2-lite-16b", "--blocks", "27", "--threads",
+        "1"],
 }
 
 

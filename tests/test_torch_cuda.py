@@ -290,6 +290,8 @@ def _odd(shape, g, cuda, dtype):
 @pytest.mark.parametrize("h,kv,hd,s,pos,window", [
     (32, 32, 112, 3072, 3071, 0),     # zamba2-7b b8.attn, fast side
     (32, 32, 112, 1024, 1023, 0),     # and slow side
+    (9, 9, 128, 128, 127, 0),         # deepseek-v2-lite b*.attn, 9 heads
+    (7, 7, 128, 128, 127, 0),         # and the other 7 (a head split)
     (32, 8, 128, 4096, 4095, 0),      # GQA g = 4
     (32, 8, 128, 8192, 5000, 1024),   # window: 1024 of 8192 positions
     (16, 4, 64, 2000, 1500, 256),     # sliding window, pos < S - 1

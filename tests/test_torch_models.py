@@ -33,7 +33,7 @@ from repro.models.transformer import layer_program as jax_layer_program
 from repro_torch.models import (ARCH_IDS, TransformerModel, build,
                                 build_model, get_config, params_from_numpy)
 from repro_torch.models import flash, layers
-from repro_torch.models.transformer import BlockKind, layer_program
+from repro_torch.models.transformer import layer_program
 
 RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -100,21 +100,12 @@ def test_codeqwen_full_width_counts():
 
 
 @pytest.mark.parametrize("arch,what,item", [
-    ("whisper_large_v3", "Whisper", 5),
-    ("deepseek_v2_lite", "MLA", 4), ("llama4_scout", "MoE", 4)])
+    ("whisper_large_v3", "Whisper", 5)])
 def test_unported_families_raise_naming_the_roadmap(arch, what, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}") as e:
         build(arch)
     assert what in str(e.value)
-
-
-def test_mla_and_moe_blocks_raise_in_the_block_functions():
-    from repro_torch.models.transformer import block_forward
-    cfg = get_config("codeqwen15_7b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        block_forward({}, torch.zeros(1, 1, 256), cfg, BlockKind("gqa",
-                                                                  "moe"))
 
 
 # ------------------------------------------------------------------ layers
