@@ -8,6 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
                                            # at SRC, timed (`ssd_times`)
     python3 chip_smoke.py --split-times SRC  # split_matmul of the checkout
                                              # at SRC (`split_times`)
+    python3 chip_smoke.py --throttle-runs N  # the throttled scheduler
+                                             # runs N times (`throttle_runs`)
 
 It fails (non-zero exit, no result line) when CUDA is unavailable or when
 the port cannot be imported, and otherwise runs, in order:
@@ -135,14 +137,20 @@ the port cannot be imported, and otherwise runs, in order:
    is paced by the phone's plan cost, so on the card it overloads the
    scheduler and the wall figures are a backlog's); a decode step at
    batch 1 and 4 timed bare and under torch.profiler (device time by
-   kernel, idle share, host launch calls); then the scheduler again on
-   the virtual clock with a `ThrottleSim` (x2.5 from 100 steps' cost on):
-   at least one drift-triggered in-place replan must be committed, with
-   a lower fidelity error.  Every plan those runs executed
-   (`executed_plans`: fidelity runs, replan candidates committed or not,
-   the engine's `execute_plan`, on any of the three scheduler runs) that
-   the entries did not hold runs as a main path with its kernel calls
-   held.  Each serve walk's launch counts are set
+   kernel, idle share, host launch calls); then the scheduler twice more
+   on the virtual clock with a `ThrottleSim` (x8 from 100 steps' cost
+   on; a drift window of 2 reports and a threshold of 1.5, so the
+   monitor fires only on a wholly throttled window,
+   `throttled_scheduler`), each on a fresh warm load of the portfolio:
+   over the traffic above (most steps in b4s64, whose replan moves no
+   node) and over sparse traffic (most steps in b1s64).  Every committed
+   drift-triggered in-place replan must lower the fidelity error, and
+   the sparse run must commit one that moved a node (every replan the
+   monitor triggered printed with its pre and post fidelity errors).
+   Every plan those runs executed (`executed_plans`: fidelity runs,
+   replan candidates committed or not, the engine's `execute_plan`, on
+   any of the four scheduler runs) that the entries did not hold runs as a
+   main path with its kernel calls held.  Each serve walk's launch counts are set
    to 0 just before it and read just after, and `split_matmul` and
    `decode_attention` must launch in each;
 12. the model phases (`model_phase`, one per `MODEL_ARCHS` entry), first
@@ -191,7 +199,33 @@ the port cannot be imported, and otherwise runs, in order:
    `run_oracle`, `split_matmul` and `decode_attention` launched);
    llama4-scout's bf16 `prefill` against `forward`, decode steps at
    batch 1 and 4, and the continuous scheduler completing its requests;
-14. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
+14. the Whisper phase (`whisper_phase`): whisper-large-v3 at its
+   published widths and full depth (32 encoder and 32 decoder layers,
+   d_model 1280, 20 heads, d_ff 5120, vocab 51866, 1500 encoder
+   positions: 2.02 B parameters drawn on the card; frames seeded, the
+   conv frontend a stub as in the reference).  In fp32: a prefill of
+   `WHISPER_BATCH` x `WHISPER_PROMPT` tokens and `WHISPER_DECODE_STEPS`
+   teacher-fed decode steps at device-tensor positions, every step's
+   logits within `MODEL_LOGIT_RTOL` of the teacher-forced pass the loss
+   takes; the reduced model on the card against the CPU.  In bf16: the
+   fixed-batch engine on `WHISPER_REQUESTS` requests with seeded frames
+   (tokens/s), the TTFT (one batched prefill, encode included, and a
+   sync; median of 3), decode steps at batch 1 and 4 with the cross K/V
+   products' device time summed apart (`cross_kv_range`).  No pass
+   launches a kernel of the port;
+15. the train phase (`train_phase`): whisper-large-v3 at full width and
+   depth through `repro_torch.launch.train.train` in bf16 with fp32
+   AdamW moments, `TRAIN_STEPS` steps of `TRAIN_BATCH` x `TRAIN_SEQ`
+   target tokens over 1500 frames (every loss finite, the last 5's mean
+   below the first 5's; median s/step, peak memory, one profiled step's
+   device time and idle share), a checkpoint of the params in the
+   reference's layout saved and restored bit for bit; then one reduced
+   fp32 train step of every `ARCH_IDS` family on the card against the CPU
+   from the same weights and batch (`train_step_check`: the loss and
+   every leaf's gradient within `TRAIN_RTOL`), zamba2-7b's launching
+   `ssd_chunk_scan` once per layer with its gradient (`ScanWithGrad`),
+   each of those calls held against its plain version and timed;
+16. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
    zamba2-7b b8.attn fast side at S = 3072, the SSD chunk kernels at
@@ -211,7 +245,7 @@ the port cannot be imported, and otherwise runs, in order:
    alike and its kernel calls held against their plain versions
    (`hold_walk_calls`); tuned, relaxed and untuned walls in turns, no
    claim;
-15. a JSON line of per-kernel numbers (launches summed over every walk
+17. a JSON line of per-kernel numbers (launches summed over every walk
    above, `by_path` per walk with the float32 times of one request, one
    prefill or one decode step where the walk's calls were held), then the
    result line.  Each phase prints its seconds.
@@ -2174,15 +2208,586 @@ def llama4_phase(smi: str) -> dict:
     return walks
 
 
+# ------------------------------------------------- Whisper and the training
+
+#: the profiler range around each decoder layer's cross K/V products
+#: (`cross_kv_range`)
+XKV_RANGE = "whisper cross k/v"
+
+
+@contextlib.contextmanager
+def cross_kv_range():
+    """Each `encdec.cross_kv` call inside the block runs in a
+    `record_function` range named `XKV_RANGE`, so a profile sums the
+    cross K/V products' device time apart (`_profile`'s `spans`).  The
+    model code is not changed: `_decoder_stack` looks the function up in
+    its module at each call."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import encdec
+    real = encdec.cross_kv
+
+    def ranged(*args):
+        with record_function(XKV_RANGE):
+            return real(*args)
+
+    encdec.cross_kv = ranged
+    try:
+        yield
+    finally:
+        encdec.cross_kv = real
+
+
+def whisper_frames(gen, b: int, cfg) -> torch.Tensor:
+    """`b` seeded frame-embedding rows (the stubbed conv frontend's
+    output, scaled as the reference's `make_batch` scales them), drawn on
+    the card."""
+    return torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device="cuda").mul_(0.02)
+
+
+def whisper_teacher_check(model, params, smi: str) -> None:
+    """fp32 (TF32 off): `prefill` of `WHISPER_BATCH` x `WHISPER_PROMPT`
+    seeded tokens over seeded frames, then `WHISPER_DECODE_STEPS`
+    teacher-fed `decode_step`s at device-tensor positions; every step's
+    logits within `MODEL_LOGIT_RTOL` of the largest |logit| of the
+    teacher-forced pass the loss takes (`encode` -> `_decoder_stack(mode=
+    "train")` -> `ln_dec` -> `unembed`) at the same positions."""
+    from repro_torch.models.layers import rms_norm
+
+    cfg = model.cfg
+    b, t, steps = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = whisper_frames(gen, b, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, t + steps), generator=gen,
+                         device="cuda")
+    cache = model.init_cache(b, t + steps, device="cuda")
+    wall = time.perf_counter()
+    logits, cache = model.prefill(params, toks[:, :t], cache, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    got = [logits]
+    for i in range(steps):
+        pos = torch.tensor(t + i, device="cuda")
+        logits, cache = model.decode_step(params, toks[:, t + i:t + i + 1],
+                                          cache, pos)
+        got.append(logits)
+    got = torch.stack(got, dim=1)
+    enc = model.encode(params, frames)
+    x, _ = model._decoder_stack(params, model._dec_embed(params, toks), enc,
+                                "train")
+    full = rms_norm(x, params["ln_dec"], cfg.norm_eps) @ params["unembed"]
+    want = full[:, t - 1:]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (got.shape == want.shape and np.isfinite(err)
+            and err <= MODEL_LOGIT_RTOL * scale):
+        raise AssertionError(f"whisper fp32: prefill + {steps} decode steps "
+                             f"differ from the teacher-forced pass by "
+                             f"{err:.3e} > {MODEL_LOGIT_RTOL} x {scale:.3g}")
+    print(f"whisper fp32: prefill of {b} x {t} tokens over {b} x "
+          f"{cfg.encoder_seq} frames in {wall:.3f} s + {steps} teacher-fed "
+          f"decode steps; their logits within {err:.3e} of the teacher-"
+          f"forced pass (largest |logit| {scale:.3g}, {err / scale:.2e} of "
+          f"it, limit {MODEL_LOGIT_RTOL:g}); {smi}", flush=True)
+
+
+def whisper_reduced_check(cfg) -> None:
+    """Reduced whisper-large-v3 in fp32 (its 1500 encoder positions kept):
+    the same seeded weights and frames on the CPU and on the card, a
+    prefill then 4 decode steps; every logit within `SERVE_LOGIT_RTOL` of
+    the largest |CPU logit| (the CPU tests tie the CPU path to the
+    reference's)."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(cfg.reduced(), dtype="float32")
+    model = build_model(small)
+    params = {"cpu": model.init(torch.Generator().manual_seed(0))}
+    params["cuda"] = _to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(501)
+    b, t = 2, 12
+    frames = torch.from_numpy((rng.standard_normal(
+        (b, small.encoder_seq, small.d_model)) * 0.02).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(1, small.vocab_size, (b, t)))
+    steps = torch.from_numpy(rng.integers(1, small.vocab_size, (4, b, 1)))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        cache = model.init_cache(b, 32, device=dev)
+        out, cache = model.prefill(params[dev], toks.to(dev), cache,
+                                   frames.to(dev))
+        logits[dev] = [out]
+        for i, tok in enumerate(steps):
+            out, cache = model.decode_step(params[dev], tok.to(dev), cache,
+                                           t + i)
+            logits[dev].append(out)
+    worst = 0.0
+    for i, (want, got) in enumerate(zip(logits["cpu"], logits["cuda"])):
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / scale)
+        if not err <= SERVE_LOGIT_RTOL * scale:
+            raise AssertionError(f"whisper reduced: step {i} logits on the "
+                                 f"card differ from the CPU's by {err:.3e} "
+                                 f"> {SERVE_LOGIT_RTOL} x {scale:.3g}")
+    print(f"whisper reduced {small.name} (d_model {small.d_model}, "
+          f"{small.encoder_layers} + {small.n_layers} layers, "
+          f"{small.encoder_seq} frames, fp32): prefill + 4 decode steps on "
+          f"the card within {worst:.2e} of the CPU's largest |logit| "
+          f"(limit {SERVE_LOGIT_RTOL:g})", flush=True)
+
+
+def whisper_phase(smi: str) -> dict:
+    """whisper-large-v3 (`WHISPER_ARCH`) at its published widths and full
+    depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads, d_ff
+    5120, vocab 51866, 1500 encoder positions: 2.02 B parameters), its
+    weights seeded draws made on the card and its frames seeded (the
+    conv frontend is a stub, as in the reference):
+
+    - fp32, TF32 off: prefill and teacher-fed decode steps against the
+      teacher-forced pass (`whisper_teacher_check`);
+    - the reduced model on the card against the CPU
+      (`whisper_reduced_check`);
+    - bf16: the fixed-batch `ServingEngine` on `WHISPER_REQUESTS` requests
+      with seeded frames and 4-16-token prompts at batch
+      `MODEL_SERVE_BATCH`, `WHISPER_NEW` new tokens each (tokens/s); the
+      TTFT, one batched `prefill` (its `encode` included) and a sync,
+      median of 3; decode steps at batch 1 and 4 (`decode_breakdown`),
+      the cross K/V products summed apart (`cross_kv_range`).
+
+    No pass launches a kernel of the port (the reference's Whisper runs
+    no Pallas kernel).  Returns the walks."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    name, n = cfg.name, cfg.param_count()
+    print(f"model {name}: {cfg.encoder_layers} encoder + {cfg.n_layers} "
+          f"decoder layers (d_model {cfg.d_model}, {cfg.n_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}), vocab {cfg.vocab_size}, "
+          f"{cfg.encoder_seq} encoder positions: {n / 1e9:.3f} B parameters "
+          f"({2 * n / 1e9:.1f} GB bf16, {4 * n / 1e9:.1f} GB fp32); "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the "
+          f"card before the phase", flush=True)
+    walks = {}
+    with torch.no_grad():
+        model = build_model(dataclasses.replace(cfg, dtype="float32"))
+        t = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        print(f"whisper fp32 weights: drawn on the card in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        label = f"{name} model fp32"
+        zero_counts()
+        whisper_teacher_check(model, params, smi)
+        walks[label] = (None, read_counts())
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        whisper_reduced_check(cfg)
+
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        rng = np.random.default_rng(31)
+        reqs = []
+        for i in range(WHISPER_REQUESTS):
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=rng.integers(4, 17)).astype(np.int32)
+            frames = whisper_frames(gen, 1, cfg)[0].cpu().numpy()
+            reqs.append(Request(rid=i, prompt=prompt, frames=frames,
+                                max_new_tokens=WHISPER_NEW))
+        b = MODEL_SERVE_BATCH
+        engine = ServingEngine(cfg, model, params, max_batch=b,
+                               max_len=16 + WHISPER_NEW, device="cuda")
+        engine.run([dataclasses.replace(reqs[0], max_new_tokens=2)])  # warm
+        label = f"{name} serve bf16"
+        zero_counts()
+        t = time.perf_counter()
+        done = engine.run(reqs)
+        host = time.perf_counter() - t
+        walks[label] = (None, read_counts())
+        tokens = sum(len(c.tokens) for c in done)
+        if tokens != len(reqs) * WHISPER_NEW or not all(
+                0 <= v < cfg.vocab_size for c in done for v in c.tokens):
+            raise AssertionError(f"{label}: {tokens} tokens, want "
+                                 f"{len(reqs) * WHISPER_NEW} in [0, "
+                                 f"{cfg.vocab_size})")
+
+        # TTFT: one batched prefill (the encoder included) and a sync
+        frames = whisper_frames(gen, b, cfg)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (b, 16))).cuda()
+        ttft = []
+        for _ in range(4):
+            cache = model.init_cache(b, 16 + WHISPER_NEW, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.prefill(params, toks, cache, frames)
+            torch.cuda.synchronize()
+            ttft.append((time.perf_counter() - t) * 1e3)
+        ttft = ttft[1:]                    # the first call warms the shapes
+        print(f"{label}: {len(reqs)} greedy requests (4-16-token prompts, "
+              f"{cfg.encoder_seq} seeded frames each) in batches of {b}, "
+              f"{WHISPER_NEW} new tokens each: {tokens} tokens in "
+              f"{host:.3f} s ({tokens / host:.1f} tok/s); TTFT (a batched "
+              f"prefill of {b} x 16 tokens, encode included, and a sync) "
+              f"{statistics.median(ttft):.3f} ms (median of 3: "
+              + ", ".join(f"{v:.3f}" for v in ttft) + f"); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; {smi}",
+              flush=True)
+        del cache, frames
+        with cross_kv_range():
+            for batch in (1, b):
+                decode_breakdown(f"{name} model bf16", model, params, batch,
+                                 spans=(XKV_RANGE,))
+    if any(c for _, counts in walks.values() for c in counts.values()):
+        raise AssertionError(f"whisper: a kernel of the port was launched: "
+                             f"{walks}")
+    print(f"model {name}: {smi}", flush=True)
+    del model, params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return walks
+
+
+def _grad_errors(got, want) -> tuple:
+    """The worst leaf's max |got - want| relative to that leaf's largest
+    |want|, and that leaf's index."""
+    from repro_torch.core.tree import tree_leaves
+    worst, at = 0.0, None
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a, b = a.float().cpu(), b.float()
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not np.isfinite(err) or err > worst:
+            worst, at = err, i
+    return worst, at
+
+
+def train_step_check(arch: str, peaks: dict, tallies: dict) -> dict:
+    """One train step of reduced `arch` in fp32 (TF32 off) on the card and
+    on the CPU from the same seeded weights and batch: the loss within
+    `TRAIN_RTOL` of the CPU's, and every leaf's gradient within
+    `TRAIN_RTOL` of that leaf's largest |CPU gradient|.  The counts are set
+    to 0 just before the card's step and read just after; a Mamba2 model
+    must launch `ssd_chunk_scan` once per layer (through `ScanWithGrad`,
+    whose backward carries the gradient upstream of the scan), and every
+    SSD call of its forward is held against its plain version in float32
+    and bfloat16 and timed (`hold_model_calls`).  Returns the walk."""
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = {"cpu": model.init(torch.Generator().manual_seed(0))}
+    params["cuda"] = _to_device(params["cpu"], "cuda")
+    raw = make_batch(cfg, 2, TRAIN_CHECK_SEQ, seed=7)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        if dev == "cuda":
+            zero_counts()
+        out[dev] = loss_and_grads(model, params[dev], batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+    (want_loss, want), (loss, got) = out["cpu"], out["cuda"]
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    worst, at = _grad_errors(got, want)
+    label = f"{cfg.name} train step"
+    mamba = cfg.ssm_kind == "mamba2"
+    if not (loss_err <= TRAIN_RTOL and worst <= TRAIN_RTOL):
+        raise AssertionError(f"{label}: the card's loss is {loss_err:.2e} "
+                             f"and its gradient (leaf #{at}) {worst:.2e} "
+                             f"from the CPU's, limit {TRAIN_RTOL:g}")
+    want_launches = cfg.n_layers if mamba else 0
+    if counts != {k: (want_launches if k == "ssd_chunk_scan" else 0)
+                  for k in counts}:
+        raise AssertionError(f"{label}: launches {counts}, want "
+                             f"{want_launches} ssd_chunk_scan launches "
+                             f"and no other")
+    print(f"{label} (reduced: d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers; fp32, batch 2 x {TRAIN_CHECK_SEQ}): loss {float(loss):.6f}"
+          f" on the card, {loss_err:.2e} from the CPU's; every leaf's "
+          f"gradient within {worst:.2e} of its largest |CPU gradient| "
+          f"(limit {TRAIN_RTOL:g}); {counts['ssd_chunk_scan']} "
+          f"ssd_chunk_scan launches", flush=True)
+    if not mamba:
+        return {label: (None, counts)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    with torch.no_grad():
+        calls = capture_calls(lambda: model.loss(params["cuda"], batch),
+                              every=True)
+    hold_model_calls(label, calls, want_launches, peaks, tallies)
+    return {label: (label, counts)}
+
+
+def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
+    """The training path (`repro_torch.launch.train.train`, the code
+    `python -m repro_torch.launch.train` runs):
+
+    - whisper-large-v3 at its published widths and full depth in its
+      bf16 with fp32 AdamW moments, `TRAIN_STEPS` steps of `TRAIN_BATCH`
+      x `TRAIN_SEQ` target tokens over 1500 frames; every loss finite and
+      the mean of the last 5 below the first 5; the median seconds a step,
+      the peak memory, and one more step under torch.profiler (device time
+      by kernel, the idle share); `save_checkpoint` of the params in the
+      reference's layout then `restore_checkpoint`, the restored params
+      bit-equal to the trained ones;
+    - every `ARCH_IDS` family reduced in fp32: one step on the card
+      against the CPU (`train_step_check`; zamba2-7b's SSD calls held and
+      timed into `tallies`).
+
+    Returns the walks."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import (ARCH_IDS, build_model, get_config,
+                                    params_from_numpy, params_to_reference)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.core.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    walks = {}
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    print(f"train {cfg.name}: {TRAIN_STEPS} AdamW steps of {b} x {t} target "
+          f"tokens over {b} x {cfg.encoder_seq} frames, {cfg.dtype} params "
+          f"({2 * cfg.param_count() / 1e9:.1f} GB) with fp32 moments "
+          f"({8 * cfg.param_count() / 1e9:.1f} GB)", flush=True)
+    label = f"{cfg.name} train"
+    zero_counts()
+    params, opt_state, losses, seconds = train(
+        cfg, model, params, steps=TRAIN_STEPS, batch=b, seq=t, lr=TRAIN_LR,
+        device="cuda", log_every=5)
+    walks[label] = (None, read_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"{label}: losses {losses}: not all finite, or "
+                             f"the last 5's mean {last:.4f} is not below "
+                             f"the first 5's {first:.4f}")
+    step = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+        warmup_steps=max(1, TRAIN_STEPS // 10)))
+    raw = make_batch(cfg, b, t, seed=TRAIN_STEPS)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    rows, busy, wall, calls, _ = _profile(label, lambda: step(
+        params, opt_state, batch), 1)
+    print(f"{label}: losses " + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; mean of the last 5 {last:.4f} < the first 5's {first:.4f}; "
+          f"{statistics.median(seconds):.3f} s a step (median of "
+          f"{TRAIN_STEPS}; first {seconds[0]:.3f} s); peak memory {peak:.1f} "
+          f"GB; {smi}", flush=True)
+    print(f"profile {label} step: wall {wall:.3f} ms under the profiler; "
+          f"kernels {busy:.3f} ms of device time in "
+          f"{sum(r[1] for r in rows):g} launches (idle >= "
+          f"{1 - busy / wall:.1%} of the profiled wall); host launch calls "
+          f"{sum(calls.values()):g}; {smi}", flush=True)
+    for ms, count, key in rows[:8]:
+        print(f"  {ms:8.3f} ms {count:6g}x {key[:100]}", flush=True)
+    del batch, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint, in the reference's layout, back bit for bit
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=ROOT / "build") \
+            as tmp:
+        t0 = time.perf_counter()
+        tree = {"params": params_to_reference(params)}
+        out = save_checkpoint(tmp, TRAIN_STEPS, tree)
+        saved = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in out.iterdir())
+        t0 = time.perf_counter()
+        back = restore_checkpoint(tmp, TRAIN_STEPS, tree)
+        del tree
+        again = params_from_numpy(back["params"], "cuda")
+        restored = time.perf_counter() - t0
+        del back
+        pairs = list(zip(tree_leaves(again), tree_leaves(params)))
+        if not all(a.dtype == p.dtype and torch.equal(a, p)
+                   for a, p in pairs):
+            raise AssertionError(f"{label}: the restored params are not "
+                                 f"bit-equal to the trained ones")
+        print(f"{label}: checkpoint of {len(pairs)} leaves ({size / 1e9:.2f}"
+              f" GB on disk) saved in {saved:.1f} s, restored in "
+              f"{restored:.1f} s, every leaf bit-equal", flush=True)
+        del again, pairs
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch in ARCH_IDS:
+        walks.update(train_step_check(arch, peaks, tallies))
+    return walks
+
+
+def serve_traffic(cfg, cost: float):
+    """The serve phase's traffic: `SERVE_TRAFFIC` greedy Poisson requests
+    at 0.33 / `cost` (the largest bucket's plan cost)."""
+    from repro_torch.serving import poisson_requests
+    return poisson_requests(
+        SERVE_TRAFFIC, rate=0.33 / cost, vocab_size=cfg.vocab_size,
+        prompt_lens=(4, 8, 16), max_new=(4, 8, 12), temperatures=(0.0,),
+        seed=19)
+
+
+def sparse_traffic(cfg, cost: float):
+    """`THROTTLE_REQUESTS` greedy Poisson requests at `THROTTLE_RATE` /
+    `cost`: most steps run one request, in the b1s64 bucket."""
+    from repro_torch.serving import poisson_requests
+    return poisson_requests(
+        THROTTLE_REQUESTS, rate=THROTTLE_RATE / cost,
+        vocab_size=cfg.vocab_size, prompt_lens=(4, 8, 16),
+        max_new=(4, 8, 12), temperatures=(0.0,), seed=19)
+
+
+def throttled_scheduler(cfg, model, params, portfolio, store: Path,
+                        plan_cache: Path, cost: float, traffic):
+    """`ContinuousScheduler` on the virtual clock over `traffic` with a
+    `ThrottleSim` (x`THROTTLE_SCALE` from 100 x `cost` on, `cost` the
+    largest bucket's plan cost), its plans executed every
+    `THROTTLE_CONFIG["fidelity_every"]` steps, each of `portfolio`'s plans
+    executed once before the run (warm executors).  The drift monitor's
+    window is 2 reports with a threshold between log(scale) / 2 and
+    log(scale), so it fires only once both reports in its window are
+    throttled: the replan's `pre` fidelity error and its calibrator's fit
+    then see only drifted walls.
+
+    Returns its report and every replan the monitor triggered, as
+    (bucket, step, pre, post, committed): `pre` the window's mean
+    fidelity error, `post` the candidate plan's (None where the static
+    verifier refused it).  The scheduler is not changed: this one
+    instance's `_replan` and `_profile_scaled` are wrapped to read them."""
+    from repro_torch.serving import (ContinuousScheduler, SchedulerConfig,
+                                     ThrottleSim)
+    for compiled in portfolio.entries.values():
+        compiled.profile(device="cuda", warmup=True)
+    sched = ContinuousScheduler(
+        cfg, model, params, portfolio=portfolio, device="cuda",
+        measurement_store=store, plan_cache=plan_cache,
+        throttle=ThrottleSim(at_s=100 * cost, scale=THROTTLE_SCALE),
+        config=SchedulerConfig(max_batch=SERVE_MAX_BATCH,
+                               max_len=SERVE_MAX_LEN, clock="virtual",
+                               **THROTTLE_CONFIG))
+    errors, attempts = [], []
+    profile, replan = sched._profile_scaled, sched._replan
+
+    def profiled(compiled, now):
+        report = profile(compiled, now)
+        errors.append(report.fidelity_error())
+        return report
+
+    def replanned(bucket, compiled, now, step):
+        window = sched._fid_log[bucket][-THROTTLE_CONFIG["fidelity_window"]:]
+        seen, made = len(errors), len(sched.replan_events)
+        replan(bucket, compiled, now, step)
+        attempts.append((bucket.tag, step, float(np.mean(window)),
+                         errors[-1] if len(errors) > seen else None,
+                         len(sched.replan_events) > made))
+
+    sched._profile_scaled, sched._replan = profiled, replanned
+    return sched.run(traffic), attempts
+
+
+def replan_attempts(attempts, rep) -> str:
+    """`throttled_scheduler`'s replans as text, each committed one with
+    the nodes it moved."""
+    moved = iter(ev.changes for ev in rep.replan_events)
+    return "; ".join(
+        f"[{tag}] step {step}: pre {pre:.3f}, post "
+        f"{'refused' if post is None else f'{post:.3f}'}, "
+        + (f"committed, {next(moved)} nodes moved" if done
+           else "old plan kept")
+        for tag, step, pre, post, done in attempts) or \
+        "the monitor never fired"
+
+
+def throttle_faults(rep, require_move: bool) -> list:
+    """What the throttled run `rep` failed: a committed replan that did
+    not lower the fidelity error; with `require_move`, no committed
+    replan that moved a node and lowered it."""
+    faults = [f"[{ev.bucket}] at step {ev.step} committed without lowering "
+              f"the fidelity error ({ev.pre_fidelity:.3f} -> "
+              f"{ev.post_fidelity:.3f})" for ev in rep.replan_events
+              if not ev.post_fidelity < ev.pre_fidelity]
+    if require_move and not any(ev.changes > 0
+                                and ev.post_fidelity < ev.pre_fidelity
+                                for ev in rep.replan_events):
+        faults.append("no committed replan that moved a node and lowered "
+                      "the fidelity error")
+    return faults
+
+
+def throttle_runs(runs: int, smi: str) -> int:
+    """`--throttle-runs N`: the serve phase's two throttled scheduler runs
+    (its own traffic, then the sparse one) N times on codeqwen1.5-7b at
+    full width and depth (bf16), each from a fresh warm load of the same
+    portfolio and a fresh measurement store; prints each run's replans,
+    how many sparse runs committed a replan that moved a node and lowered
+    the fidelity error, and how many of the serve traffic's b4s64 replans
+    were committed.  Returns 0 when every run passed the serve phase's
+    checks."""
+    import repro_torch
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config(SERVE_ARCH)
+    passed, b4_tried, b4_done = 0, 0, 0
+    with tempfile.TemporaryDirectory(prefix="repro_torch_throttle_") as tmp:
+        target = repro_torch.Target(device="moto2022")
+        kw = dict(buckets=SERVE_BUCKETS, cache=Path(tmp, "plans"),
+                  predictor_cache=Path(tmp, "predictors"))
+        pf = repro_torch.compile_portfolio(cfg, target, **kw)
+        cost = pf.entries[pf.buckets[-1]].plan.end_to_end_us * 1e-6
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        for i in range(runs):
+            faults = []
+            for kind, traffic in (("serve", serve_traffic(cfg, cost)),
+                                  ("sparse", sparse_traffic(cfg, cost))):
+                t = time.perf_counter()
+                rep, attempts = throttled_scheduler(
+                    cfg, model, params,
+                    repro_torch.compile_portfolio(cfg, target, **kw),
+                    Path(tmp, f"meas_{kind}_{i}"), Path(tmp, "plans"), cost,
+                    traffic)
+                host = time.perf_counter() - t
+                faults += throttle_faults(rep, kind == "sparse")
+                b4 = [done for tag, _, _, _, done in attempts
+                      if tag == pf.buckets[-1].tag]
+                if kind == "serve":
+                    b4_tried, b4_done = b4_tried + len(b4), b4_done + sum(b4)
+                print(_report_line(f"throttle run {i} {kind}", rep, host),
+                      flush=True)
+                print(f"  replans: {replan_attempts(attempts, rep)}",
+                      flush=True)
+            passed += not faults
+            for fault in faults:
+                print(f"  FAULT: {fault}", flush=True)
+    print(f"throttle: {passed} of {runs} runs passed (sparse traffic: a "
+          f"committed replan that moved a node and lowered the fidelity "
+          f"error; every committed replan lowered it); on the serve "
+          f"traffic {b4_done} of {b4_tried} {pf.buckets[-1].tag} replans "
+          f"committed (window {THROTTLE_CONFIG['fidelity_window']}, "
+          f"threshold {THROTTLE_CONFIG['drift_threshold']}, scale "
+          f"{THROTTLE_SCALE}); {smi}", flush=True)
+    return 0 if passed == runs else 1
+
+
 # ------------------------------------------------------------------- serve
 
 def _to_device(tree, device):
     """A model's params (nested dicts and lists of tensors) on `device`."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def serve_reduced_check(cfg) -> None:
@@ -2336,13 +2941,14 @@ def ssd_device_ms(rows) -> tuple:
 
 
 def decode_breakdown(label: str, model, params, batch: int,
-                     steps: int = 4, top: int = 8) -> None:
+                     steps: int = 4, top: int = 8, spans=()) -> None:
     """Where a decode step's time goes: `steps` steps of `batch` slots at
     per-slot positions (the scheduler's call; a shared position for a
     model without them), timed bare (host clock around the steps and a
     sync), then under torch.profiler: device time by kernel against the
-    step wall, and the host calls that put work on the card.  Raises if
-    the trace holds no device time."""
+    step wall, the host calls that put work on the card, and the device
+    time of the kernels inside each `record_function` range of `spans`
+    with its share.  Raises if the trace holds no device time."""
     cache = model.init_cache(batch, SERVE_MAX_LEN, device="cuda")
     tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
     pos = (torch.arange(batch, device="cuda")
@@ -2358,12 +2964,16 @@ def decode_breakdown(label: str, model, params, batch: int,
         step()
     torch.cuda.synchronize()
     bare = (time.perf_counter() - t) * 1e3 / steps
-    rows, busy, wall, calls, _ = _profile(label, step, steps)
+    rows, busy, wall, calls, ranges = _profile(label, step, steps,
+                                               spans=spans)
+    within = "".join(f"; {k} {v:.3f} ms ({v / busy:.1%} of the device "
+                     f"time)" for k, v in ranges.items())
     print(f"profile {label}: decode step of {batch} slots, wall {bare:.3f} "
           f"ms bare, {wall:.3f} ms under the profiler; kernels {busy:.3f} "
           f"ms of device time in {sum(r[1] for r in rows) / steps:g} "
           f"launches (idle >= {1 - busy / wall:.1%} of the profiled wall); "
-          f"host launch calls per step {sum(calls.values()):g}", flush=True)
+          f"host launch calls per step {sum(calls.values()):g}{within}",
+          flush=True)
     for ms, count, key in rows[:top]:
         print(f"  {ms:8.3f} ms {count / steps:6g}x {key[:100]}", flush=True)
 
@@ -2442,8 +3052,10 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
       latency percentiles are printed beside the card's name and limit,
       with its offered load against the card's service (`offered_load`);
       then a profiled decode step at batch 1 and 4 (`decode_breakdown`);
-    - the scheduler once more with a simulated throttle: at least one
-      validated in-place replan must be committed;
+    - the scheduler twice more with a simulated throttle, over the
+      traffic above and over the sparse one (`throttled_scheduler`):
+      every committed in-place replan must lower the fidelity error, and
+      the sparse run must commit one that moved a node;
     - every plan the runs above executed (`executed_plans`: replanned
       entries and rejected candidates alike, and the plan the engine
       shipped) that the entries did not hold: run and its kernel calls
@@ -2455,8 +3067,7 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
     from repro_torch.models import build_model, get_config
     from repro_torch.serving import (ContinuousScheduler,
                                      FixedBatchReference, Request,
-                                     SchedulerConfig, ServingEngine,
-                                     ThrottleSim, poisson_requests)
+                                     SchedulerConfig, ServingEngine)
 
     # earlier phases' executors and CUDA graphs may sit in reference
     # cycles: collect them, so the peaks below are this phase's
@@ -2509,10 +3120,7 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
 
         largest = pf.entries[pf.buckets[-1]]
         cost = largest.plan.end_to_end_us * 1e-6
-        traffic = poisson_requests(
-            SERVE_TRAFFIC, rate=0.33 / cost, vocab_size=cfg.vocab_size,
-            prompt_lens=(4, 8, 16), max_new=(4, 8, 12), temperatures=(0.0,),
-            seed=19)
+        traffic = serve_traffic(cfg, cost)
         fixed = FixedBatchReference(largest, max_batch=SERVE_MAX_BATCH)
         print(f"serve traffic: {SERVE_TRAFFIC} greedy Poisson requests at "
               f"{0.33 / cost:.2f} req/s (0.33 / the {pf.buckets[-1].tag} "
@@ -2633,23 +3241,31 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
 
             # the drift-triggered in-place replan: a simulated throttle
             # scales the recorded plan walls from 100 steps' cost on (the
-            # reference's acceptance test), the bucket's monitor fires, and
-            # the scheduler replans it, verifies the new plan, executes it
-            # on the card and commits it only if its fidelity error is lower
-            label = f"{name} serve bf16 throttled"
-            zero()
-            t = time.perf_counter()
-            rep = scheduler(model, params, "virtual", "meas_throttle",
-                            throttle=ThrottleSim(at_s=100 * cost, scale=2.5),
-                            fidelity_every=4, fidelity_window=4,
-                            drift_cooldown=2).run(traffic)
-            host = time.perf_counter() - t
-            walks[label] = (None, read())
-            print(_report_line(label, rep, host), flush=True)
-            if not rep.replan_events:
-                raise AssertionError(f"{label}: the throttle triggered no "
-                                     f"committed replan")
-            events += rep.replan_events
+            # reference's acceptance test), a bucket's monitor fires on a
+            # wholly throttled window, and the scheduler replans it,
+            # verifies the new plan, executes it on the card and commits it
+            # only if its fidelity error is lower; once over this phase's
+            # traffic and once over the sparse one, whose b1s64 replan
+            # must commit and move nodes (`THROTTLE_SCALE`)
+            for walk, traffic in (("throttled", traffic),
+                                  ("throttled sparse",
+                                   sparse_traffic(cfg, cost))):
+                label = f"{name} serve bf16 {walk}"
+                zero()
+                t = time.perf_counter()
+                rep, attempts = throttled_scheduler(
+                    cfg, model, params,
+                    repro_torch.compile_portfolio(cfg, target, **kw),
+                    Path(tmp, f"meas_{walk}"), Path(tmp, "plans"), cost,
+                    traffic)
+                host = time.perf_counter() - t
+                walks[label] = (None, read())
+                print(_report_line(label, rep, host) + "; replans: "
+                      + replan_attempts(attempts, rep), flush=True)
+                faults = throttle_faults(rep, walk == "throttled sparse")
+                if faults:
+                    raise AssertionError(f"{label}: {'; '.join(faults)}")
+                events += rep.replan_events
             del model, params, engine
             torch.cuda.empty_cache()
 
@@ -2685,7 +3301,7 @@ def serve_phase(peaks: dict, tallies: dict, smi: str) -> dict:
               + ", ".join(sorted(executed)), flush=True)
     for k in ("split_matmul", "decode_attention"):
         for walk in ("fp32 virtual", "bf16 fixed", "bf16 wall",
-                     "bf16 throttled"):
+                     "bf16 throttled", "bf16 throttled sparse"):
             walk = f"{name} serve {walk}"
             if not walks[walk][1][k]:
                 raise AssertionError(f"{k} was not launched on the {walk} "
@@ -3188,6 +3804,52 @@ SERVE_FIDELITY_EVERY = 8
 SERVE_LOGIT_RTOL = 1e-4
 SERVE_E2E_RTOL = 1e-4
 
+#: the throttled scheduler runs (`throttled_scheduler`): the wall scale
+#: from 100 steps' cost on; the scheduler's drift settings: a window of
+#: 2 reports (median = mean) and a threshold between log(8) / 2 = 1.04
+#: (one of the two reports throttled) and log(8) = 2.08 (both), so the
+#: monitor fires only on a wholly throttled window; and the sparse
+#: traffic (THROTTLE_RATE / the b4s64 plan's cost), in which most steps
+#: run one request, in the b1s64 bucket.  The b4s64 plan co-executes all
+#: six of its nodes, so a fit to its records holds only (kind, "coexec")
+#: corrections and none of the per-kind aggregates the planner applies:
+#: its replan is the same plan with the same predictions, no node moves,
+#: and whether it commits turns on the card's noise (ROADMAP Queue 3).
+#: The b1s64 plan runs its linears alone, so its replan is priced anew
+#: and moves nodes.  The serve traffic (mostly b4s64) shows the first;
+#: the sparse traffic must show the second.  x8 keeps the firing drift
+#: and the half-window drift furthest from the threshold
+THROTTLE_SCALE = 8.0
+THROTTLE_CONFIG = dict(fidelity_every=4, fidelity_window=2,
+                       drift_threshold=1.5, drift_cooldown=2)
+THROTTLE_REQUESTS = 12
+THROTTLE_RATE = 0.05
+
+#: the Whisper phase (whisper-large-v3, full width and depth): the fp32
+#: check's batch, prompt and teacher-fed decode steps; the bf16 engine's
+#: requests and new tokens each (batch MODEL_SERVE_BATCH)
+WHISPER_ARCH = "whisper_large_v3"
+WHISPER_BATCH = 2
+WHISPER_PROMPT = 64
+WHISPER_DECODE_STEPS = 8
+WHISPER_REQUESTS = 8
+WHISPER_NEW = 32
+#: the train phase: whisper-large-v3's steps, batch, target tokens and
+#: learning rate (bf16 params 4.0 GB, grads 4.0 GB, fp32 moments 16.2 GB
+#: and the encoder's saved activations, ~22 GB at batch 2: the
+#: reference's default batch 8 would not fit the card); the reduced
+#: card-vs-CPU step's target tokens (past `SSD_DECODE_T_MAX`, so Mamba2
+#: layers take the chunk kernels, with a ragged last chunk) and its
+#: tolerance, relative to the CPU loss and to each leaf's largest |CPU
+#: gradient| (fp32 sums in another order through a backward pass, the
+#: SSD chunk kernels' 3xTF32 products included)
+TRAIN_STEPS = 20
+TRAIN_BATCH = 2
+TRAIN_SEQ = 128
+TRAIN_LR = 3e-4
+TRAIN_CHECK_SEQ = 96
+TRAIN_RTOL = 1e-4
+
 #: the model phases: zamba2-7b and rwkv6-1.6b at their published widths
 #: and full depth; the fp32 prompt lengths (a multiple of the reference's
 #: chunk, 256 tokens for Mamba2's SSD and 64 for RWKV6's WKV, and one that
@@ -3487,6 +4149,8 @@ def main() -> int:
     if "--split-times" in sys.argv[1:]:
         return split_times(Path(sys.argv[sys.argv.index("--split-times")
                                          + 1]))
+    throttle_only = ("--throttle-runs" in sys.argv[1:] and int(
+        sys.argv[sys.argv.index("--throttle-runs") + 1]))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -3507,6 +4171,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     phases.done("build")
+
+    if throttle_only:
+        return throttle_runs(throttle_only, smi)
 
     peaks = card_peaks()
     results = {}
@@ -3580,6 +4247,10 @@ def main() -> int:
     phases.done(f"{DS_ARCH} model")
     walks.update(llama4_phase(smi))
     phases.done(f"{L4_ARCH} model")
+    walks.update(whisper_phase(smi))
+    phases.done(f"{WHISPER_ARCH} model")
+    walks.update(train_phase(smi, peaks, results))
+    phases.done("train")
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
@@ -3620,7 +4291,9 @@ def main() -> int:
                 f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
                 f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
                 f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
-                f"deepseek-v2-lite-16b engine's execute_plan; "
+                f"deepseek-v2-lite-16b engine's execute_plan, the "
+                f"reduced zamba2-7b train step (its forward's launches, "
+                f"each with a gradient); "
                 f"times: one request of each main path (rwkv6-1.6b's two "
                 f"plans and deepseek-v2-lite-16b's: the calls of one "
                 f"request, each held) and one "

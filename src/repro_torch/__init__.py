@@ -20,7 +20,9 @@ loop: executed walls fit a calibrator, which re-plans the network.  The
 package imports torch and numpy, never jax and nothing from `repro`: it
 keeps its own copy of what it needs.  CLI: `python -m repro_torch plan
 ...`, `python -m repro_torch execute --artifact PATH`, `python -m
-repro_torch calibrate ...`.
+repro_torch calibrate ...`; the models of the registry serve and train
+through `python -m repro_torch serve ...` and `python -m repro_torch
+train ...`.
 """
 from repro_torch.api import (Bucket, CompiledNetwork, PlanPortfolio, Target,
                              available_networks, compile, compile_portfolio)

@@ -87,12 +87,22 @@ Seven subcommands so far:
         python -m repro_torch serve --arch rwkv6_1b6 [--reduced]
                                     [--torch-device cpu]
 
-    Zamba2 serves through the fixed batch only: the scheduler refuses
-    it (exit 2).
+        python -m repro_torch serve --arch whisper_large_v3 [--reduced]
+                                    [--torch-device cpu]
 
-Executions run on CUDA by default; without CUDA `execute`, `calibrate`
-and `serve` fail unless `--device cpu` (`execute`) or `--torch-device cpu`
-(`calibrate`, `serve`) is given.
+    Zamba2, RWKV6 and Whisper serve through the fixed batch only: the
+    scheduler refuses them (exit 2).
+
+  * `train` — train a model of the registry on the synthetic stream with
+    AdamW, with the reference's flags (`repro_torch/launch/train.py`).
+
+        python -m repro_torch train --arch rwkv6_1b6 [--reduced]
+                                    [--steps N --batch B --seq T]
+                                    [--checkpoint-dir D] [--torch-device cpu]
+
+Executions run on CUDA by default; without CUDA `execute`, `calibrate`,
+`serve` and `train` fail unless `--device cpu` (`execute`) or
+`--torch-device cpu` (`calibrate`, `serve`, `train`) is given.
 """
 from __future__ import annotations
 
@@ -440,11 +450,15 @@ def _print_per_op(report) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    # serve forwards its whole tail to its own parser; dispatch before
-    # argparse so leading options (`serve --arch ...`) survive
+    # serve and train forward their whole tail to their own parsers;
+    # dispatch before argparse so leading options (`serve --arch ...`)
+    # survive
     if argv[:1] == ["serve"]:
         from repro_torch.launch.serve import serve_main
         return serve_main(argv[1:])
+    if argv[:1] == ["train"]:
+        from repro_torch.launch.train import train_main
+        return train_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
         description="Compile co-execution plans and run them on PyTorch "

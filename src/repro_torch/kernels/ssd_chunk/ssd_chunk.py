@@ -33,10 +33,11 @@ Two designs (`csrc/ssd_chunk.cu`), chosen per call by `plan_ssd`:
 tokens per chunk, `chunk`; an illegal one raises ValueError.
 
 `ssd_chunk_scan` launches the kernels for CUDA tensors and raises if it
-cannot; for CPU tensors it checks `launch` and computes
-`ssd_chunk_scan_plain`, the chunked arithmetic in plain PyTorch, with the
-launch's chunk.  `ssd_chunk_scan.launches` counts calls that launched:
-one per call, whichever kernels it took.
+cannot (where an operand requires grad, through `ScanWithGrad`, whose
+backward differentiates the plain version); for CPU tensors it checks
+`launch` and computes `ssd_chunk_scan_plain`, the chunked arithmetic in
+plain PyTorch, with the launch's chunk.  `ssd_chunk_scan.launches`
+counts calls that launched: one per call, whichever kernels it took.
 """
 from __future__ import annotations
 
@@ -221,8 +222,10 @@ def ssd_chunk_scan_plain(x, b, c, dt, a, state0, *, chunk: int = CHUNK
         ldiff = l[:, :, None, :] - l[:, None, :, :]             # (B,t,j,H)
         causal = torch.ones(n, n, dtype=torch.bool,
                             device=x.device).tril()[None, :, :, None]
-        w = torch.where(causal, torch.exp(ldiff) * s_cb[..., None],
-                        torch.zeros((), device=x.device))
+        # masked before the exp, not after: above the diagonal ldiff >= 0
+        # can overflow, and a gradient through 0 x inf is NaN
+        w = torch.exp(torch.where(causal, ldiff, -torch.inf)) \
+            * s_cb[..., None]
         xdt = xc * dtc[..., None]                               # (B,L,H,hd)
         ys.append(y + torch.einsum("btjh,bjhd->bthd", w, xdt))
         # the state at the chunk's end
@@ -284,11 +287,49 @@ def ssd_chunk_scan(x, b, c, dt, a, state0, *, launch=None
                                     chunk=launch.get("chunk") or CHUNK)
     build.require_contiguous("ssd_chunk_scan", x=x, b=b, c=c, dt=dt, a=a,
                              state0=state0)
-    y = torch.empty_like(x)
-    sf = torch.empty_like(state0)
-    launch_uncounted(plan_call(*operands, sf, launch), operands, y, sf)
+    if torch.is_grad_enabled() and any(u.requires_grad for u in operands):
+        sf, y = ScanWithGrad.apply(launch, launch.get("chunk") or CHUNK,
+                                   *operands)
+    else:
+        sf, y = _launch(operands, launch)
     ssd_chunk_scan.launches += 1
     return sf, y
 
 
 ssd_chunk_scan.launches = 0
+
+
+def _launch(operands, launch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' (final_state, y) for contiguous CUDA operands."""
+    y = torch.empty_like(operands[0])
+    sf = torch.empty_like(operands[5])
+    launch_uncounted(plan_call(*operands, sf, launch), operands, y, sf)
+    return sf, y
+
+
+class ScanWithGrad(torch.autograd.Function):
+    """The kernels' forward with a gradient: `forward` launches them as a
+    call without grad does (the same plan and outputs) and saves the six
+    operands; `backward` recomputes `ssd_chunk_scan_plain` on them under
+    autograd at the same chunk and returns its gradients.  The TPU kernel
+    has no backward kernel either (the reference differentiates its plain
+    chunked scan), so none is written here.  `ssd_chunk_scan` takes it
+    only when an operand requires grad: serving and plans save nothing."""
+
+    @staticmethod
+    def forward(ctx, launch, chunk: int, *operands):
+        ctx.chunk = chunk
+        ctx.save_for_backward(*operands)
+        return _launch(operands, launch)
+
+    @staticmethod
+    def backward(ctx, g_sf, g_y):
+        inputs = [u.detach().requires_grad_(need) for u, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [u for u in inputs if u.requires_grad]
+        with torch.enable_grad():
+            sf, y = ssd_chunk_scan_plain(*inputs, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad((sf, y), wanted, (g_sf, g_y),
+                                             allow_unused=True))
+        return (None, None) + tuple(next(grads) if u.requires_grad else None
+                                    for u in inputs)

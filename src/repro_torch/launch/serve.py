@@ -8,14 +8,15 @@ command fails, it never carries on on the CPU).  `--device` stays the
 simulated phone a portfolio is compiled for.
 
 Fixed-batch mode (a dense transformer, the Zamba2 hybrid
-`--arch zamba2_7b`, or RWKV6 `--arch rwkv6_1b6`):
+`--arch zamba2_7b`, RWKV6 `--arch rwkv6_1b6`, or Whisper
+`--arch whisper_large_v3`, each request with seeded frames):
 
     python -m repro_torch serve --arch codeqwen15_7b --requests 8 \
         --max-new 12 [--compiled ARTIFACT] [--reduced --torch-device cpu]
 
 Continuous-batching mode (`--arrivals poisson`; the scheduler refuses a
-model without per-slot positions, such as Zamba2 and RWKV6, and the
-command exits 2 with its message):
+model without per-slot positions, such as Zamba2, RWKV6 and Whisper, and
+the command exits 2 with its message):
 
     python -m repro_torch serve --arch codeqwen15_7b --arrivals poisson \
         --rate 200 --requests 50 --portfolio reports/portfolio.json
@@ -188,11 +189,7 @@ def serve_main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    try:
-        model = build_model(cfg)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
     if args.arrivals == "poisson":
@@ -210,9 +207,14 @@ def serve_main(argv: Optional[Sequence[str]] = None) -> int:
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size,
                               size=rng.integers(4, 17)).astype(np.int32)
+        frames = None
+        if cfg.is_encoder_decoder:
+            # drawn between prompts, as the reference draws them
+            frames = rng.normal(size=(cfg.encoder_seq, cfg.d_model)
+                                ).astype(np.float32) * 0.02
         reqs.append(Request(rid=rid, prompt=prompt,
                             max_new_tokens=args.max_new,
-                            temperature=args.temperature))
+                            temperature=args.temperature, frames=frames))
 
     engine = ServingEngine(cfg, model, params, max_batch=args.max_batch,
                            max_len=64 + args.max_new, compiled=compiled,

@@ -8,11 +8,12 @@ reference's):
     loss(params, batch) -> scalar           batch: tokens/labels
     init_cache(batch, max_len, device) -> cache
     prefill(params, tokens, cache[, start]) -> (logits, cache)
+    prefill(params, tokens, cache, frames) -> (logits, cache)  (Whisper)
     decode_step(params, tokens, cache, pos[, start]) -> (logits, cache)
 
-The port has the decoder-only transformers (GQA or MLA attention, dense
-or MoE feed-forward), the Zamba2 hybrid and RWKV6; the encoder-decoder
-family (Whisper) raises.
+Every family of the reference builds: the decoder-only transformers (GQA
+or MLA attention, dense or MoE feed-forward), the Zamba2 hybrid, RWKV6
+and the Whisper encoder-decoder.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.rwkv import RWKVModel
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.models.zamba import ZambaModel
@@ -58,15 +60,9 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-#: what the family not ported yet waits for (ROADMAP Queue 1)
-_NOT_PORTED = ("{family} models are not in the port yet (ROADMAP Queue 1 "
-               "item {item})")
-
-
 def build_model(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(_NOT_PORTED.format(
-            family="encoder-decoder (Whisper)", item="5: Whisper"))
+        return EncDecModel(cfg)
     if cfg.ssm_kind == "rwkv6":
         return RWKVModel(cfg)
     if cfg.attn_every:

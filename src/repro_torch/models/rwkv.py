@@ -87,20 +87,23 @@ class RWKVModel:
                 "x_cm": zeros(xs_shape, self.dtype)}
 
     def _stack_forward(self, params: Params, x: torch.Tensor,
-                       cache) -> torch.Tensor:
-        """Every layer in order from the cache's states, each layer's new
-        states written into the cache in place; then the final norm."""
+                       cache, write: bool = True) -> torch.Tensor:
+        """Every layer in order from the cache's states, with `write` each
+        layer's new states written into the cache in place (`forward`
+        keeps none: an in-place write would overwrite what autograd
+        saved); then the final norm."""
         cfg = self.cfg
         for p, wkv, x_tm, x_cm in zip(params["blocks"], cache["wkv"],
                                       cache["x_tm"], cache["x_cm"]):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             h, wkv2, x_tm2 = rwkv6_mix(p["tm"], h, cfg, wkv, x_tm)
-            wkv.copy_(wkv2)
-            x_tm.copy_(x_tm2)
             x = x + h
             h = rms_norm(x, p["ln2"], cfg.norm_eps)
             h, x_cm2 = rwkv_channel_mix(p["cm"], h, x_cm)
-            x_cm.copy_(x_cm2)
+            if write:
+                wkv.copy_(wkv2)
+                x_tm.copy_(x_tm2)
+                x_cm.copy_(x_cm2)
             x = x + h
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
@@ -110,14 +113,14 @@ class RWKVModel:
         from a zero state."""
         x = params["embed"][tokens.long()]
         cache = self.init_cache(x.shape[0], device=x.device)
-        x = self._stack_forward(params, x, cache)
+        x = self._stack_forward(params, x, cache, write=False)
         return x @ params["unembed"], torch.zeros((), dtype=torch.float32,
                                                   device=x.device)
 
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token NLL in fp32; forward only: the port has no
-        training path yet."""
+        """Mean next-token NLL in fp32 (`launch.steps.make_train_step`
+        differentiates it)."""
         logits, _ = self.forward(params, batch["tokens"])
         logp = F.log_softmax(logits.float(), dim=-1)
         labels = batch["labels"].long()

@@ -224,8 +224,8 @@ class TransformerModel:
 
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token NLL (+ 0.01 x aux) in fp32; forward only: the
-        port has no training path yet."""
+        """Mean next-token NLL (+ 0.01 x aux) in fp32
+        (`launch.steps.make_train_step` differentiates it)."""
         logits, aux = self.forward(params, batch["tokens"])
         logp = F.log_softmax(logits.float(), dim=-1)
         labels = batch["labels"].long()

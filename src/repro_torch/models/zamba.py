@@ -113,15 +113,18 @@ class ZambaModel:
 
     # -------------------------------------------------------------- blocks
     def _mamba_group(self, group: List[Params], x: torch.Tensor,
-                     ssm: List[torch.Tensor], conv: List[torch.Tensor]
-                     ) -> torch.Tensor:
-        """The group's Mamba2 layers in order; each layer's final state
-        and conv carry are written into `ssm[k]` and `conv[k]`."""
+                     ssm: List[torch.Tensor], conv: List[torch.Tensor],
+                     write: bool = True) -> torch.Tensor:
+        """The group's Mamba2 layers in order; with `write`, each layer's
+        final state and conv carry are written into `ssm[k]` and `conv[k]`
+        (`forward` keeps none: an in-place write would overwrite what
+        autograd saved)."""
         for p, s, c in zip(group, ssm, conv):
             h = rms_norm(x, p["ln"], self.cfg.norm_eps)
             h, s2, c2 = mamba2_mix(p["mixer"], h, self.cfg, s, c)
-            s.copy_(s2)
-            c.copy_(c2)
+            if write:
+                s.copy_(s2)
+                c.copy_(c2)
             x = x + h
         return x
 
@@ -168,15 +171,16 @@ class ZambaModel:
             x = self._mamba_group(
                 group, x,
                 [x.new_zeros(ssm_shape, dtype=torch.float32) for _ in group],
-                [x.new_zeros(conv_shape) for _ in group])
+                [x.new_zeros(conv_shape) for _ in group], write=False)
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         return x @ params["unembed"], torch.zeros((), dtype=torch.float32,
                                                   device=x.device)
 
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token NLL in fp32; forward only: the port has no
-        training path yet."""
+        """Mean next-token NLL in fp32 (`launch.steps.make_train_step`
+        differentiates it; on the card every Mamba2 layer's
+        `ssd_chunk_scan` launch carries its gradient)."""
         logits, _ = self.forward(params, batch["tokens"])
         logp = F.log_softmax(logits.float(), dim=-1)
         labels = batch["labels"].long()

@@ -1,10 +1,10 @@
 """Batched serving engine: request queue -> prefill -> decode loop.
 
 The port's counterpart of `repro.serving.engine`.  Requests arrive with
-prompts, are packed into a fixed batch (left-padded, with a per-row
-`start` for pad-aware models), prefilled once, then decoded step by step
-with per-request greedy or temperature sampling until each request's
-token budget is spent.  Everything runs on one torch device: CUDA unless
+prompts (and, for an encoder-decoder, frames), are packed into a fixed
+batch (left-padded, with a per-row `start` for pad-aware models),
+prefilled once, then decoded step by step with per-request greedy or
+temperature sampling until each request's token budget is spent.  Everything runs on one torch device: CUDA unless
 the caller passes `device="cpu"`.
 
 An engine can ship a `repro_torch.CompiledNetwork` (`compiled=`) or a
@@ -38,7 +38,7 @@ class Request:
     prompt: np.ndarray                 # (T,) int32
     max_new_tokens: int = 16
     temperature: float = 0.0           # 0 = greedy
-    frames: Optional[np.ndarray] = None  # enc-dec only (not ported yet)
+    frames: Optional[np.ndarray] = None  # enc-dec only: (S_enc, D)
     arrival_s: float = 0.0             # admission time (scheduler traffic)
 
 
@@ -192,7 +192,18 @@ class ServingEngine:
             pad["start"] = torch.tensor([t - len(r.prompt) for r in batch],
                                         device=self.device)
         cache = self.model.init_cache(b, self.max_len, device=self.device)
-        logits, cache = self.model.prefill(self.params, toks, cache, **pad)
+        if self.cfg.is_encoder_decoder:
+            # each request's frames, zeros where a request has none
+            frames = torch.from_numpy(np.stack([
+                r.frames if r.frames is not None else
+                np.zeros((self.cfg.encoder_seq, self.cfg.d_model),
+                         np.float32)
+                for r in batch])).to(self.device)
+            logits, cache = self.model.prefill(self.params, toks, cache,
+                                               frames)
+        else:
+            logits, cache = self.model.prefill(self.params, toks, cache,
+                                               **pad)
 
         max_new = max(r.max_new_tokens for r in batch)
         # per-request temperatures: a greedy request stays greedy even when

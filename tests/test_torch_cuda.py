@@ -10,8 +10,10 @@ their plain PyTorch versions, and small split runs on two CUDA streams
 (a conv/linear network; a decoder graph with head, kv-block and
 ssm-state splits) against the same runs on the CPU; the reduced models
 (the transformer; Zamba2, whose Mamba2 layers launch the SSD kernel)
-against the same weights on the CPU; every candidate of the autotuner's
-launch table, and a tuned compile measured on the card.
+against the same weights on the CPU; the SSD kernels' gradient
+(`ScanWithGrad`) against autograd through their plain version; every
+candidate of the autotuner's launch table, and a tuned compile measured
+on the card.
 """
 from pathlib import Path
 
@@ -382,6 +384,46 @@ def test_ssd_chunk_scan_kernel_matches_plain(cuda, b, t, h, hd, n, dtype,
     sf_p, y_p = ssd_chunk_scan_plain(*ins)
     _close(y, y_p, dtype)
     _close(sf, sf_p, dtype)
+
+
+@pytest.mark.parametrize("b,t,h,hd,n", [
+    (2, 1, 8, 64, 64),                # the decode kernel
+    (2, 96, 8, 64, 64),               # the chunk kernels, a ragged chunk
+    (1, 300, 6, 32, 16)])
+def test_ssd_chunk_scan_carries_a_gradient_on_the_card(cuda, b, t, h, hd, n):
+    """With operands that require grad the wrapper still launches its
+    kernels once (counted) and its backward gives every operand the
+    gradient of autograd through the plain version on the same inputs
+    (the backward recomputes that version; the loss is linear in both
+    outputs, so the incoming gradients do not depend on the kernels'
+    rounding): within 1e-6 of each gradient's largest value."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_scan,
+                                               ssd_chunk_scan_plain)
+    g = torch.Generator(device=cuda).manual_seed(t + n)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    ins = [rand(b, t, h, hd), rand(b, t, n) / n ** 0.5,
+           rand(b, t, n) / n ** 0.5,
+           0.05 + 0.2 * torch.sigmoid(rand(b, t, h)),
+           -(0.1 + rand(h).abs()), rand(b, h, hd, n) / n ** 0.5]
+    wy, ws = rand(b, t, h, hd), rand(b, h, hd, n)
+    mine = [u.clone().requires_grad_(True) for u in ins]
+    before = ssd_chunk_scan.launches
+    sf, y = ssd_chunk_scan(*mine)
+    assert ssd_chunk_scan.launches == before + 1
+    assert y.grad_fn is not None
+    (torch.sum(y * wy) + torch.sum(sf * ws)).backward()
+    plain = [u.clone().requires_grad_(True) for u in ins]
+    sf_p, y_p = ssd_chunk_scan_plain(*plain)
+    _close(y, y_p, torch.float32)
+    (torch.sum(y_p * wy) + torch.sum(sf_p * ws)).backward()
+    for a, b_ in zip(mine, plain):
+        err = float((a.grad - b_.grad).abs().max())
+        assert err <= 1e-6 * max(1.0, float(b_.grad.abs().max()))
+    with torch.no_grad():
+        _, y = ssd_chunk_scan(*mine)
+    assert y.grad_fn is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
