@@ -215,16 +215,32 @@ the port cannot be imported, and otherwise runs, in order:
    launches a kernel of the port;
 15. the train phase (`train_phase`): whisper-large-v3 at full width and
    depth through `repro_torch.launch.train.train` in bf16 with fp32
-   AdamW moments, `TRAIN_STEPS` steps of `TRAIN_BATCH` x `TRAIN_SEQ`
+   AdamW moments, on the mesh path (the (1, 1) host mesh, params placed
+   by `sharding.shard_params` under `activation_mesh`), `TRAIN_STEPS`
+   steps of `TRAIN_BATCH` x `TRAIN_SEQ`
    target tokens over 1500 frames (every loss finite, the last 5's mean
    below the first 5's; median s/step, peak memory, one profiled step's
-   device time and idle share), a checkpoint of the params in the
+   device time and idle share; the step's roofline terms from the dry
+   run's walk over this card's peaks beside the measured s/step, as a
+   multiple of max(t_compute, t_memory), `roofline_line`), a checkpoint of the params in the
    reference's layout saved and restored bit for bit; then one reduced
    fp32 train step of every `ARCH_IDS` family on the card against the CPU
    from the same weights and batch (`train_step_check`: the loss and
    every leaf's gradient within `TRAIN_RTOL`), zamba2-7b's launching
    `ssd_chunk_scan` once per layer with its gradient (`ScanWithGrad`),
    each of those calls held against its plain version and timed;
+   then the mesh phases (`mesh_phases`): zamba2-7b at its published
+   widths (112 SSD heads x 64, state 64) and 9 of its 81 layers (one
+   shared-attention block) trained through the mesh path in bf16,
+   `ZAMBA_TRAIN_STEPS` steps of 2 x 512 tokens (every loss finite,
+   `ssd_chunk_scan` launched once per layer per step and no other
+   kernel, s/step, peak memory, the roofline terms, and every SSD call of
+   one forward held against its plain version,
+   `zamba_train_phase`); the dry run on this host at published widths
+   for the reference's CI combinations on the test meshes (`DRYRUN_CI`:
+   each record's counts, bottleneck and walk seconds, `dryrun_phase`);
+   `python -m repro_torch.launch.train --production-mesh` exiting 2 with
+   the device-count message (`production_mesh_check`);
 16. the `tune` phase (`tune_phase`): (a) a sweep of one op per kind at
    the paths' shapes (`tune_ops`: VGG16's n7 Winograd conv, a zamba2-7b
    GEMV at M = 1 and M = 4, an M = 64 linear for the tiled product, the
@@ -256,6 +272,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -271,17 +288,6 @@ ROOT = Path(__file__).resolve().parent
 ARTIFACTS = ROOT / "src/repro_torch/artifacts"
 ARTIFACT = ARTIFACTS / "vgg16_moto2022.coexec.json"
 ZAMBA_ARTIFACT = ARTIFACTS / "zamba2-7b_b9_s4096_moto2022_t1.coexec.json"
-
-#: published dense peaks (NVIDIA data sheets): memory bytes/s and
-#: operations/s by input type; fp32 runs outside the tensor cores (TF32 off),
-#: TF32 on them (the SSD chunk kernels' 3xTF32 products: three TF32
-#: products per fp32 one)
-PEAKS = {
-    "sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12,
-            "tf32": 495e12},
-    "pcie": {"bytes": 2.0e12, "float32": 51e12, "bfloat16": 756e12,
-             "tf32": 378e12},
-}
 
 #: kernel-vs-plain tolerance, relative to the largest |plain| value: fp32
 #: sums of up to 25088 terms in another order differ by ~sqrt(K) * 2^-24;
@@ -437,8 +443,10 @@ def nvidia_smi_line() -> str:
 
 
 def card_peaks() -> dict:
-    name = torch.cuda.get_device_name(0)
-    return PEAKS["pcie"] if "PCIe" in name else PEAKS["sxm"]
+    """The card's published peaks (`repro_torch.roofline.analysis.PEAKS`,
+    SXM or PCIe by the card's name)."""
+    from repro_torch.roofline.analysis import peaks_for
+    return peaks_for(torch.cuda.get_device_name(0))
 
 
 def bound_ms(nbytes: float, ops: float, dtype: torch.dtype, peaks: dict):
@@ -2529,11 +2537,14 @@ def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
     `python -m repro_torch.launch.train` runs):
 
     - whisper-large-v3 at its published widths and full depth in its
-      bf16 with fp32 AdamW moments, `TRAIN_STEPS` steps of `TRAIN_BATCH`
-      x `TRAIN_SEQ` target tokens over 1500 frames; every loss finite and
-      the mean of the last 5 below the first 5; the median seconds a step,
-      the peak memory, and one more step under torch.profiler (device time
-      by kernel, the idle share); `save_checkpoint` of the params in the
+      bf16 with fp32 AdamW moments, through the mesh path (the host mesh,
+      params placed by `shard_params` under `activation_mesh`),
+      `TRAIN_STEPS` steps of `TRAIN_BATCH` x `TRAIN_SEQ` target tokens
+      over 1500 frames; every loss finite and the mean of the last 5 below
+      the first 5; the median seconds a step, the peak memory, and one
+      more step under torch.profiler (device time by kernel, the idle
+      share); the step's roofline terms on the 1x1 mesh beside its
+      measured seconds (`roofline_line`); `save_checkpoint` of the params in the
       reference's layout then `restore_checkpoint`, the restored params
       bit-equal to the trained ones;
     - every `ARCH_IDS` family reduced in fp32: one step on the card
@@ -2543,12 +2554,15 @@ def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
     Returns the walks."""
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models import (ARCH_IDS, build_model, get_config,
                                     params_from_numpy, params_to_reference)
     from repro_torch.optim import AdamWConfig
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.sharding import param_shardings, shard_params
+    from repro_torch.sharding.ctx import activation_mesh
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2563,10 +2577,13 @@ def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
           f"({2 * cfg.param_count() / 1e9:.1f} GB) with fp32 moments "
           f"({8 * cfg.param_count() / 1e9:.1f} GB)", flush=True)
     label = f"{cfg.name} train"
+    mesh = make_host_mesh("cuda")
     zero_counts()
-    params, opt_state, losses, seconds = train(
-        cfg, model, params, steps=TRAIN_STEPS, batch=b, seq=t, lr=TRAIN_LR,
-        device="cuda", log_every=5)
+    with activation_mesh(mesh):
+        params = shard_params(params, param_shardings(params, mesh))
+        params, opt_state, losses, seconds = train(
+            cfg, model, params, steps=TRAIN_STEPS, batch=b, seq=t,
+            lr=TRAIN_LR, device=mesh.devices[0], log_every=5)
     walks[label] = (None, read_counts())
     peak = torch.cuda.max_memory_allocated() / 1e9
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -2593,6 +2610,7 @@ def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
           f"{sum(calls.values()):g}; {smi}", flush=True)
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms {count:6g}x {key[:100]}", flush=True)
+    roofline_line(label, cfg, model, mesh, t, b, seconds, peak, smi)
     del batch, opt_state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2628,6 +2646,153 @@ def train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
     for arch in ARCH_IDS:
         walks.update(train_step_check(arch, peaks, tallies))
     return walks
+
+
+def roofline_line(label: str, cfg, model, mesh, t: int, b: int,
+                  seconds: list, peak_gb: float, smi: str) -> None:
+    """Print the train step's roofline terms on `mesh` (`launch.dryrun.
+    walk_step` on fake tensors at the step's shape, over this card's peaks
+    by its name) beside the measured median seconds a step, as a multiple
+    of max(t_compute, t_memory), and the dry run's per-device memory
+    estimate beside the measured peak.  A kernel the walk counts as its
+    plain version (`counted_as_plain`) is named on the line."""
+    from repro_torch.launch.dryrun import counted_as_plain, walk_step
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.roofline.analysis import build_report
+
+    shape = InputShape(f"train b{b}s{t}", t, b, "train")
+    cost, arg_bytes, out_bytes, walk_s = walk_step(cfg, model, shape, mesh)
+    rep = build_report(cfg.name, shape, mesh.name, mesh.size, cost,
+                       arg_bytes + out_bytes + cost.peak_live_bytes, cfg,
+                       peaks=card_peaks())
+    bound = max(rep.t_compute, rep.t_memory)
+    med = statistics.median(seconds)
+    print(f"roofline {label} step ({cfg.dtype}, {b} x {t}) on the "
+          f"{mesh.name} mesh: {rep.hlo_flops:.4e} FLOPs counted, "
+          f"{rep.model_flops:.4e} model FLOPs (useful "
+          f"{rep.useful_flops_ratio:.3f}), {rep.hlo_bytes:.4e} bytes (eager, "
+          f"unfused) -> t_compute {rep.t_compute * 1e3:.3f} ms at the bf16 "
+          f"peak, t_memory {rep.t_memory * 1e3:.3f} ms, "
+          f"{rep.bottleneck}-bound; measured {med * 1e3:.1f} ms a step "
+          f"(median) = {med / bound:.2f} x max(t_compute, t_memory); peak "
+          f"memory estimate {rep.peak_memory_bytes / 1e9:.1f} GB against "
+          f"{peak_gb:.1f} GB measured; walk {walk_s:.1f} s on the host; "
+          + "".join(f"{k} counted as its plain version; "
+                    for k in counted_as_plain(cfg))
+          + smi, flush=True)
+
+
+def zamba_train_phase(smi: str, peaks: dict, tallies: dict) -> dict:
+    """zamba2-7b at its published widths (d_model 3584, 112 SSD heads x 64,
+    state 64) and `ZAMBA_TRAIN_LAYERS` layers (the fewest that hold one
+    shared-attention block), bf16 with fp32 moments, `ZAMBA_TRAIN_STEPS`
+    AdamW steps of `ZAMBA_TRAIN_BATCH` x `ZAMBA_TRAIN_SEQ` tokens through
+    the mesh path (`launch.train.train` on the host mesh, params placed
+    by `shard_params` under `activation_mesh`).  Every loss finite; the
+    counts set to 0 just before the steps and read just after:
+    `ssd_chunk_scan` launched once per layer per step (its forward; the
+    gradient through `ScanWithGrad`) and no other kernel; seconds a step,
+    peak memory and the roofline terms (`roofline_line`); then every SSD
+    call of one more forward held against its plain version in float32
+    and bfloat16 and timed (`hold_model_calls`).  Returns the walk."""
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model, get_config
+    from repro_torch.sharding import param_shardings, shard_params
+    from repro_torch.sharding.ctx import activation_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("zamba2_7b")
+    cfg = dataclasses.replace(full, n_layers=ZAMBA_TRAIN_LAYERS)
+    model = build_model(cfg)
+    b, t, steps = ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, ZAMBA_TRAIN_STEPS
+    label = f"{cfg.name} train (published widths, {cfg.n_layers} layers)"
+    mesh = make_host_mesh("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with activation_mesh(mesh):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        params = shard_params(params, param_shardings(params, mesh))
+        zero_counts()
+        params, _, losses, seconds = train(
+            cfg, model, params, steps=steps, batch=b, seq=t, lr=TRAIN_LR,
+            device=mesh.devices[0], log_every=1)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = steps * cfg.n_layers
+    if counts != {k: (want if k == "ssd_chunk_scan" else 0) for k in counts}:
+        raise AssertionError(f"{label}: launches {counts}, want {want} "
+                             f"ssd_chunk_scan launches ({steps} steps x "
+                             f"{cfg.n_layers} layers) and no other")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses} are not all finite")
+    print(f"{label}: {steps} AdamW steps of {b} x {t} tokens on the "
+          f"{mesh.name} mesh ({cfg.param_count() / 1e9:.2f} B parameters, "
+          f"{cfg.dtype}, fp32 moments): losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; {statistics.median(seconds):.3f} s a step (median; first "
+          f"{seconds[0]:.3f} s); peak memory {peak:.1f} GB; "
+          f"{counts['ssd_chunk_scan']} ssd_chunk_scan launches; {smi}",
+          flush=True)
+    roofline_line(label, cfg, model, mesh, t, b, seconds, peak, smi)
+    raw = make_batch(cfg, b, t, seed=steps)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    with torch.no_grad():
+        calls = capture_calls(lambda: model.loss(params, batch), every=True)
+    hold_model_calls(label, calls, cfg.n_layers, peaks, tallies)
+    del model, params, batch, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {label: (label, counts)}
+
+
+def dryrun_phase() -> None:
+    """The dry run on this host (no card): `launch.dryrun.lower_one` at
+    published widths for the reference's CI combinations on the test
+    meshes (`DRYRUN_CI`), each record's status as the reference's CI test
+    expects, its counts, bottleneck and walk seconds printed."""
+    from repro_torch.launch.dryrun import lower_one
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dryrun_", dir=ROOT / "build") \
+            as tmp:
+        for arch, shape, multi_pod, want in DRYRUN_CI:
+            rec = lower_one(arch, shape, multi_pod=multi_pod, verbose=False,
+                            test_mesh=True, report_dir=Path(tmp))
+            if rec["status"] != want or (want == "ok"
+                                         and not rec["hlo_flops"] > 0):
+                raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
+            where = f"dryrun {arch} x {shape} @ {rec['mesh']}"
+            if want == "skipped":
+                print(f"{where}: skipped ({rec['reason']})", flush=True)
+                continue
+            print(f"{where}: {rec['hlo_flops']:.4e} FLOPs, "
+                  f"{rec['hlo_bytes']:.4e} bytes, {rec['model_flops']:.4e} "
+                  f"model FLOPs (useful {rec['useful_flops_ratio']:.3f}), "
+                  f"peak/device {rec['peak_memory_bytes'] / 1e9:.2f} GB, "
+                  f"t_compute {rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
+                  f"{rec['t_memory_s'] * 1e3:.3f} ms (H100 SXM peaks), "
+                  f"collectives not counted; {rec['bottleneck']}-bound; "
+                  f"walk {rec['walk_s']} s", flush=True)
+
+
+def production_mesh_check() -> None:
+    """`python -m repro_torch.launch.train --production-mesh` exits 2 with
+    the device-count message."""
+    want = "the data x model mesh needs 16 x 16 = 256 devices; this " \
+        "process runs on 1"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "zamba2_7b", "--production-mesh"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if out.returncode != 2 or want not in out.stderr:
+        raise AssertionError(f"--production-mesh: exit {out.returncode}, "
+                             f"stderr {out.stderr[-500:]!r}")
+    print(f"launch.train --production-mesh: exit 2, "
+          f"{out.stderr.strip()!r}", flush=True)
 
 
 def serve_traffic(cfg, cost: float):
@@ -3849,6 +4014,21 @@ TRAIN_SEQ = 128
 TRAIN_LR = 3e-4
 TRAIN_CHECK_SEQ = 96
 TRAIN_RTOL = 1e-4
+#: zamba2-7b's training through the mesh path at its published widths:
+#: its layers (9 of 81: one group of Mamba2 layers and the shared
+#: attention block once), steps, batch and tokens
+ZAMBA_TRAIN_LAYERS = 9
+ZAMBA_TRAIN_STEPS = 4
+ZAMBA_TRAIN_BATCH = 2
+ZAMBA_TRAIN_SEQ = 512
+#: the dry-run phase: the reference's CI combinations
+#: (`tests/test_dryrun_small.py`) on the test meshes (multi_pod: 2x2x2,
+#: else 2x4) and the status its test expects of each
+DRYRUN_CI = (("rwkv6_1b6", "decode_32k", False, "ok"),
+             ("rwkv6_1b6", "long_500k", True, "ok"),
+             ("deepseek_v2_lite", "decode_32k", False, "ok"),
+             ("gemma3_12b", "long_500k", False, "ok"),
+             ("llama3_405b", "long_500k", False, "skipped"))
 
 #: the model phases: zamba2-7b and rwkv6-1.6b at their published widths
 #: and full depth; the fp32 prompt lengths (a multiple of the reference's
@@ -4140,6 +4320,18 @@ def split_times(src: Path) -> int:
     return 0
 
 
+def mesh_phases(smi: str, peaks: dict, tallies: dict, phases) -> dict:
+    """The mesh path's phases: zamba2-7b's published-width training
+    (`zamba_train_phase`), the dry run (`dryrun_phase`) and the production
+    mesh's refusal (`production_mesh_check`).  Returns the walks."""
+    walks = zamba_train_phase(smi, peaks, tallies)
+    phases.done("zamba2-7b train")
+    dryrun_phase()
+    production_mesh_check()
+    phases.done("dryrun")
+    return walks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4251,6 +4443,7 @@ def main() -> int:
     phases.done(f"{WHISPER_ARCH} model")
     walks.update(train_phase(smi, peaks, results))
     phases.done("train")
+    walks.update(mesh_phases(smi, peaks, results, phases))
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
@@ -4293,7 +4486,8 @@ def main() -> int:
                 f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
                 f"deepseek-v2-lite-16b engine's execute_plan, the "
                 f"reduced zamba2-7b train step (its forward's launches, "
-                f"each with a gradient); "
+                f"each with a gradient), the {ZAMBA_TRAIN_STEPS} zamba2-7b "
+                f"train steps at published widths on the mesh path; "
                 f"times: one request of each main path (rwkv6-1.6b's two "
                 f"plans and deepseek-v2-lite-16b's: the calls of one "
                 f"request, each held) and one "

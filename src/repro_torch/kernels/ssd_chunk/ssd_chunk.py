@@ -47,6 +47,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.core.loops import counted_range
 from repro_torch.kernels import build, tiles
 
 #: tokens per chunk: the (L, L) intra-chunk tile is L = 64's 16 KB in fp32
@@ -209,8 +210,8 @@ def ssd_chunk_scan_plain(x, b, c, dt, a, state0, *, chunk: int = CHUNK
     _check(x, b, c, dt, a, state0, chunk)
     xf, bf, cf, dtf, af, h = (u.float() for u in (x, b, c, dt, a, state0))
     t = x.shape[1]
-    ys = []
-    for t0 in range(0, t, chunk):
+    ys = torch.empty(xf.shape, dtype=torch.float32, device=x.device)
+    for t0 in _chunk_starts(t, chunk):
         sl = slice(t0, t0 + chunk)        # a slice stops at the tensor's end
         xc, bc, cc, dtc = xf[:, sl], bf[:, sl], cf[:, sl], dtf[:, sl]
         n = xc.shape[1]
@@ -227,12 +228,23 @@ def ssd_chunk_scan_plain(x, b, c, dt, a, state0, *, chunk: int = CHUNK
         w = torch.exp(torch.where(causal, ldiff, -torch.inf)) \
             * s_cb[..., None]
         xdt = xc * dtc[..., None]                               # (B,L,H,hd)
-        ys.append(y + torch.einsum("btjh,bjhd->bthd", w, xdt))
+        ys[:, sl] = y + torch.einsum("btjh,bjhd->bthd", w, xdt)
         # the state at the chunk's end
         decay_end = torch.exp(l[:, -1:] - l)                    # (B, L, H)
         h = torch.exp(l[:, -1])[..., None, None] * h + torch.einsum(
             "bjhd,bjn->bhdn", xdt * decay_end[..., None], bc)
-    return h.to(state0.dtype), torch.cat(ys, dim=1).to(x.dtype)
+    return h.to(state0.dtype), ys.to(x.dtype)
+
+
+def _chunk_starts(t: int, chunk: int):
+    """The first token of each chunk of T: the full chunks, then a ragged
+    last one.  Each chunk writes its own rows of the output and carries
+    only the state, so the full chunks walk through `counted_range`."""
+    n_full = t // chunk
+    for i in counted_range(n_full):
+        yield i * chunk
+    if t % chunk:
+        yield n_full * chunk
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,9 +12,15 @@ the steps, one line per `--log-every` steps, an optional checkpoint of
 the params in the reference's layout after the last step, and the final
 against the initial loss (the mean of the last five against the first
 five), which must have fallen.  It runs on CUDA unless `--torch-device
-cpu`; without CUDA and without that flag it exits 2.  The reference's
-`--production-mesh` trains on a device mesh, which the port does not
-have yet (ROADMAP Queue 1 item 7): the flag exits 2.
+cpu`; without CUDA and without that flag it exits 2.
+
+As the reference's, it trains on a device mesh (`launch/mesh.py`): the
+host mesh, (1, 1) over the training device, or with `--production-mesh`
+the (16, 16) production mesh.  Under `activation_mesh(mesh)` the
+params are placed by `param_shardings` (`sharding.shard_params`), then
+trained.  The port runs one process on one device, so the production
+mesh exits 2, naming the devices it needs and the one this process has
+(the reference's `jax.make_mesh` raises there too without 256 devices).
 """
 from __future__ import annotations
 
@@ -28,10 +34,14 @@ import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data import DataConfig, SyntheticTokenStream, make_batch
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import (ARCH_IDS, build_model, get_config,
                                 params_to_reference)
 from repro_torch.optim import AdamWConfig, init_adamw
+from repro_torch.sharding.ctx import activation_mesh
+from repro_torch.sharding.rules import (param_shardings, require_devices,
+                                        shard_params)
 
 
 def train(cfg, model, params, *, steps: int, batch: int, seq: int,
@@ -75,8 +85,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="train on the production device mesh (not in the "
-                         "port yet: exits 2)")
+                    help="train on the 16 x 16 production mesh (this "
+                         "process runs on one device: exits 2)")
     ap.add_argument("--torch-device", default=None,
                     help="torch device to train on (default: cuda)")
     return ap
@@ -86,12 +96,11 @@ def train_main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.core.coexec import resolve_device
 
     args = _parser().parse_args(argv)
-    if args.production_mesh:
-        print("error: --production-mesh needs a device mesh, which the port "
-              "does not have yet (ROADMAP Queue 1 item 7)", file=sys.stderr)
-        return 2
     try:
         device = resolve_device(args.torch_device)
+        mesh = make_production_mesh() if args.production_mesh \
+            else make_host_mesh(device)
+        require_devices(mesh)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -99,10 +108,13 @@ def train_main(argv: Optional[Sequence[str]] = None) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
-    params, _, losses, _ = train(cfg, model, params, steps=args.steps,
-                                 batch=args.batch, seq=args.seq, lr=args.lr,
-                                 device=device, log_every=args.log_every)
+    with activation_mesh(mesh):
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        params = shard_params(params, param_shardings(params, mesh))
+        params, _, losses, _ = train(cfg, model, params, steps=args.steps,
+                                     batch=args.batch, seq=args.seq,
+                                     lr=args.lr, device=device,
+                                     log_every=args.log_every)
     if args.checkpoint_dir:
         out = save_checkpoint(args.checkpoint_dir, args.steps,
                               {"params": params_to_reference(params)})

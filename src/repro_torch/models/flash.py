@@ -17,6 +17,12 @@ stop materialising (T, S) scores and walk key chunks with a running
 Causality and sliding windows are positional masks applied per tile;
 fully masked tiles still run, as in the reference.  All sums are fp32;
 outputs come back in the query's dtype.
+
+Each key loop carries only its running state and its tiles have equal
+shapes, so it walks through `core.loops.counted_range`: `range`
+here, and two iterations, the second weighed by the rest, when the dry
+run counts a step on fake tensors (the reference's `lax.scan` trip
+count).
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import math
 from typing import Union
 
 import torch
+
+from repro_torch.core.loops import counted_range
 
 _NEG_INF = -1e30
 
@@ -58,7 +66,7 @@ def flash_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_run = torch.full((b, kv, g, bq), _NEG_INF, device=q.device)
         l_run = torch.zeros((b, kv, g, bq), device=q.device)
         acc = torch.zeros((b, kv, g, bq, hd), device=q.device)
-        for ki in range(s // bk):
+        for ki in counted_range(s // bk):
             kc = k[:, ki * bk:(ki + 1) * bk].float()          # (B,bk,KV,hd)
             vc = v[:, ki * bk:(ki + 1) * bk].float()
             scores = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc)
@@ -96,7 +104,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_run = torch.full((b, kv, g), _NEG_INF, device=q.device)
     l_run = torch.zeros((b, kv, g), device=q.device)
     acc = torch.zeros((b, kv, g, hd), device=q.device)
-    for ki in range(s // bk):
+    for ki in counted_range(s // bk):
         kc = k[:, ki * bk:(ki + 1) * bk].float()
         vc = v[:, ki * bk:(ki + 1) * bk].float()
         scores = torch.einsum("bhgd,bkhd->bhgk", qf, kc)
@@ -135,7 +143,7 @@ def flash_latent_full(q_lat: torch.Tensor, q_rope: torch.Tensor,
         m_run = torch.full((b, h, bq), _NEG_INF, device=q_lat.device)
         l_run = torch.zeros((b, h, bq), device=q_lat.device)
         acc = torch.zeros((b, h, bq, r), device=q_lat.device)
-        for ki in range(s // bk):
+        for ki in counted_range(s // bk):
             ck = c_kv[:, ki * bk:(ki + 1) * bk].float()       # (B,bk,r)
             kr = k_rope[:, ki * bk:(ki + 1) * bk].float()
             scores = (torch.einsum("bqhr,bkr->bhqk", qlf, ck)
@@ -172,7 +180,7 @@ def flash_latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     m_run = torch.full((b, h), _NEG_INF, device=q_lat.device)
     l_run = torch.zeros((b, h), device=q_lat.device)
     acc = torch.zeros((b, h, r), device=q_lat.device)
-    for ki in range(s // bk):
+    for ki in counted_range(s // bk):
         ck = c_kv[:, ki * bk:(ki + 1) * bk].float()
         kr = k_rope[:, ki * bk:(ki + 1) * bk].float()
         scores = (torch.einsum("bhr,bkr->bhk", qlf, ck)

@@ -15,10 +15,15 @@ expert products as batched matmuls over (E, C, D), and gathers each
 (token, slot) back for the gate-weighted combine; the shared experts are
 one dense MLP.  Kept slots are unique, so the scatter is deterministic.
 
-The port has one device, so it ports the reference's unsharded branch:
-with no mesh, `cfg.moe_local_dispatch` falls through to it there too, and
-the reference's sharding constraints on the expert buffers are
-identities.  Aux loss: the Switch load-balance loss plus 1e-3 x the
+With `cfg.moe_local_dispatch` and an installed mesh
+(`sharding.ctx.activation_mesh`) with more than one batch shard, the
+reference runs dispatch, experts and combine per shard under a
+`shard_map`, each shard with its own capacity slice; the port runs the
+same per-shard cores one after another on its one device and takes the
+mean of their aux losses, as the reference's `shard_map` computes.
+Otherwise (no such mesh, or the tokens do not split evenly) it runs the
+unsharded branch, as the reference does.  The reference's sharding
+constraints on the expert buffers are identities here.  Aux loss: the Switch load-balance loss plus 1e-3 x the
 router z-loss, returned to the caller.
 """
 from __future__ import annotations
@@ -65,9 +70,29 @@ def moe_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (y (B, T, D), aux loss)."""
     b, t, d = x.shape
-    y, aux = _moe_core(p, x.reshape(b * t, d), cfg,
-                       expert_capacity(b * t, cfg, capacity_factor))
+    n, k, e = b * t, cfg.experts_per_token, cfg.n_experts
+    xt = x.reshape(n, d)
+    shards = _batch_shards() if cfg.moe_local_dispatch else 1
+    if shards > 1 and n % shards == 0 and (n // shards) * k >= e:
+        cap_local = max(1, int(capacity_factor * (n // shards) * k / e))
+        outs = [_moe_core(p, xs, cfg, cap_local)
+                for xs in xt.split(n // shards)]
+        y = torch.cat([y_l for y_l, _ in outs])
+        aux = torch.stack([aux_l for _, aux_l in outs]).mean()
+        return y.reshape(b, t, d), aux
+    y, aux = _moe_core(p, xt, cfg, expert_capacity(n, cfg, capacity_factor))
     return y.reshape(b, t, d), aux
+
+
+def _batch_shards() -> int:
+    """The installed mesh's batch shards (1 without a mesh)."""
+    from repro_torch.sharding.ctx import current_mesh
+    from repro_torch.sharding.rules import batch_axes
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh)
+                     if a in mesh.shape)
 
 
 def route(p: Params, xt: torch.Tensor, cfg: ModelConfig, capacity: int):

@@ -10,7 +10,11 @@ simplification (one shared token-shift mix per projection).  Neither of
 the reference's WKV branches is a Pallas kernel, so both stay plain
 PyTorch here, and both are kept: the chunked form (`_wkv_chunked`)
 exactly where T >= `_WKV_CHUNK` and T % `_WKV_CHUNK` == 0, the step
-recurrence (`_wkv_step`) otherwise.  The projections are `@` products,
+recurrence (`_wkv_step`) otherwise.  Each chunk of the chunked form
+writes its own rows of a preallocated output and carries only the
+state, so its loop walks through `core.loops.counted_range` (two
+chunks, the second weighed by the rest, when the dry run counts a
+step).  The projections are `@` products,
 as the reference's are.
 
 Mamba2 (arXiv:2405.21060, as Zamba2 uses it): a depthwise causal conv1d
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal
+from repro_torch.core.loops import counted_range
 
 Params = Dict[str, torch.Tensor]
 
@@ -189,8 +194,10 @@ def _wkv_chunked(r, k, v, w, u, state0):
     sub_of = torch.arange(L, device=dev) // c                   # (L,)
     valid_ts = sub_of[:, None] >= torch.arange(ns, device=dev)[None, :]
     valid_ts = valid_ts[None, :, :, None, None]                 # (1,L,ns,1,1)
-    s0, outs = state0, []
-    for t0 in range(0, t, L):
+    s0 = state0
+    out = torch.empty((b, t, h, hd), dtype=torch.float32, device=dev)
+    for i in counted_range(t // L):
+        t0 = i * L
         rk, kk, vk, wk = (z[:, t0:t0 + L] for z in (r, k, v, w))
         logw = torch.log(torch.clamp_min(wk, 1e-38))
         l = torch.cumsum(logw, dim=1)                          # <= 0
@@ -211,12 +218,12 @@ def _wkv_chunked(r, k, v, w, u, state0):
         diag = torch.einsum("blhk,blhk->blh", rk * u[None, None], kk)
         out_inter = torch.einsum("blhk,bhkv->blhv", rk * torch.exp(l_prev),
                                  s0)
-        outs.append(out_inter + out_intra + diag[..., None] * vk)
+        out[:, t0:t0 + L] = out_inter + out_intra + diag[..., None] * vk
 
         decay_to_end = torch.exp(l[:, -1:] - l)                # (B,L,H,hd)
         s0 = torch.exp(l[:, -1])[:, :, :, None] * s0 + torch.einsum(
             "bjhk,bjhv->bhkv", kk * decay_to_end, vk)
-    return s0, torch.cat(outs, dim=1)
+    return s0, out
 
 
 # ================================================================== Mamba2

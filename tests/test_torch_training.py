@@ -481,11 +481,14 @@ runpy.run_module("repro_torch.launch.train", run_name="__main__")
 
 def blocked_train(args, cwd):
     """`python -m repro_torch.launch.train ARGS` with jax and `repro` kept
-    from import."""
+    from import, on one intra-op thread: the run is small, and a thread
+    pool as wide as the host, beside the other test workers' pools, is
+    what makes it slow."""
     return subprocess.run(
         [sys.executable, "-c", _BLOCKED_TRAIN, *args], capture_output=True,
         text=True, cwd=cwd, timeout=600,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
 
 
 def test_train_cli_lowers_the_loss_on_the_cpu(tmp_path):
@@ -522,4 +525,31 @@ def test_train_cli_refuses_without_cuda_and_the_mesh(tmp_path):
                           "--production-mesh", "--torch-device", "cpu"],
                          tmp_path)
     assert mesh.returncode == 2
-    assert "ROADMAP Queue 1 item 7" in mesh.stderr
+    assert ("the data x model mesh needs 16 x 16 = 256 devices; this "
+            "process runs on 1") in mesh.stderr
+    assert "final loss" not in mesh.stdout
+
+
+def test_train_main_on_the_host_mesh_is_train_bit_for_bit(monkeypatch):
+    """`train_main` on the (1, 1) CPU mesh (params placed by
+    `shard_params`) gives the losses `train()` gives without a mesh."""
+    from repro_torch.launch import train as train_mod
+
+    got, train = [], train_mod.train
+
+    def spy(*args, **kwargs):
+        out = train(*args, **kwargs)
+        got.append(out[2])
+        return out
+
+    monkeypatch.setattr(train_mod, "train", spy)
+    assert train_mod.train_main(["--arch", "deepseek_v2_lite", "--reduced",
+                                 "--steps", "6", "--batch", "2", "--seq",
+                                 "16", "--torch-device", "cpu",
+                                 "--log-every", "5"]) == 0
+    cfg = get_config("deepseek_v2_lite").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cpu").manual_seed(0))
+    _, _, want, _ = train(cfg, model, params, steps=6, batch=2, seq=16,
+                          lr=3e-4, device="cpu")
+    assert got == [want]
