@@ -76,6 +76,7 @@ from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MeasurementRecord,
                                         usable_for_fidelity)
 from repro_torch.runtime.plan import CoexecPlan, ExecSpec, spec_label
+from repro_torch.runtime.spans import span
 
 # -------------------------------------------------------------- reporting
 
@@ -558,7 +559,18 @@ class PlanExecutor:
         member record carries the segment wall attributed pro rata by
         predicted latency (equal shares when the segment has none), with
         `source="fused"` and its segment index: member walls sum to the
-        segment wall."""
+        segment wall.
+
+        While the profiler runs, the walk is traced as one
+        `repro_torch.walk` span (`runtime/spans.py`) holding one span per
+        segment (`SegmentProgram.span`), in partition order; each holds
+        the segment's `repro_torch.sync` and, after it, its
+        `repro_torch.records`.  A segment span less its records is the
+        interval `segment_wall_us` times, on the trace's clock."""
+        with span("repro_torch.walk"):
+            return self._walk_segments(x)
+
+    def _walk_segments(self, x) -> Tuple[torch.Tensor, ExecutionReport]:
         x0 = self.input_template() if x is None else self._tensor(x)
         programs = self.segment_programs(tuple(x0.shape))
         pos = {n.id: i for i, n in enumerate(self.graph)}
@@ -571,56 +583,38 @@ class PlanExecutor:
         prov = self.plan.provenance
 
         for sp in programs:
-            t0 = time.perf_counter()
-            if sp.kind == SEGMENT_FUSED:
-                out = sp([acts[s] for s in sp.ext_inputs])
-                if sp.graph is not None and sp.node_ids[-1] == out_id:
-                    # the graph's static output: the next request's
-                    # replay would overwrite what this one returns
-                    out = out.clone()
-            else:
-                nid = sp.node_ids[0]
-                spec = self.specs[pos[nid]]
-                src_val = acts[sp.ext_inputs[0]]
-                if sp.modes[nid] == MODE_POOL:
-                    out = self._pool(src_val, spec.pool_bytes)
-                elif sp.modes[nid] == MODE_COEXEC:
-                    # a typed-axis split, gathered (or merged) by its own
-                    # lowering
-                    split, packed = self._splits[pos[nid]]
-                    low = registry.get_split_lowering(spec.unit, spec.axis)
-                    out = low.run(self._adapt(src_val, spec), packed, split,
-                                  self.groups, spec.op, spec.c_fast,
-                                  gather=True, x_plan=None,
-                                  launch=self.launches[pos[nid]])
-                else:
-                    out = self._dense(self._adapt(src_val, spec),
-                                      self.params[pos[nid]], spec,
-                                      self.launches[pos[nid]])
-            self._sync()
-            wall = (time.perf_counter() - t0) * 1e6
-            segment_wall.append(wall)
-            reshard += sp.gathers
-            elided += sp.elided
-            # convexity: only a segment's last node is consumed downstream
-            acts[sp.node_ids[-1]] = out
-            preds = [self.specs[pos[n]].pred_total_us for n in sp.node_ids]
-            total = sum(preds)
-            for nid, pred in zip(sp.node_ids, preds):
-                spec = self.specs[pos[nid]]
-                share = (wall * pred / total if total > 0.0
-                         else wall / len(preds))
-                timings.append(MeasurementRecord(
-                    index=pos[nid], unit=spec.unit, label=spec_label(spec),
-                    mode=sp.modes[nid], c_fast=spec.c_fast,
-                    c_slow=spec.c_slow, chained_input=sp.chained[nid],
-                    gathered_output=sp.gathered[nid], wall_us=share,
-                    pred_us=spec.pred_total_us, op=spec.op,
-                    source=SOURCE_FUSED, device=prov.device,
-                    backend=str(self.device), host=host,
-                    plan_key=self.plan.key,
-                    network_fingerprint=prov.network_fingerprint,
-                    node_id=nid, segment=sp.index))
+            with span(sp.span):
+                t0 = time.perf_counter()
+                out = self._run_segment(sp, acts, pos, out_id)
+                with span("repro_torch.sync"):
+                    self._sync()
+                wall = (time.perf_counter() - t0) * 1e6
+                segment_wall.append(wall)
+                reshard += sp.gathers
+                elided += sp.elided
+                # convexity: only a segment's last node is consumed
+                # downstream
+                acts[sp.node_ids[-1]] = out
+                with span("repro_torch.records"):
+                    preds = [self.specs[pos[n]].pred_total_us
+                             for n in sp.node_ids]
+                    total = sum(preds)
+                    for nid, pred in zip(sp.node_ids, preds):
+                        spec = self.specs[pos[nid]]
+                        share = (wall * pred / total if total > 0.0
+                                 else wall / len(preds))
+                        timings.append(MeasurementRecord(
+                            index=pos[nid], unit=spec.unit,
+                            label=spec_label(spec), mode=sp.modes[nid],
+                            c_fast=spec.c_fast, c_slow=spec.c_slow,
+                            chained_input=sp.chained[nid],
+                            gathered_output=sp.gathered[nid], wall_us=share,
+                            pred_us=spec.pred_total_us, op=spec.op,
+                            source=SOURCE_FUSED, device=prov.device,
+                            backend=str(self.device), host=host,
+                            plan_key=self.plan.key,
+                            network_fingerprint=prov.network_fingerprint,
+                            node_id=nid, segment=sp.index))
 
         report = ExecutionReport(
             device=prov.device,
@@ -629,6 +623,33 @@ class PlanExecutor:
             reshard_points=reshard, elided=elided, fused=True,
             sync_points=len(programs), segment_wall_us=segment_wall)
         return acts[out_id], report
+
+    def _run_segment(self, sp, acts, pos, out_id) -> torch.Tensor:
+        """Dispatch one segment of the walk: a fused program (one graph
+        replay on CUDA), or an eager pool, exclusive or typed-axis
+        singleton.  No sync."""
+        if sp.kind == SEGMENT_FUSED:
+            out = sp([acts[s] for s in sp.ext_inputs])
+            if sp.graph is not None and sp.node_ids[-1] == out_id:
+                # the graph's static output: the next request's replay
+                # would overwrite what this one returns
+                out = out.clone()
+            return out
+        nid = sp.node_ids[0]
+        spec = self.specs[pos[nid]]
+        src_val = acts[sp.ext_inputs[0]]
+        if sp.modes[nid] == MODE_POOL:
+            return self._pool(src_val, spec.pool_bytes)
+        if sp.modes[nid] == MODE_COEXEC:
+            # a typed-axis split, gathered (or merged) by its own lowering
+            split, packed = self._splits[pos[nid]]
+            low = registry.get_split_lowering(spec.unit, spec.axis)
+            return low.run(self._adapt(src_val, spec), packed, split,
+                           self.groups, spec.op, spec.c_fast, gather=True,
+                           x_plan=None, launch=self.launches[pos[nid]])
+        return self._dense(self._adapt(src_val, spec),
+                           self.params[pos[nid]], spec,
+                           self.launches[pos[nid]])
 
     def run_oracle(self, x=None) -> torch.Tensor:
         """The unsplit reference: every node through its plain oracle, with

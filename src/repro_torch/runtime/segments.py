@@ -72,9 +72,10 @@ class SegmentProgram:
     pool and exclusive singletons have `fn=None` and run through the
     executor's eager per-node helpers.  `ext_inputs` names the producers
     the segment reads, in order (`None` is the graph input); the per-node
-    maps feed the member nodes' measurement records.  `launches` are the
-    kernel-wrapper launches one replay of the graph makes, credited to
-    the wrappers' counters at every replay.
+    maps feed the member nodes' measurement records.  `span` names the
+    segment's profiler span in the walk (`segment_span`).  `launches`
+    are the kernel-wrapper launches one replay of the graph makes,
+    credited to the wrappers' counters at every replay.
     """
 
     index: int                           # position in the partition
@@ -86,6 +87,7 @@ class SegmentProgram:
     chained: Dict[str, bool]             # node id -> consumed chained input
     gathered: Dict[str, bool]            # node id -> output materialized
     modes: Dict[str, str]                # node id -> measurement mode
+    span: str                            # the walk's span of the segment
     fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
     graph: Optional[torch.cuda.CUDAGraph] = None
     static_inputs: Tuple[torch.Tensor, ...] = ()
@@ -105,6 +107,13 @@ class SegmentProgram:
         for name, n in self.launches.items():
             counters[name].launches += n
         return self.static_output
+
+
+def segment_span(index: int, kind: str, node_ids: Tuple[str, ...]) -> str:
+    """The walk's span name of a segment, e.g. `repro_torch.segment[10]
+    fused n10..n12`: its position in the partition, kind and first and
+    last member."""
+    return f"repro_torch.segment[{index}] {kind} {node_ids[0]}..{node_ids[-1]}"
 
 
 # ----------------------------------------------------------------- layout
@@ -225,6 +234,7 @@ def compile_segments(exe, x_shape: Shape) -> List[SegmentProgram]:
             index=k, kind=SEGMENT_FUSED, node_ids=seg.node_ids,
             ext_inputs=tuple(ext), gathers=gathers, elided=elided,
             chained=chained_f, gathered=gathered_f, modes=modes,
+            span=segment_span(k, SEGMENT_FUSED, seg.node_ids),
             fn=_emit(exe, instrs, tuple(ext)))
         if exe.device.type == "cuda":
             _capture(exe, prog, [plain_shape[s] for s in ext])
@@ -256,7 +266,8 @@ def _layout_singleton(exe, index: int, seg, pos: Dict[str, int],
     return SegmentProgram(
         index=index, kind=seg.kind, node_ids=seg.node_ids,
         ext_inputs=(src,), gathers=0, elided=0, chained={nid: False},
-        gathered={nid: True}, modes={nid: mode})
+        gathered={nid: True}, modes={nid: mode},
+        span=segment_span(index, seg.kind, seg.node_ids))
 
 
 # --------------------------------------------------------------- emission
