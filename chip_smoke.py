@@ -73,10 +73,12 @@ the port cannot be imported, and otherwise runs, in order:
 6. two more requests of each path under torch.profiler: device time by
    kernel, and each kernel's launches in the trace beside its counter;
 7. the fused segment walk of each path (`run(fused=True)`): every fused
-   segment captured once as a CUDA graph (each printed with its kind, its
-   nodes and the kernel launches its graph holds), then the same seeded
-   requests, each output `torch.equal` to the per-node walk's and within
-   `E2E_RTOL` of `run_oracle`, with the per-node walk's launch counts
+   segment, pool and exclusive conv or linear captured once as a CUDA
+   graph (each printed with its kind, its nodes and the kernel launches
+   its graph holds; typed-axis splits and exclusive attention and ssm
+   nodes printed as eager), then the same seeded requests, each output
+   `torch.equal` to the per-node walk's and within `E2E_RTOL` of
+   `run_oracle`, with the per-node walk's launch counts
    (credited at each replay), the reshard and elided counts over its
    channel splits (`fused_reshard_counts`) and one sync per segment; the
    two walks' median walls from one alternating run (per-node, fused,
@@ -1123,9 +1125,10 @@ def main_path(name: str, compiled, make_input, out_shape, requests: int,
 
 def fused_path(name: str, exe, want: dict, refs: list,
                rtol: float) -> dict:
-    """The fused segment walk of a main path: capture every fused segment
-    as a CUDA graph, then run the per-node walk's requests again, each
-    output bit-identical to that walk's and within `rtol` of run_oracle,
+    """The fused segment walk of a main path: capture every program that
+    has an `fn` (fused segments, pools, exclusive convs and linears) as a
+    CUDA graph, then run the per-node walk's requests again, each output
+    bit-identical to that walk's and within `rtol` of run_oracle,
     with the same launch counts, the reshard and elided counts of
     `fused_reshard_counts` and one sync per segment; returns the launch
     counts (counters set to 0 just before the requests, read just
@@ -1140,12 +1143,13 @@ def fused_path(name: str, exe, want: dict, refs: list,
     torch.cuda.synchronize()
     captured = sum(p.graph is not None for p in programs)
     n_fused = sum(s.kind == SEGMENT_FUSED for s in partition)
+    n_fn = sum(p.fn is not None for p in programs)
     print(f"{name} fused: {len(programs)} segments, {n_fused} fused; "
           f"captured {captured} CUDA graphs in "
           f"{time.perf_counter() - t:.2f} s", flush=True)
-    if captured != n_fused:
-        raise AssertionError(f"{name}: {captured} graphs for {n_fused} "
-                             f"fused segments")
+    if captured != n_fn:
+        raise AssertionError(f"{name}: {captured} graphs for {n_fn} "
+                             f"capturable segments")
     for p in programs:
         held = (", ".join(f"{k} {n}" for k, n in p.launches.items())
                 or "no launch of the port's kernels")

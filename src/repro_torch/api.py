@@ -490,7 +490,7 @@ class CompiledNetwork:
             fused: bool = False) -> torch.Tensor:
         """Execute the plan once; returns the output activation.
 
-        `fused=True` takes the segment walk (one CUDA graph per fused
+        `fused=True` takes the segment walk (one CUDA graph per captured
         segment on the card, bit-identical outputs); the per-node walk is
         the `fused=False` reference.  The run's `ExecutionReport` is kept
         on `last_report` (`profile()` is the report-first spelling)."""

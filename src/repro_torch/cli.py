@@ -38,7 +38,7 @@ Seven subcommands so far:
 
     `--no-chain` gathers after every co-executed op (no elision);
     `--no-warmup` skips the untimed first pass.  `--fused` also runs the
-    segment walk (one CUDA graph per fused segment on the card) on the
+    segment walk (one CUDA graph per captured segment on the card) on the
     same input as the per-node walk, prints both walls and whether the
     outputs are bit-identical, and exits 1 if they are not.
 

@@ -38,7 +38,7 @@ GRAPH_SCHEMA_VERSION = 2
 STRUCTURAL_KINDS = ("pool", "add")
 
 #: segment kinds: "fused" runs as one program (one CUDA graph on the card),
-#: the others are per-node eager singletons (true dispatch boundaries)
+#: the others are per-node singletons (true dispatch boundaries)
 SEGMENT_FUSED = "fused"
 SEGMENT_POOL = "pool"
 SEGMENT_EXCLUSIVE = "exclusive"

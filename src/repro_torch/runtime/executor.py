@@ -43,12 +43,12 @@ the reference blocks per node), so `wall_us` is the node's device time
 plus its host overhead.
 
 `run(fused=True)` takes the segment walk instead (`runtime/segments.py`):
-one program per fused segment of the plan's partition, captured once as a
-CUDA graph on the card and replayed per request, with one sync per
-segment; pool, exclusive and typed-axis nodes stay eager singletons.  Its
-outputs are bit-identical to the per-node walk's.  Captured graphs hold
-the weights' addresses, so `load_params` drops them; the next fused run
-captures again.
+one program per segment of the plan's partition, captured once as a CUDA
+graph on the card and replayed per request, with one sync per segment;
+typed-axis splits and exclusive attention and ssm nodes stay eager
+singletons.  Its outputs are bit-identical to the per-node walk's.
+Captured graphs hold the weights' addresses, so `load_params` drops them;
+the next fused run captures again.
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ from repro_torch.core.coexec import (Group, GroupLocal, SplitPlan,
                                      pack_weights, resolve_device,
                                      split_for_groups)
 from repro_torch.core.networks import pool_out_edge
-from repro_torch.graph.ir import SEGMENT_FUSED, Graph
+from repro_torch.graph.ir import Graph
 from repro_torch.kernels import registry
 from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MODE_EXCLUSIVE, MODE_POOL,
@@ -406,8 +406,8 @@ class PlanExecutor:
         fused) pair; only the timed run lands on `last_report`.
         `chain=False` gathers after every co-executed op (no elision).
 
-        `fused=True` takes the segment walk: one program per fused segment
-        of the plan's partition (one CUDA graph replay on the card), one
+        `fused=True` takes the segment walk: one program per segment of
+        the plan's partition (one CUDA graph replay on the card), one
         device sync per segment, outputs bit-identical to the per-node
         walk, which stays the `fused=False` reference.  Without warm-up,
         the first fused run captures before its first segment is timed.
@@ -552,8 +552,8 @@ class PlanExecutor:
 
     def _execute_fused(self, x=None) -> Tuple[torch.Tensor, ExecutionReport]:
         """The segment walk: one program (one graph replay on CUDA) and one
-        device sync per fused segment, eager singletons for pool,
-        exclusive and typed-axis nodes.
+        device sync per segment; typed-axis splits and exclusive singletons
+        of units that are not captured run eagerly.
 
         The members of a fused segment no longer sync one by one, so each
         member record carries the segment wall attributed pro rata by
@@ -625,10 +625,10 @@ class PlanExecutor:
         return acts[out_id], report
 
     def _run_segment(self, sp, acts, pos, out_id) -> torch.Tensor:
-        """Dispatch one segment of the walk: a fused program (one graph
-        replay on CUDA), or an eager pool, exclusive or typed-axis
-        singleton.  No sync."""
-        if sp.kind == SEGMENT_FUSED:
+        """Dispatch one segment of the walk: a program (one graph replay
+        on CUDA), or an eager typed-axis split or exclusive singleton of a
+        unit that is not captured.  No sync."""
+        if sp.fn is not None:
             out = sp([acts[s] for s in sp.ext_inputs])
             if sp.graph is not None and sp.node_ids[-1] == out_id:
                 # the graph's static output: the next request's replay
@@ -638,8 +638,6 @@ class PlanExecutor:
         nid = sp.node_ids[0]
         spec = self.specs[pos[nid]]
         src_val = acts[sp.ext_inputs[0]]
-        if sp.modes[nid] == MODE_POOL:
-            return self._pool(src_val, spec.pool_bytes)
         if sp.modes[nid] == MODE_COEXEC:
             # a typed-axis split, gathered (or merged) by its own lowering
             split, packed = self._splits[pos[nid]]

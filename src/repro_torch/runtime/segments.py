@@ -1,5 +1,5 @@
-"""The segment compiler: lower a plan's schedule into a few programs, one
-per fused segment, each captured and replayed as one CUDA graph.
+"""The segment compiler: lower a plan's schedule into programs, one per
+segment, most of them captured and replayed as one CUDA graph each.
 
 The per-node walk (`PlanExecutor._execute`) dispatches every node from
 Python and synchronizes after each.  The plan's `segment_partition()`
@@ -27,9 +27,13 @@ fused run into ONE program, the port's counterpart of the reference's one
     the CPU, `fn` runs eagerly: there is no second code path for the
     arithmetic.
 
-Pool and exclusive nodes (and typed-axis splits, which the partition
-keeps out of fused runs) stay eager singletons.  A captured graph holds
-the weights' addresses, so `PlanExecutor.load_params` drops every program.
+Pool singletons, and exclusive singletons of the units fused segments
+capture (`CAPTURED_UNITS`), get the same treatment: an `fn` that makes the
+per-node walk's one call (`_pool`, or `_adapt` then `_dense`), captured
+once on CUDA and replayed per request.  Typed-axis splits (which the
+partition keeps out of fused runs) and exclusive singletons of other
+units stay eager.  A captured graph holds the weights' addresses, so
+`PlanExecutor.load_params` drops every program.
 """
 from __future__ import annotations
 
@@ -45,8 +49,13 @@ from repro_torch.graph.ir import SEGMENT_FUSED, SEGMENT_POOL
 from repro_torch.kernels import registry
 from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MODE_EXCLUSIVE, MODE_POOL)
+from repro_torch.runtime.spans import span
 
 Shape = Tuple[int, ...]
+
+#: the units whose exclusive singletons are captured: those that fused
+#: segments already capture (cuDNN and Winograd convs, `split_matmul`)
+CAPTURED_UNITS = ("conv", "linear")
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,14 +77,16 @@ def launch_counters() -> Dict[str, Any]:
 class SegmentProgram:
     """One executable segment of the fused walk.
 
-    Fused segments carry `fn(ext_vals)` and, on CUDA, its captured graph;
-    pool and exclusive singletons have `fn=None` and run through the
-    executor's eager per-node helpers.  `ext_inputs` names the producers
-    the segment reads, in order (`None` is the graph input); the per-node
-    maps feed the member nodes' measurement records.  `span` names the
-    segment's profiler span in the walk (`segment_span`).  `launches`
-    are the kernel-wrapper launches one replay of the graph makes,
-    credited to the wrappers' counters at every replay.
+    Fused segments, pool singletons and exclusive `CAPTURED_UNITS`
+    singletons carry `fn(ext_vals)` and, on CUDA, its captured graph;
+    typed-axis splits and other exclusive singletons have `fn=None` and
+    run through the executor's eager per-node helpers.  `ext_inputs`
+    names the producers the segment reads, in order (`None` is the graph
+    input); the per-node maps feed the member nodes' measurement records.
+    `span` names the segment's profiler span in the walk
+    (`segment_span`).  `launches` are the kernel-wrapper launches one
+    replay of the graph makes, credited to the wrappers' counters at
+    every replay.
     """
 
     index: int                           # position in the partition
@@ -95,14 +106,16 @@ class SegmentProgram:
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def __call__(self, ext_vals: List[torch.Tensor]) -> torch.Tensor:
-        """Run the fused segment on the current stream: eagerly, or as one
-        replay of its graph.  A replay's output is the graph's static
-        output tensor, which the next replay overwrites."""
+        """Run the program on the current stream: eagerly, or as one
+        replay of its graph (a `repro_torch.replay` span while the profiler
+        runs).  A replay's output is the graph's static output tensor,
+        which the next replay overwrites."""
         if self.graph is None:
             return self.fn(ext_vals)
         for buf, val in zip(self.static_inputs, ext_vals):
             buf.copy_(val)
-        self.graph.replay()
+        with span("repro_torch.replay"):
+            self.graph.replay()
         counters = launch_counters()
         for name, n in self.launches.items():
             counters[name].launches += n
@@ -142,8 +155,8 @@ def compile_segments(exe, x_shape: Shape) -> List[SegmentProgram]:
     per-node walk would, and records one instruction per fused member.
     Programs depend on the input shape (chaining is shape-exact), hence
     the per-shape memoization in `PlanExecutor.segment_programs`.  On a
-    CUDA executor every fused program is captured here, before any timed
-    run."""
+    CUDA executor every program with an `fn` is captured here, before any
+    timed run."""
     graph = exe.graph
     pos = {n.id: i for i, n in enumerate(graph)}
     # the materialized shape of every published (cross-segment) value
@@ -151,7 +164,10 @@ def compile_segments(exe, x_shape: Shape) -> List[SegmentProgram]:
     programs: List[SegmentProgram] = []
     for k, seg in enumerate(exe.plan.segment_partition()):
         if seg.kind != SEGMENT_FUSED:
-            programs.append(_layout_singleton(exe, k, seg, pos, plain_shape))
+            prog = _layout_singleton(exe, k, seg, pos, plain_shape)
+            if prog.fn is not None and exe.device.type == "cuda":
+                _capture(exe, prog, [plain_shape[prog.ext_inputs[0]]])
+            programs.append(prog)
             continue
 
         stacked: Dict[str, Shape] = {}      # group-local value -> its shape
@@ -245,16 +261,22 @@ def compile_segments(exe, x_shape: Shape) -> List[SegmentProgram]:
 def _layout_singleton(exe, index: int, seg, pos: Dict[str, int],
                       plain_shape: Dict[Optional[str], Shape]
                       ) -> SegmentProgram:
-    """A pool or exclusive singleton: stays eager, only its shape is
-    tracked."""
+    """A pool or exclusive singleton: its shape is tracked, and a pool or
+    an exclusive `CAPTURED_UNITS` node gets the `fn` that makes the
+    per-node walk's call; a typed-axis split or another unit keeps
+    `fn=None` and runs eagerly."""
     nid = seg.node_ids[0]
     node = exe.graph.node(nid)
     spec = exe.specs[pos[nid]]
     src = node.inputs[0] if node.inputs else None
+    fn = None
     if seg.kind == SEGMENT_POOL:
         mode = MODE_POOL
         out_shape = _meta_shape(lambda v: exe._pool(v, spec.pool_bytes),
                                 plain_shape[src])
+
+        def fn(ext_vals):
+            return exe._pool(ext_vals[0], spec.pool_bytes)
     else:
         # a typed-axis split co-executes here, outside any fused run: its
         # lowering merges or gathers its own sides
@@ -262,12 +284,18 @@ def _layout_singleton(exe, index: int, seg, pos: Dict[str, int],
                 else MODE_EXCLUSIVE)
         out_shape = _out_shape(spec, _meta_shape(
             lambda v: exe._adapt(v, spec), plain_shape[src]))
+        if mode == MODE_EXCLUSIVE and spec.unit in CAPTURED_UNITS:
+            i = pos[nid]
+
+            def fn(ext_vals):
+                return exe._dense(exe._adapt(ext_vals[0], spec),
+                                  exe.params[i], spec, exe.launches[i])
     plain_shape[nid] = out_shape
     return SegmentProgram(
         index=index, kind=seg.kind, node_ids=seg.node_ids,
         ext_inputs=(src,), gathers=0, elided=0, chained={nid: False},
         gathered={nid: True}, modes={nid: mode},
-        span=segment_span(index, seg.kind, seg.node_ids))
+        span=segment_span(index, seg.kind, seg.node_ids), fn=fn)
 
 
 # --------------------------------------------------------------- emission

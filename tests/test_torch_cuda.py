@@ -587,10 +587,9 @@ def _small_conv_plan():
 @pytest.mark.parametrize("which", ["conv", "decode"])
 def test_fused_walk_replays_cuda_graphs(cuda, which):
     """The captured walk on two streams: bit-identical to the per-node
-    walk, one graph per fused segment, launch counters credited at every
+    walk, one graph per captured segment, launch counters credited at every
     replay, a request's output not overwritten by the next request's, and
     `load_params` capturing again."""
-    from repro_torch.graph.ir import SEGMENT_FUSED
     from repro_torch.runtime.executor import PlanExecutor
     from repro_torch.runtime.segments import launch_counters
     plan = (_small_conv_plan() if which == "conv"
@@ -602,8 +601,11 @@ def test_fused_walk_replays_cuda_graphs(cuda, which):
     y_node0, rep_node = exe.run(x0, warmup=True)
     y0, rep = exe.run(x0, fused=True, warmup=True)       # captures
     programs = exe.segment_programs()
+    # fused segments, pools and exclusive convs and linears are graphs;
+    # the decode plan's typed-axis split stays eager
     assert [p.graph is not None for p in programs] == \
-        [p.kind == SEGMENT_FUSED for p in programs]
+        [p.fn is not None for p in programs]
+    assert any(p.graph is None for p in programs) == (which == "decode")
     assert any(p.launches for p in programs)
     assert torch.equal(y0, y_node0)
     assert rep.sync_points == len(programs) < rep_node.sync_points

@@ -32,7 +32,7 @@ from repro_torch.cli import main as cli_main
 from repro_torch.core.types import LinearOp
 from repro_torch.graph.ir import (SEGMENT_EXCLUSIVE, SEGMENT_FUSED,
                                   SEGMENT_POOL, Graph, Node, Segment)
-from repro_torch.measure.record import SOURCE_FUSED
+from repro_torch.measure.record import MODE_EXCLUSIVE, SOURCE_FUSED
 from repro_torch.runtime.executor import PlanExecutor
 from repro_torch.runtime.plan import CoexecPlan
 
@@ -177,6 +177,13 @@ def test_typed_splits_are_singletons_and_the_fused_walk_matches(hybrid,
             assert seg[nid].kind == SEGMENT_EXCLUSIVE
             assert seg[nid].node_ids == (nid,)
             assert by_id[nid].mode == "coexec"
+    # ... and stays eager, while the exclusive linears are captured
+    programs = assert_capture_rule(exe)
+    eager = {p.node_ids[0] for p in programs if p.fn is None}
+    assert {nid for nid, share in FORCED[variant].items()
+            if isinstance(share, tuple)} <= eager
+    assert any(p.kind == SEGMENT_EXCLUSIVE and p.fn is not None
+               for p in programs)
 
 
 # ------------------------------------------------------ committed artifacts
@@ -345,11 +352,29 @@ def test_fused_warmup_runs_once_and_publishes_only_the_timed_run(forced_exe):
     assert torch.equal(y1, y2)
 
 
+def assert_capture_rule(exe):
+    """Which programs carry an `fn`, which the card captures: fused
+    segments, pools and exclusive conv and linear singletons; typed-axis
+    splits and exclusive ssm and attention singletons keep `fn=None` and
+    run eagerly.  On the CPU no program holds a graph.  Returns the
+    programs."""
+    units = {s.node_id: s.unit for s in exe.specs}
+    programs = exe.segment_programs()
+    for p in programs:
+        assert p.graph is None and not p.launches, p.span
+        nid = p.node_ids[0]
+        captured = (p.kind in (SEGMENT_FUSED, SEGMENT_POOL)
+                    or (p.kind == SEGMENT_EXCLUSIVE
+                        and p.modes[nid] == MODE_EXCLUSIVE
+                        and units[nid] in ("conv", "linear")))
+        assert (p.fn is not None) == captured, p.span
+    return programs
+
+
 def test_cpu_segments_run_eagerly(forced_exe):
-    programs = forced_exe.segment_programs()
-    assert all(p.graph is None and not p.launches for p in programs)
-    assert all((p.fn is None) == (p.kind != SEGMENT_FUSED)
-               for p in programs)
+    programs = assert_capture_rule(forced_exe)
+    assert {p.kind for p in programs if p.fn is not None} == \
+        {SEGMENT_FUSED, SEGMENT_POOL, SEGMENT_EXCLUSIVE}
 
 
 # ----------------------------------------------- report codec, entry points
