@@ -8,7 +8,8 @@ command fails, it never carries on on the CPU).  `--device` stays the
 simulated phone a portfolio is compiled for.
 
 Fixed-batch mode (a dense transformer, the Zamba2 hybrid
-`--arch zamba2_7b`, RWKV6 `--arch rwkv6_1b6`, or Whisper
+`--arch zamba2_7b`, Zamba2-7B-Instruct as published
+`--arch zamba2-7b-instruct`, RWKV6 `--arch rwkv6_1b6`, or Whisper
 `--arch whisper_large_v3`, each request with seeded frames):
 
     python -m repro_torch serve --arch codeqwen15_7b --requests 8 \
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import ARCH_IDS, build_model, get_config
+from repro_torch.models.registry import PUBLISHED_ALIASES, PUBLISHED_IDS
 from repro_torch.serving import Request, ServingEngine
 
 
@@ -127,7 +129,9 @@ def _serve_scheduler(args, cfg, model, params, device) -> int:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch serve")
-    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_IDS + PUBLISHED_IDS
+                    + sorted(PUBLISHED_ALIASES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12)

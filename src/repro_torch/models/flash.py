@@ -27,7 +27,7 @@ count).
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -47,9 +47,10 @@ def _tile_mask(q0: int, k0: int, bq: int, bk: int, window: int,
 
 
 def flash_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               window: int = 0, bq: int = 1024,
-               bk: int = 1024) -> torch.Tensor:
-    """Causal GQA attention. q: (B,T,H,hd); k/v: (B,S,KV,hd) -> (B,T,H,hd)."""
+               window: int = 0, bq: int = 1024, bk: int = 1024,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Causal GQA attention. q: (B,T,H,hd); k/v: (B,S,KV,hd) -> (B,T,H,hd).
+    Scores are scaled by `scale`, 1 / sqrt(hd) unless given."""
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -58,7 +59,8 @@ def flash_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if t % bq or s % bk:
         raise ValueError(f"flash_full: T={t} and S={s} must be multiples of "
                          f"the chunks bq={bq}, bk={bk}")
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, t, kv, g, hd)
     chunks = []
     for qi in range(t // bq):

@@ -74,20 +74,23 @@ def _causal_mask(q_len: int, k_len: int, q_offset: int = 0, window: int = 0,
 
 
 def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,T,H,hd) k/v: (B,S,Hkv,hd) grouped-query attention core.
 
     `mask` is (T, S) shared across the batch, or (B, T, S) when rows mask
     different key ranges.  The score product runs in q's dtype and is
     divided by sqrt(hd) in fp32 (the reference divides by a numpy scalar,
-    which promotes); masked scores are -1e30, not -inf, so a fully masked
-    row (a free scheduler slot) softmaxes to uniform weights, not NaN; the
-    fp32 softmax is cast back to q's dtype before the value product."""
+    which promotes), or multiplied by `scale` where one is given; masked
+    scores are -1e30, not -inf, so a fully masked row (a free scheduler
+    slot) softmaxes to uniform weights, not NaN; the fp32 softmax is cast
+    back to q's dtype before the value product."""
     b, t, h, hd = q.shape
     hkv = k.shape[2]
     group = h // hkv
     qg = q.reshape(b, t, hkv, group, hd)
-    scores = torch.einsum("bthgd,bshd->bhgts", qg, k).float() / math.sqrt(hd)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k).float()
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     m = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
     scores = torch.where(m, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)

@@ -13,18 +13,23 @@ reference's):
 
 Every family of the reference builds: the decoder-only transformers (GQA
 or MLA attention, dense or MoE feed-forward), the Zamba2 hybrid, RWKV6
-and the Whisper encoder-decoder.
+and the Whisper encoder-decoder.  Beside the reference's ids, a separate
+table names the published variants (`PUBLISHED_IDS`): models at their
+source's own layer equations, which the reference does not have, so
+`ARCH_IDS` stays the reference's list.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import List, Union
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.rwkv import RWKVModel
 from repro_torch.models.transformer import TransformerModel
 from repro_torch.models.zamba import ZambaModel
+from repro_torch.models.zamba2_published import (Zamba2Layout,
+                                                 Zamba2PublishedModel)
 
 ARCH_IDS: List[str] = [
     "deepseek_v2_lite",
@@ -54,13 +59,20 @@ ALIASES = {
 }
 
 
-def get_config(arch: str) -> ModelConfig:
-    arch = ALIASES.get(arch, arch)
+#: published variants, resolved like the ids above
+PUBLISHED_IDS: List[str] = ["zamba2_7b_instruct"]
+PUBLISHED_ALIASES = {"zamba2-7b-instruct": "zamba2_7b_instruct"}
+
+
+def get_config(arch: str) -> Union[ModelConfig, Zamba2Layout]:
+    arch = ALIASES.get(arch, PUBLISHED_ALIASES.get(arch, arch))
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: Union[ModelConfig, Zamba2Layout]):
+    if isinstance(cfg, Zamba2Layout):
+        return Zamba2PublishedModel(cfg)
     if cfg.is_encoder_decoder:
         return EncDecModel(cfg)
     if cfg.ssm_kind == "rwkv6":

@@ -15,6 +15,10 @@ hand-written kernels), keeping the per-node fidelity report on
 `engine.last_execution_report`.  With `measurement_store=` every
 `execute_plan` appends its records to the store, and `engine.drift`
 exposes how far the executed-vs-predicted log-ratio has moved.
+
+Each batch's prefill is a `repro_torch.prefill` span while the profiler
+runs, and its last-position logits stay on `engine.last_prefill_logits`
+(the model's tensor, not a copy) until the next batch.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coexec import resolve_device
+from repro_torch.runtime.spans import span
 
 if TYPE_CHECKING:
     from repro_torch.models.config import ModelConfig
@@ -111,6 +116,7 @@ class ServingEngine:
         self._plan_executor: Optional["PlanExecutor"] = None
         self.last_execution_report: Optional["ExecutionReport"] = None
         self.last_batch_decode_steps = 0       # decode calls of last batch
+        self.last_prefill_logits: Optional[torch.Tensor] = None
 
     @property
     def plan_executor(self) -> "PlanExecutor":
@@ -192,18 +198,18 @@ class ServingEngine:
             pad["start"] = torch.tensor([t - len(r.prompt) for r in batch],
                                         device=self.device)
         cache = self.model.init_cache(b, self.max_len, device=self.device)
+        extra = ()
         if self.cfg.is_encoder_decoder:
             # each request's frames, zeros where a request has none
-            frames = torch.from_numpy(np.stack([
+            extra = (torch.from_numpy(np.stack([
                 r.frames if r.frames is not None else
                 np.zeros((self.cfg.encoder_seq, self.cfg.d_model),
                          np.float32)
-                for r in batch])).to(self.device)
+                for r in batch])).to(self.device),)
+        with span("repro_torch.prefill"):
             logits, cache = self.model.prefill(self.params, toks, cache,
-                                               frames)
-        else:
-            logits, cache = self.model.prefill(self.params, toks, cache,
-                                               **pad)
+                                               *extra, **pad)
+        self.last_prefill_logits = logits
 
         max_new = max(r.max_new_tokens for r in batch)
         # per-request temperatures: a greedy request stays greedy even when
