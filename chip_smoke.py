@@ -35,7 +35,12 @@ the port cannot be imported, and otherwise runs, in order:
    outputs (their split reductions and the SSD chunk walk are
    deterministic); the SSD scan's decode and chunk kernels are both timed
    at T = 1 and T = `DECODE_T_MAX`, beside the time `time_ms` gives an
-   empty kernel (the floor of any launch);
+   empty kernel (the floor of any launch); `prefill_attention` in bf16
+   only (its one dtype) at `PREFILL_ATTN_CASES`, zamba2-7b's shared-block
+   attention at 4 x 1024, 2048 and 4096 tokens first, each output row
+   within `PREFILL_ATTN_RTOL` of its plain version's relative to that
+   row's rms, no further from fp32 attention than the plain version is
+   (`PREFILL_ATTN_ROOM`), and called twice bit for bit;
 4. the compile phase, on the host: each main path compiled by
    `repro_torch.compile` (no JAX) for its committed artifact's `Target`,
    into a fresh plan cache and predictor cache, its document held equal
@@ -183,7 +188,13 @@ the port cannot be imported, and otherwise runs, in order:
    run them); the 512-token prompt takes the chunked WKV and `forward`
    over 516 tokens the step recurrence, so that check holds one against
    the other at full width; the profiled prefill sums the chunked WKV's
-   eager ops apart (`wkv_range`);
+   eager ops apart (`wkv_range`); then zamba2-7b-instruct as published
+   (`published_phase`: bf16, full width and depth, 14.7 GB drawn on the
+   card), one prefill of `PUBLISHED_PREFILL` tokens from an empty cache,
+   which must launch `prefill_attention` once per hybrid layer (13) and
+   `ssd_chunk_scan` once per group and layer (162) and no other kernel;
+   its attention calls captured and held as in the kernel phase, timed
+   for the result line;
 13. the MLA and MoE model phases: deepseek-v2-lite-16b at its published
    widths and full depth (`deepseek_phase`: 27 layers of MLA attention,
    a dense first layer then 64 routed experts top-6 and 2 shared; 15.7 B
@@ -337,7 +348,10 @@ BF16_RTOL = 5e-2
 
 #: every kernel of the port, by its launch counter's name
 KERNEL_NAMES = ("split_matmul", "hadamard_matmul", "decode_attention",
-                "ssd_chunk_scan")
+                "ssd_chunk_scan", "prefill_attention")
+#: the kernels a compiled plan's walk launches; `prefill_attention` is on
+#: no plan, the published zamba2-7b's prefill (`published_phase`) runs it
+PLAN_KERNELS = KERNEL_NAMES[:4]
 
 #: (label, M, K, N, c0, width, launches per request by main path).  A
 #: co-executed linear launches once per group on its (K, c_pad) panel of
@@ -420,6 +434,28 @@ SSD_CASES = [
     ("rwkv6 b*.ssm decode", 1, 1, 64, 64, 16, {}),
     ("rwkv6 b*.ssm T=512", 1, 512, 64, 64, 16, {}),
 ]
+
+#: (label, B, T, H, KV, hd, scale): the published zamba2-7b's shared-block
+#: attention at the prefill cell's three prompt lengths (heads of 224
+#: scaled by 112^-1/2), then ragged, GQA and narrower heads
+PREFILL_ATTN_CASES = [
+    ("zamba2-7b 4x1024", 4, 1024, 32, 32, 224, 112 ** -0.5),
+    ("zamba2-7b 4x2048", 4, 2048, 32, 32, 224, 112 ** -0.5),
+    ("zamba2-7b 4x4096", 4, 4096, 32, 32, 224, 112 ** -0.5),
+    ("ragged T=1000", 4, 1000, 32, 32, 224, 112 ** -0.5),
+    ("GQA g=4 hd=128", 2, 2048, 32, 8, 128, None),
+]
+#: its kernel against the plain version, output row by output row (one
+#: query and head), relative to that row's rms (`row_err`): the first
+#: query rows copy one value row and deep ones average hundreds, many
+#: times smaller.  The two round the probabilities to bf16 at different
+#: points (the plain version its scores and the normalised probabilities,
+#: the kernel the unnormalised ones), about one bf16 step (2^-8) of a row
+#: apart; a dropped 64-key tile moves a row by a quarter of it or more
+PREFILL_ATTN_RTOL = 2 ** -5
+#: and its row error against fp32 attention no more than the plain
+#: version's plus this (a quarter of a bf16 step)
+PREFILL_ATTN_ROOM = 2 ** -10
 
 #: the SSD chunk kernels' comparison shapes at zamba2-7b's widths (H = 112,
 #: hd = N = 64), (B, T): the model phase's fp32 and bf16 prefills and a
@@ -662,6 +698,72 @@ def hold_decode_attention(label: str, args: tuple, peaks: dict):
     return err, times
 
 
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over the rows of the last dimension of rms(got - want) /
+    rms(want): each row's size sets its own scale."""
+    diff = (got.float() - want.float()).pow(2).mean(-1)
+    return float((diff / want.float().pow(2).mean(-1)).sqrt().max())
+
+
+def hold_prefill_attention(label: str, args: tuple, peaks: dict):
+    """As the other holds, but the kernel is held row by row
+    (`row_err`): within `PREFILL_ATTN_RTOL` of its plain version, and no
+    further from fp32 attention of the same bf16 operands than the plain
+    version is, with `PREFILL_ATTN_ROOM`.  Returns the max abs error."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.prefill_attention import (
+        head_width, prefill_attention, prefill_attention_ref)
+    q, k, v, scale = args
+    (b, t, h, hd), kv, dtype = q.shape, k.shape[2], q.dtype
+    got = prefill_attention(q, k, v, scale=scale)
+
+    def by_row(*xs):    # one sequence at a time: (H, T, T) scores each
+        return torch.cat([prefill_attention_ref(
+            *(x[i:i + 1] for x in xs), scale=scale) for i in range(b)])
+
+    want = by_row(q, k, v)
+    exact = by_row(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"prefill_attention {label}: got "
+                             f"{tuple(got.shape)} {got.dtype}, want "
+                             f"{tuple(want.shape)} {want.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    rows = row_err(got, want)
+    ours, theirs = row_err(got, exact), row_err(want, exact)
+    rms = want.float().pow(2).mean(-1).sqrt()
+    print(f"prefill_attention {label}: row error vs plain {rows:.3e} "
+          f"(limit {PREFILL_ATTN_RTOL:g}); vs fp32 {ours:.3e}, the plain "
+          f"version's {theirs:.3e} (room {PREFILL_ATTN_ROOM:g}); plain row "
+          f"rms min {float(rms.min()):.3e} median "
+          f"{float(rms.median()):.3e} max {float(rms.max()):.3e}; max abs "
+          f"error {err:.3e}", flush=True)
+    if not (np.isfinite(rows) and rows <= PREFILL_ATTN_RTOL
+            and ours <= theirs + PREFILL_ATTN_ROOM):
+        raise AssertionError(f"prefill_attention {label}: row error "
+                             f"{rows:.3e} vs plain (limit "
+                             f"{PREFILL_ATTN_RTOL:g}), {ours:.3e} vs fp32 "
+                             f"against the plain version's {theirs:.3e}")
+    if not torch.equal(got, prefill_attention(q, k, v, scale=scale)):
+        raise AssertionError(f"prefill_attention {label}: two calls on the "
+                             f"same inputs differ")
+    del want, exact, rms
+    # the library call, a yardstick only: (B, heads, T, hd) views
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    times = _times(
+        lambda: prefill_attention(q, k, v, scale=scale),
+        lambda: prefill_attention_ref(q, k, v, scale=scale),
+        lambda: sdpa(q4, k4, v4, is_causal=True, scale=scale,
+                     enable_gqa=h != kv),
+        nbytes(q, k, v, got), 2.0 * b * h * hd * t * (t + 1), dtype, peaks)
+    _report("prefill_attention", label, dtype, err, times,
+            f"B={b} T={t} H={h} KV={kv} hd={hd} [{-(-t // 128) * b * h} "
+            f"blocks of 128 queries, width {head_width(hd)}, bound by "
+            f"{'operations' if times['t_ops'] >= times['t_bytes'] else 'bytes'}]")
+    return err, times
+
+
 def ssd_plan_text(plan) -> str:
     """One SSD launch plan, as the kernel phases print it."""
     from repro_torch.kernels.ssd_chunk.ssd_chunk import CHUNKED
@@ -755,6 +857,21 @@ def decode_attention_phase(peaks: dict) -> Tally:
             err, times = hold_decode_attention(label, (q, k, v, pos, window),
                                                peaks)
             tally.add(dtype, err, per_path, times)
+    return tally
+
+
+def prefill_attention_phase(peaks: dict) -> Tally:
+    """bf16 only (the kernel's one dtype); no case's times enter the
+    totals: the published prefill walk's calls do (`published_phase`)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tally = Tally()
+    for label, b, t, h, kv, hd, scale in PREFILL_ATTN_CASES:
+        q, k, v = (torch.randn((b, t, n, hd), generator=gen, device="cuda")
+                   .bfloat16() for n in (h, kv, kv))
+        err, _ = hold_prefill_attention(label, (q, k, v, scale), peaks)
+        tally.note(torch.bfloat16, err)
+        del q, k, v
+        torch.cuda.empty_cache()
     return tally
 
 
@@ -885,8 +1002,10 @@ def hold_walk_calls(label: str, calls: dict, want: dict, peaks: dict,
 
 
 def kernel_counters() -> dict:
+    """The plan walks' kernel wrappers and the prefill attention's."""
+    from repro_torch.kernels.prefill_attention import prefill_attention
     from repro_torch.runtime.segments import launch_counters
-    return launch_counters()
+    return {**launch_counters(), "prefill_attention": prefill_attention}
 
 
 def zero_counts() -> None:
@@ -1787,6 +1906,79 @@ def model_phase(arch: str, peaks: dict, tallies: dict, smi: str) -> dict:
     del model, params, engine
     torch.cuda.empty_cache()
     return walks
+
+
+def published_phase(peaks: dict, tallies: dict, smi: str) -> dict:
+    """zamba2-7b-instruct as published (`Zamba2PublishedModel`, bf16, full
+    width and depth, seeded weights drawn on the card): one prefill of
+    `PUBLISHED_PREFILL` tokens from an empty cache, the counters set to 0
+    just before and read just after; it must launch `prefill_attention`
+    once per hybrid layer and `ssd_chunk_scan` as often as
+    `last_prefill_counts` says, and no other kernel.  Then every
+    `prefill_attention` call of one more prefill captured
+    (`capture_calls`), the model freed, and the first call of each
+    signature held and timed (`hold_prefill_attention`), its times added
+    to the tally under the walk with its calls per prefill.  Returns the
+    walk."""
+    from repro_torch.models import build_model, get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(PUBLISHED_ARCH)
+    b, t_len = PUBLISHED_PREFILL
+    model = build_model(cfg)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"model {cfg.name}: {cfg.num_hidden_layers} Mamba2 layers, "
+          f"{len(cfg.hybrid_layer_ids)} hybrid ({cfg.num_attention_heads} "
+          f"heads x {cfg.attention_head_dim}); bf16 weights drawn on the "
+          f"card in {time.perf_counter() - t:.1f} s", flush=True)
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (b, t_len))).cuda()
+
+    def prefill():
+        with torch.no_grad():
+            return model.prefill(params, toks,
+                                 model.init_cache(b, t_len, "cuda"))[0]
+
+    prefill()                                            # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    logits = prefill()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    made = model.last_prefill_counts
+    want = dict.fromkeys(counts, 0)
+    want.update(prefill_attention=len(cfg.hybrid_layer_ids),
+                ssd_chunk_scan=made["ssd_calls"])
+    if counts != want or made["prefill_attention"] != want[
+            "prefill_attention"] or not bool(
+                torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{PUBLISHED_WALK}: launches {counts}, "
+                             f"last_prefill_counts {made}, want {want} "
+                             f"and finite logits")
+    calls = capture_calls(prefill)["prefill_attention"]
+    del model, params, logits
+    torch.cuda.empty_cache()
+    tally = tallies["prefill_attention"]
+    for i, (n, args) in enumerate(calls.values()):
+        err, times = hold_prefill_attention(f"{PUBLISHED_WALK} #{i} x{n}",
+                                            args, peaks)
+        tally.note(torch.bfloat16, err)
+        agg = tally.by_path.setdefault(PUBLISHED_WALK,
+                                       dict.fromkeys(_TIMES, 0.0))
+        for key in _TIMES:
+            agg[key] += times[key] * n
+    print(f"{PUBLISHED_WALK}: bf16 prefill in {wall:.3f} s, "
+          f"{counts['prefill_attention']} prefill_attention and "
+          f"{counts['ssd_chunk_scan']} ssd_chunk_scan launches; its "
+          f"attention calls held; {smi}", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return {PUBLISHED_WALK: (PUBLISHED_WALK, counts)}
 
 
 # ------------------------------------------------------- MLA and MoE models
@@ -3857,7 +4049,8 @@ TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tc_gemm<float"),
                "hadamard_matmul": ("hadamard_gemm<float",),
                "decode_attention": ("attn_runs<float",),
                "ssd_chunk_scan": ("ssd_decode<float",
-                                  "ssd_chunk_state<float")}
+                                  "ssd_chunk_state<float"),
+               "prefill_attention": ("prefill_attention_fwd<",)}
 #: CUDA runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
                      "cudaMemset", "cudaGraphLaunch")
@@ -4056,9 +4249,17 @@ MODEL_SERVE_REQUESTS = 8
 MODEL_SERVE_BATCH = 4
 MODEL_SERVE_PROMPT = 512
 MODEL_SERVE_NEW = 32
-#: the model walks whose float32 SSD times the kernels line adds to the
-#: main paths': one prefill and one decode step
-MODEL_TIMED = (f"{ZAMBA} model prefill", f"{ZAMBA} model decode")
+#: zamba2-7b-instruct as published (`published_phase`): its prefill's
+#: batch and prompt length, the benchmark cell's longest call
+PUBLISHED_ARCH = "zamba2-7b-instruct"
+PUBLISHED_PREFILL = (4, 4096)
+PUBLISHED_WALK = (f"{PUBLISHED_ARCH} prefill {PUBLISHED_PREFILL[0]}x"
+                  f"{PUBLISHED_PREFILL[1]}")
+#: the model walks whose times the kernels line adds to the main paths':
+#: one zamba2-7b prefill and decode step (float32 SSD calls), and the
+#: published prefill (bf16 attention calls)
+MODEL_TIMED = (f"{ZAMBA} model prefill", f"{ZAMBA} model decode",
+               PUBLISHED_WALK)
 
 #: the deepseek-v2-lite-16b phase (full width and depth): its fp32
 #: prefill-vs-forward batch and prompt; one MLA layer's (prefill T, cache
@@ -4119,6 +4320,8 @@ SOURCES = {
         "src/repro/kernels/decode_attention/decode_attention.py:72"),
     "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_chunk.cu",
                        "src/repro/kernels/ssd_chunk/ssd_chunk.py:67"),
+    "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
+                          "none (stands in for src/repro/models/flash.py)"),
 }
 
 
@@ -4376,7 +4579,8 @@ def main() -> int:
     for name, phase in (("split_matmul", split_matmul_phase),
                         ("hadamard_matmul", hadamard_phase),
                         ("decode_attention", decode_attention_phase),
-                        ("ssd_chunk_scan", ssd_phase)):
+                        ("ssd_chunk_scan", ssd_phase),
+                        ("prefill_attention", prefill_attention_phase)):
         results[name] = phase(peaks)
         phases.done(f"kernel {name}")
     if "--kernels-only" in sys.argv[1:]:
@@ -4419,7 +4623,7 @@ def main() -> int:
             ds_compiled = compiled       # its executor serves the engine
         del compiled, exe, refs
         torch.cuda.empty_cache()
-    for k in KERNEL_NAMES:
+    for k in PLAN_KERNELS:
         for suffix in ("", " fused"):
             if sum(walks[f"{p[0]}{suffix}"][1][k] for p in PATHS) == 0:
                 raise AssertionError(f"{k} was not launched on a main "
@@ -4438,6 +4642,8 @@ def main() -> int:
     for arch in MODEL_ARCHS:
         walks.update(model_phase(arch, peaks, results, smi))
         phases.done(f"{arch} model")
+    walks.update(published_phase(peaks, results, smi))
+    phases.done(f"{PUBLISHED_ARCH} model")
     walks.update(deepseek_phase(smi, ds_compiled))
     del ds_compiled
     phases.done(f"{DS_ARCH} model")
@@ -4489,6 +4695,8 @@ def main() -> int:
                 f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
                 f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
                 f"deepseek-v2-lite-16b engine's execute_plan, the "
+                f"zamba2-7b-instruct prefill of {PUBLISHED_PREFILL[0]} x "
+                f"{PUBLISHED_PREFILL[1]} tokens, the "
                 f"reduced zamba2-7b train step (its forward's launches, "
                 f"each with a gradient), the {ZAMBA_TRAIN_STEPS} zamba2-7b "
                 f"train steps at published widths on the mesh path; "
@@ -4496,7 +4704,8 @@ def main() -> int:
                 f"plans and deepseek-v2-lite-16b's: the calls of one "
                 f"request, each held) and one "
                 f"prefill and one decode step of the zamba2-7b model, "
-                f"float32 (by_path: "
+                f"float32, and the zamba2-7b-instruct prefill's "
+                f"prefill_attention calls, bf16 (by_path: "
                 f"one request, prefill or decode step of each walk)"),
         "by_path": by_path(name, t)}
         for name, t in results.items()]}

@@ -4,6 +4,7 @@
   winograd_conv/     F(2x2,3x3) convolution around the hadamard_matmul kernel
   decode_attention/  single-token GQA attention over a KV cache
   ssd_chunk/         chunked Mamba2 SSD scan
+  prefill_attention/ causal prefill attention in bf16 (no registry op)
 
 Each package has <name>.py (the kernel's wrapper and its plain PyTorch
 version), ops.py (public wrapper + registry lowering) and ref.py (the

@@ -28,7 +28,14 @@ the conv, the scan and the gated norm run in fp32.  The SSD core is the
 hand-written `ssd_chunk_scan`, which takes one B and C for all the heads
 of a call, so each layer makes one call per group over that group's
 contiguous heads: two calls a layer at G = 2.  A grouped kernel is later
-work.
+work.  A prefill's shared-block attention is the hand-written
+`prefill_attention` (bf16 products, fp32 softmax state), at every prompt
+length; a decode step attends through `attention_scores`.  That kernel
+takes bf16 only, so a float32 layout runs on the CPU alone (`init` and
+`init_cache` refuse it on CUDA).  On the CPU the attention is the
+kernel's plain version, which holds a sequence's whole (H, T, T) fp32
+scores at once (2 GB at 32 heads and 4096 tokens): the CPU runs the
+reduced shapes of the tests, not full-size prompts.
 
 The model API is `ServingEngine`'s: `init(generator)`,
 `init_cache(batch, max_len, device)`, `prefill(params, tokens, cache)`,
@@ -37,8 +44,9 @@ position's logits from a zero state).  While the profiler runs, each
 shared-block application (its linear included) is a
 `repro_torch.zamba2.shared` span, each Mamba layer a
 `repro_torch.zamba2.mamba` span and each scan call a `repro_torch.ssd`
-span; `last_prefill_counts` holds the last prefill's `ssd_calls` and
-`shared_applications`.
+span; `last_prefill_counts` holds the last prefill's `ssd_calls`,
+`shared_applications` and `prefill_attention`, the attention kernel's
+launches (one a hybrid layer on a card, none on the CPU).
 """
 from __future__ import annotations
 
@@ -50,10 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.coexec import resolve_device
+from repro_torch.kernels.prefill_attention import prefill_attention
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
-from repro_torch.models.flash import flash_full
-from repro_torch.models.layers import (FLASH_THRESHOLD, _causal_mask,
-                                       _normal, apply_rope,
+from repro_torch.models.layers import (_causal_mask, _normal, apply_rope,
                                        attention_scores, rms_norm)
 from repro_torch.models.transformer import DTYPES
 from repro_torch.runtime.spans import span
@@ -62,8 +69,6 @@ Params = Dict[str, Any]
 
 #: the gated RMSNorm's epsilon (`Zamba2RMSNormGated(..., eps=1e-5)`)
 GATED_NORM_EPS = 1e-5
-#: the query chunk `flash_full` walks
-_FLASH_CHUNK = 1024
 
 #: the published keys this module implements at one value only
 FIXED_KEYS = {"add_bias_linear": False, "hidden_act": "gelu",
@@ -248,8 +253,20 @@ def _dt_bias(generator: torch.Generator, cfg: Zamba2Layout) -> torch.Tensor:
     return dt + torch.log(-torch.expm1(-dt))
 
 
+def _refuse_on_cuda(device, dtype: torch.dtype) -> None:
+    """Raise where `device` is CUDA and `dtype` not bf16: a prefill
+    attends through the `prefill_attention` kernel, which takes bf16
+    only.  float32 runs on the CPU, through the kernel's plain version."""
+    if torch.device("cuda" if device is None else device).type == "cuda" \
+            and dtype != torch.bfloat16:
+        raise ValueError(f"the published Zamba2 runs bfloat16 only on "
+                         f"CUDA (its prefill attention kernel's one "
+                         f"dtype), not {dtype}; run {dtype} on the CPU")
+
+
 class Zamba2PublishedModel:
-    """The published Zamba2 on the device the caller chose."""
+    """The published Zamba2 on the device the caller chose: bf16 on
+    CUDA, bf16 or float32 on the CPU."""
 
     pad_aware = False
 
@@ -264,11 +281,13 @@ class Zamba2PublishedModel:
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator) -> Params:
-        """Seeded weights on the generator's device: A_log = log(1..H),
+        """Seeded weights on the generator's device (a CUDA one takes
+        bf16 only, `_refuse_on_cuda`): A_log = log(1..H),
         D = 1 and dt_bias as the published `_init_weights` sets them
         (fp32); norms 1; every other weight and the conv bias N(0,
         1/fan_in), the embedding at the tied lm_head's fan-in d."""
         cfg, dt, dev = self.cfg, self.dtype, generator.device
+        _refuse_on_cuda(dev, dt)
         d, f, r = cfg.hidden_size, cfg.intermediate_size, cfg.adapter_rank
         wide = cfg.attention_hidden_size
         k = cfg.mamba_d_conv
@@ -313,11 +332,13 @@ class Zamba2PublishedModel:
 
     def init_cache(self, batch: int, max_len: int,
                    device: Union[str, torch.device, None] = None):
-        """Zeroed caches on `device` (CUDA unless given): a (k, v) pair of
+        """Zeroed caches on `device` (CUDA unless given; there bf16
+        only, as `init`): a (k, v) pair of
         (batch, max_len, heads, head_dim) per hybrid layer, and per layer
         an fp32 SSM state (batch, H, P, N) and a conv carry (batch, K - 1,
         conv_dim) in the model dtype."""
         cfg = self.cfg
+        _refuse_on_cuda(device, self.dtype)
         device = resolve_device(device)
         kv = (batch, max_len, cfg.num_attention_heads,
               cfg.attention_head_dim)
@@ -389,10 +410,12 @@ class Zamba2PublishedModel:
     # -------------------------------------------------------- shared block
     def _attend(self, q, k, v, pos: int) -> torch.Tensor:
         """Causal attention of the T queries at positions [pos, pos + T)
-        over the keys [0, pos + T)."""
+        over the keys [0, pos + T): a prefill from an empty cache through
+        the `prefill_attention` kernel (its plain version on the CPU), a
+        decode step through `attention_scores`."""
+        if pos == 0:
+            return prefill_attention(q, k, v, scale=self.scale)
         t, s = q.shape[1], k.shape[1]
-        if pos == 0 and t >= FLASH_THRESHOLD and t % _FLASH_CHUNK == 0:
-            return flash_full(q, k, v, scale=self.scale)
         mask = _causal_mask(t, s, q_offset=pos, device=q.device)
         return attention_scores(q, k, v, mask, scale=self.scale)
 
@@ -461,8 +484,11 @@ class Zamba2PublishedModel:
         """tokens (B, T) from an empty cache: writes KV positions [0, T)
         of every hybrid layer and every layer's state and conv carry, in
         place.  Returns (last-position logits (B, V), cache)."""
+        launched = prefill_attention.launches
         h = self._run(params, tokens, cache, 0)
-        self.last_prefill_counts = dict(self._tally)
+        self.last_prefill_counts = dict(
+            self._tally,
+            prefill_attention=prefill_attention.launches - launched)
         return self._logits(params, h[:, -1]), cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache,

@@ -107,8 +107,8 @@ def test_chip_smoke_derives_the_counts(net):
     plan = repro_torch.CompiledNetwork.load(path).plan
     assert mod.expected_counts(plan) == {
         "split_matmul": n_split, "hadamard_matmul": n_hadamard,
-        "decode_attention": 0, "ssd_chunk_scan": 0, "reshard": reshard,
-        "elided": elided}
+        "decode_attention": 0, "ssd_chunk_scan": 0, "prefill_attention": 0,
+        "reshard": reshard, "elided": elided}
 
 
 @pytest.mark.parametrize("net", sorted(NETWORKS))
