@@ -1262,7 +1262,7 @@ def fused_path(name: str, exe, want: dict, refs: list,
     torch.cuda.synchronize()
     captured = sum(p.graph is not None for p in programs)
     n_fused = sum(s.kind == SEGMENT_FUSED for s in partition)
-    n_fn = sum(p.fn is not None for p in programs)
+    n_fn = sum(p.captured for p in programs)
     print(f"{name} fused: {len(programs)} segments, {n_fused} fused; "
           f"captured {captured} CUDA graphs in "
           f"{time.perf_counter() - t:.2f} s", flush=True)

@@ -16,7 +16,7 @@ It maps an op kind to
   * its **typed partition axes** (attention: head / kv-block; ssm:
     ssm-state) and kernel **modes**, the split validation plans are
     decoded through, and the **split lowerings** that co-execute a node
-    along such an axis,
+    along such an axis or, for linear and conv, along its output channels,
   * its **base feature extractor**, what the latency predictors featurize
     (`core/predictor/features.py` routes through here).
 
@@ -770,7 +770,8 @@ def get_lowering(kind: str) -> KernelLowering:
 
 @dataclasses.dataclass(frozen=True)
 class SplitLowering:
-    """How a (kind, axis) pair co-executes across the two groups.
+    """How a (kind, axis) pair co-executes across the two groups: a typed
+    axis, or the "channel" axis of the splittable kinds (linear, conv).
 
     ``pack(w, op, n_fast, groups)`` -> (split_plan, packed): the per-side
     parameters, built once at load.  Stackable axes return a channel
@@ -791,10 +792,18 @@ class SplitLowering:
 _SPLIT_LOWERINGS: Dict[Tuple[str, str], SplitLowering] = {}
 
 
+def _check_split_pair(kind: str, axis: str) -> None:
+    """Raise unless `kind` splits along `axis`: its typed axis, or the
+    channel axis of a splittable kind (the planner offers that one through
+    `is_splittable`, never through `axes_for`)."""
+    if axis != "channel" or not get(kind).splittable:
+        axis_spec(kind, axis)
+
+
 def register_split_lowering(kind: str, axis: str, *, pack: Callable,
                             run: Callable) -> SplitLowering:
     """Called by kernels/*/ops.py at import time, next to its lowering."""
-    axis_spec(kind, axis)                      # raise on unknown (kind, axis)
+    _check_split_pair(kind, axis)
     low = SplitLowering(pack=pack, run=run)
     _SPLIT_LOWERINGS[(kind, axis)] = low
     return low
@@ -803,7 +812,7 @@ def register_split_lowering(kind: str, axis: str, *, pack: Callable,
 def get_split_lowering(kind: str, axis: str) -> SplitLowering:
     """Resolve a (kind, axis) split lowering, importing on demand."""
     if (kind, axis) not in _SPLIT_LOWERINGS:
-        axis_spec(kind, axis)                  # raise on unknown (kind, axis)
+        _check_split_pair(kind, axis)
         importlib.import_module(_LOWERING_MODULES[kind])
         if (kind, axis) not in _SPLIT_LOWERINGS:   # pragma: no cover
             raise RuntimeError(

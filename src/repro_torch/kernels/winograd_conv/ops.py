@@ -8,10 +8,12 @@ The gate is decided on the node's declared `ConvOp`, never on the width of
 one group's weight slice, so a co-executed node keeps one algorithm on
 both sides of its split.
 
-This module registers the "conv" lowering in the port's kernel registry.
-The op's declared output shape uses floor division (`ConvOp.H_out`) while
-SAME convolution produces ceil(H/S) rows; the lowering crops to the
-declared shape so executed activations chain exactly like planned ones.
+This module registers the "conv" lowering in the port's kernel registry,
+and the ("conv", "channel") split lowering, which packs the weight's output
+channels per group and runs `core.coexec.coexec_conv2d`.  The op's
+declared output shape uses floor division (`ConvOp.H_out`) while SAME
+convolution produces ceil(H/S) rows; both lowerings crop to the declared
+shape so executed activations chain exactly like planned ones.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core.types import ConvOp
 from repro_torch.kernels import registry
+from repro_torch.kernels.split_matmul.ops import pack_channel_split
 from repro_torch.kernels.winograd_conv.ref import conv2d_ref
 from repro_torch.kernels.winograd_conv.winograd_conv import winograd_conv2d
 
@@ -61,3 +64,15 @@ def _conv_oracle(x, w, op):
 
 
 registry.register_lowering("conv", kernel=_conv_kernel, oracle=_conv_oracle)
+
+
+def _run_channel_split(x, packed, split, groups, op, n_fast, *, gather=True,
+                       x_plan=None, launch=None):
+    # `core.coexec` imports this module: import it at call time
+    from repro_torch.core.coexec import coexec_conv2d
+    return coexec_conv2d(x, packed, split, groups, op=op, gather=gather,
+                         x_plan=x_plan, launch=launch)
+
+
+registry.register_split_lowering("conv", "channel", pack=pack_channel_split,
+                                 run=_run_channel_split)

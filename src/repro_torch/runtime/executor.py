@@ -1,24 +1,24 @@
 """Plan execution runtime: run a compiled `CoexecPlan` on torch devices.
 
 `PlanExecutor` walks the plan's op graph in topological order and lowers
-every node to computation on the co-execution groups (`core/coexec.py`):
+every node to computation on the co-execution groups (`core/coexec.py`).
+An op node runs through ONE call, `_apply`, in both walks:
 
-  * **co-executed** conv/linear nodes run channel-split across the two
-    groups (`coexec_matmul` / `coexec_conv2d`), with the split taken
-    verbatim from the plan's decision (GPU share -> fast group);
-    attention and ssm nodes split along their typed axis (head, kv-block,
-    ssm-state) through the registry's split lowering, which packs its
-    per-side parameters once at load.  Head and ssm-state splits leave a
-    group-local result like a channel split; a kv-block split merges its
-    two sides itself and leaves a materialized tensor;
-  * gather-elision is a *graph property*: a split node's output stays
-    **group-local** iff its **sole consumer** is a compatible split node,
-    which rebuilds its input on its own streams.  An explicit reshard
-    (`gather_stacked`) happens only at true boundaries: pool/add nodes,
-    exclusive nodes, shape-adapting transitions, fan-out and the final
-    output — and a fanned-out split output is gathered exactly once;
-  * **exclusive** nodes (all channels on one side), and every node with a
-    single group, run unsplit through the kernel registry's kernel path;
+  * a **co-executed** node runs the split lowering the kernel registry
+    holds for its (unit, axis), resolved and packed once at load: conv
+    and linear along their output channels (the split taken verbatim from
+    the plan's decision, GPU share -> fast group), attention and ssm along
+    their typed axis (head, kv-block, ssm-state).  Channel, head and
+    ssm-state splits leave a group-local result; a kv-block split merges
+    its two sides itself and leaves a materialized tensor;
+  * an **exclusive** node (all channels on one side), and every node with
+    a single group, runs unsplit through its registered lowering's kernel;
+  * gather-elision is a *graph property* (`_elides`): a split node's
+    output stays **group-local** iff its **sole consumer** is a compatible
+    split node, which rebuilds its input on its own streams.  An explicit
+    reshard (`gather_stacked`) happens only at true boundaries: pool/add
+    nodes, exclusive nodes, shape-adapting transitions, fan-out and the
+    final output — and a fanned-out split output is gathered exactly once;
   * **pool** nodes lower to max or global-average pooling, **add** nodes
     sum their materialized producers.
 
@@ -37,18 +37,19 @@ parameter type: the fp32 draws, the inputs and `load_params` are cast to
 it, every kernel runs its instantiation for it (accumulating in fp32),
 and `run_oracle` computes in it too, as the reference's oracle does.
 
-Every node is timed into a `MeasurementRecord`: the walk synchronizes the
-device after each node (one sync point per node plus the terminal one, as
-the reference blocks per node), so `wall_us` is the node's device time
-plus its host overhead.
+Every node is timed into a `MeasurementRecord`, built by `_record` from
+constants computed once per executor: the walk synchronizes the device
+after each node (one sync point per node plus the terminal one, as the
+reference blocks per node), so `wall_us` is the node's device time plus
+its host overhead.
 
 `run(fused=True)` takes the segment walk instead (`runtime/segments.py`):
-one program per segment of the plan's partition, captured once as a CUDA
-graph on the card and replayed per request, with one sync per segment;
-typed-axis splits and exclusive attention and ssm nodes stay eager
-singletons.  Its outputs are bit-identical to the per-node walk's.
-Captured graphs hold the weights' addresses, so `load_params` drops them;
-the next fused run captures again.
+one program per segment of the plan's partition, each calling `_apply` for
+its members, with one sync per segment; `segments.captured` decides which
+programs the card captures once as a CUDA graph and replays per request.
+Its outputs are bit-identical to the per-node walk's.  Captured graphs
+hold the weights' addresses, so `load_params` drops them; the next fused
+run captures again.
 """
 from __future__ import annotations
 
@@ -63,10 +64,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.coexec import (Group, GroupLocal, SplitPlan,
-                                     coexec_conv2d, coexec_groups,
-                                     coexec_matmul, gather_stacked,
-                                     pack_weights, resolve_device,
-                                     split_for_groups)
+                                     coexec_groups, gather_stacked,
+                                     resolve_device)
 from repro_torch.core.networks import pool_out_edge
 from repro_torch.graph.ir import Graph
 from repro_torch.kernels import registry
@@ -242,9 +241,11 @@ class PlanExecutor:
                          else (launches or {}).get(spec.op)
                          for spec in self.specs]
         self.graph: Graph = plan.graph_ir()
-        for spec in self.specs:
-            if spec.op is not None:
-                registry.get_lowering(spec.unit)   # import its kernels now
+        self._pos = {n.id: i for i, n in enumerate(self.graph)}
+        # each op node's unsplit lowering (importing its kernels now)
+        self._lowerings = [None if spec.op is None
+                           else registry.get_lowering(spec.unit)
+                           for spec in self.specs]
         if groups is None:
             self.device = resolve_device(device)
             self.groups: Tuple[Group, ...] = coexec_groups(self.device)
@@ -252,6 +253,13 @@ class PlanExecutor:
             self.groups = tuple(groups)
             self.device = self.groups[0].device
         self.split_capable = len(self.groups) == 2
+        prov = plan.provenance
+        # what every measurement record of this executor carries
+        self._record_fields = dict(
+            device=prov.device, backend=str(self.device),
+            host=platform.node(), plan_key=plan.key,
+            network_fingerprint=prov.network_fingerprint)
+        self._labels = [spec_label(spec) for spec in self.specs]
         self.last_report: Optional[ExecutionReport] = None
         self._warmed: set = set()
         self._programs: Dict[Tuple[int, ...], list] = {}
@@ -292,22 +300,19 @@ class PlanExecutor:
         self._programs = {}
         self._warmed = {key for key in self._warmed if not key[1]}
         self.params = params
-        # pre-split the co-executed weights once: (split, packed) per spec.
-        # Channel splits pack the trailing weight dim; typed axes pack
-        # through their split lowering (per-side KV-head slices, cache
-        # blocks, per-head SSM operands), never inside the timed walk
-        self._splits: List[Optional[Tuple[SplitPlan, object]]] = []
+        # resolve each co-executed node's split lowering and pre-split its
+        # weights once, never inside the timed walk: (lowering, split,
+        # packed) per spec (per-group channel slices, KV-head slices, cache
+        # blocks, per-head SSM operands)
+        self._splits: List[Optional[Tuple[registry.SplitLowering,
+                                          SplitPlan, object]]] = []
         for spec, w in zip(self.specs, params):
             if not (self.split_capable and spec.coexec):
                 self._splits.append(None)
-            elif spec.axis == "channel":
-                split = split_for_groups(spec.op.C_out, spec.c_fast,
-                                         self.groups)
-                self._splits.append((split, pack_weights(w, split)))
-            else:
-                low = registry.get_split_lowering(spec.unit, spec.axis)
-                self._splits.append(low.pack(w, spec.op, spec.c_fast,
-                                             self.groups))
+                continue
+            low = registry.get_split_lowering(spec.unit, spec.axis)
+            self._splits.append((low, *low.pack(w, spec.op, spec.c_fast,
+                                                self.groups)))
 
     # ------------------------------------------------------------- inputs
     def input_template(self) -> torch.Tensor:
@@ -367,26 +372,52 @@ class PlanExecutor:
         y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=r, stride=r)
         return y.permute(0, 2, 3, 1).contiguous()
 
-    def _dense(self, x: torch.Tensor, w: torch.Tensor, spec: ExecSpec,
-               launch=None) -> torch.Tensor:
-        """Unsplit execution through the registry's kernel path."""
-        return registry.get_lowering(spec.unit).kernel(x, w, spec.op,
-                                                       launch=launch)
+    def _apply(self, i: int, x_in: _Act, x_plan: Optional[SplitPlan], *,
+               split: bool, gather: bool = False) -> _Act:
+        """Op node `i`'s one call, with its tuned launch: unsplit through its
+        registered lowering's kernel, or (`split`) through its registered
+        split lowering, gathered iff `gather`.  `x_plan` is given exactly
+        when `x_in` is a producer's group-local result."""
+        spec, launch = self.specs[i], self.launches[i]
+        if not split:
+            return self._lowerings[i].kernel(x_in, self.params[i], spec.op,
+                                             launch=launch)
+        low, plan, packed = self._splits[i]
+        return low.run(x_in, packed, plan, self.groups, spec.op, spec.c_fast,
+                       gather=gather, x_plan=x_plan, launch=launch)
 
-    def _chains(self, shape: Tuple[int, ...], spec: ExecSpec) -> bool:
-        """Whether this unit can consume a producer's group-local result of
-        logical `shape` directly: only when its declared input shape is
-        exactly that (any adaptation is a true boundary)."""
+    def _elides(self, i: int, src: str, shape: Tuple[int, ...]) -> bool:
+        """Gather-elision: op node `i` consumes its producer `src`'s
+        group-local result of logical `shape` directly iff it splits too,
+        it is that producer's sole consumer, and its declared input shape
+        is exactly `shape` (any adaptation is a true boundary)."""
+        spec = self.specs[i]
+        if not (self.split_capable and spec.coexec
+                and len(self.graph.consumers(src)) == 1):
+            return False
         op = spec.op
         if spec.unit == "conv":
             return shape == (1, op.H_in, op.W_in, op.C_in)
         return shape == tuple(registry.get(spec.unit).input_shape(op))
 
+    def _record(self, i: int, mode: str, chained: bool, gathered: bool,
+                wall_us: float, source: str, segment: int
+                ) -> MeasurementRecord:
+        """Node `i`'s measurement record (either walk's)."""
+        spec = self.specs[i]
+        return MeasurementRecord(
+            index=i, unit=spec.unit, label=self._labels[i], mode=mode,
+            c_fast=spec.c_fast, c_slow=spec.c_slow, chained_input=chained,
+            gathered_output=gathered, wall_us=wall_us,
+            pred_us=spec.pred_total_us, op=spec.op, source=source,
+            node_id=self.graph.nodes[i].id, segment=segment,
+            **self._record_fields)
+
     # ------------------------------------------------------------ segments
     def segment_programs(self, x_shape: Optional[Tuple[int, ...]] = None):
         """The `SegmentProgram` list for input shape `x_shape` (default:
-        the input template's), memoized per shape; on CUDA each fused
-        program is captured when the list is first built."""
+        the input template's), memoized per shape; on CUDA each program
+        the capture rule names is captured when the list is first built."""
         if x_shape is None:
             x_shape = tuple(self.input_template().shape)
         x_shape = tuple(x_shape)
@@ -438,8 +469,6 @@ class PlanExecutor:
                      for n in self.graph}
         timings: List[MeasurementRecord] = []
         reshard = elided = 0
-        host = platform.node()
-        prov = self.plan.provenance
 
         def materialized(src: Optional[str]) -> torch.Tensor:
             """The gathered activation of a producer.  A group-local output
@@ -456,7 +485,6 @@ class PlanExecutor:
             return act
 
         for i, (node, spec) in enumerate(zip(self.graph, self.specs)):
-            w = self.params[i]
             src = node.inputs[0] if node.inputs else None
             t0 = time.perf_counter()
             chained = False
@@ -475,58 +503,26 @@ class PlanExecutor:
                 for p in parts[1:]:
                     out = out + p
             else:
-                do_split = self.split_capable and spec.coexec
-                x_plan = None
+                split = self.split_capable and spec.coexec
                 prod_act = x0 if src is None else acts[src]
-                # gather-elision: consume the producer's group-local result
-                # iff we are its SOLE consumer, we split too, and the
-                # shapes chain exactly
-                if (isinstance(prod_act, GroupLocal) and chain and do_split
-                        and self._chains(prod_act.shape, spec)
-                        and len(self.graph.consumers(src)) == 1):
+                if (isinstance(prod_act, GroupLocal) and chain
+                        and self._elides(i, src, prod_act.shape)):
                     x_in, x_plan = prod_act, prod_act.split
                     chained = True
                     elided += 1
                 else:
-                    x_in = self._adapt(materialized(src), spec)
-                launch = self.launches[i]
-                if do_split:
-                    mode = MODE_COEXEC
-                    split, packed = self._splits[i]
-                    if spec.unit == "linear":
-                        out = coexec_matmul(x_in, packed, split, self.groups,
-                                            gather=False, x_plan=x_plan,
-                                            launch=launch)
-                    elif spec.unit == "conv":
-                        out = coexec_conv2d(x_in, packed, split, self.groups,
-                                            op=spec.op, gather=False,
-                                            x_plan=x_plan, launch=launch)
-                    else:       # typed axis: registered split lowering
-                        low = registry.get_split_lowering(spec.unit,
-                                                          spec.axis)
-                        out = low.run(x_in, packed, split, self.groups,
-                                      spec.op, spec.c_fast, gather=False,
-                                      x_plan=x_plan, launch=launch)
-                    if not chain:
-                        out, r = self._materialize(out)   # sync every op
-                        reshard += r
-                else:
-                    mode = MODE_EXCLUSIVE
-                    out = self._dense(x_in, w, spec, launch)
+                    x_in, x_plan = self._adapt(materialized(src), spec), None
+                out = self._apply(i, x_in, x_plan, split=split)
+                mode = MODE_COEXEC if split else MODE_EXCLUSIVE
+                if split and not chain:
+                    out, r = self._materialize(out)       # sync every op
+                    reshard += r
             acts[node.id] = out
             self._sync()
-            timings.append(MeasurementRecord(
-                index=i, unit=spec.unit, label=spec_label(spec), mode=mode,
-                c_fast=spec.c_fast, c_slow=spec.c_slow,
-                chained_input=chained,
-                gathered_output=not isinstance(out, GroupLocal),
-                wall_us=(time.perf_counter() - t0) * 1e6,
-                pred_us=spec.pred_total_us, op=spec.op,
-                source=SOURCE_EXECUTOR, device=prov.device,
-                backend=str(self.device), host=host,
-                plan_key=self.plan.key,
-                network_fingerprint=prov.network_fingerprint,
-                node_id=node.id, segment=spec.segment))
+            timings.append(self._record(
+                i, mode, chained, not isinstance(out, GroupLocal),
+                (time.perf_counter() - t0) * 1e6, SOURCE_EXECUTOR,
+                spec.segment))
             # free consumed producers (keep the graph output alive)
             for s in node.inputs:
                 remaining[s] -= 1
@@ -542,6 +538,7 @@ class PlanExecutor:
         if timings and r:
             timings[-1].gathered_output = True
             timings[-1].wall_us += (time.perf_counter() - t0) * 1e6
+        prov = self.plan.provenance
         report = ExecutionReport(
             device=prov.device,
             network_fingerprint=prov.network_fingerprint,
@@ -551,9 +548,8 @@ class PlanExecutor:
         return y, report
 
     def _execute_fused(self, x=None) -> Tuple[torch.Tensor, ExecutionReport]:
-        """The segment walk: one program (one graph replay on CUDA) and one
-        device sync per segment; typed-axis splits and exclusive singletons
-        of units that are not captured run eagerly.
+        """The segment walk: one program and one device sync per segment;
+        a captured program is one graph replay on CUDA.
 
         The members of a fused segment no longer sync one by one, so each
         member record carries the segment wall attributed pro rata by
@@ -573,19 +569,21 @@ class PlanExecutor:
     def _walk_segments(self, x) -> Tuple[torch.Tensor, ExecutionReport]:
         x0 = self.input_template() if x is None else self._tensor(x)
         programs = self.segment_programs(tuple(x0.shape))
-        pos = {n.id: i for i, n in enumerate(self.graph)}
+        pos = self._pos
         out_id = self.graph.output.id
         acts: Dict[Optional[str], torch.Tensor] = {None: x0}
         timings: List[MeasurementRecord] = []
         segment_wall: List[float] = []
         reshard = elided = 0
-        host = platform.node()
-        prov = self.plan.provenance
 
         for sp in programs:
             with span(sp.span):
                 t0 = time.perf_counter()
-                out = self._run_segment(sp, acts, pos, out_id)
+                out = sp([acts[s] for s in sp.ext_inputs])
+                if sp.graph is not None and sp.node_ids[-1] == out_id:
+                    # the graph's static output: the next request's replay
+                    # would overwrite what this one returns
+                    out = out.clone()
                 with span("repro_torch.sync"):
                     self._sync()
                 wall = (time.perf_counter() - t0) * 1e6
@@ -600,22 +598,13 @@ class PlanExecutor:
                              for n in sp.node_ids]
                     total = sum(preds)
                     for nid, pred in zip(sp.node_ids, preds):
-                        spec = self.specs[pos[nid]]
                         share = (wall * pred / total if total > 0.0
                                  else wall / len(preds))
-                        timings.append(MeasurementRecord(
-                            index=pos[nid], unit=spec.unit,
-                            label=spec_label(spec), mode=sp.modes[nid],
-                            c_fast=spec.c_fast, c_slow=spec.c_slow,
-                            chained_input=sp.chained[nid],
-                            gathered_output=sp.gathered[nid], wall_us=share,
-                            pred_us=spec.pred_total_us, op=spec.op,
-                            source=SOURCE_FUSED, device=prov.device,
-                            backend=str(self.device), host=host,
-                            plan_key=self.plan.key,
-                            network_fingerprint=prov.network_fingerprint,
-                            node_id=nid, segment=sp.index))
+                        timings.append(self._record(
+                            pos[nid], sp.modes[nid], sp.chained[nid],
+                            sp.gathered[nid], share, SOURCE_FUSED, sp.index))
 
+        prov = self.plan.provenance
         report = ExecutionReport(
             device=prov.device,
             network_fingerprint=prov.network_fingerprint,
@@ -623,31 +612,6 @@ class PlanExecutor:
             reshard_points=reshard, elided=elided, fused=True,
             sync_points=len(programs), segment_wall_us=segment_wall)
         return acts[out_id], report
-
-    def _run_segment(self, sp, acts, pos, out_id) -> torch.Tensor:
-        """Dispatch one segment of the walk: a program (one graph replay
-        on CUDA), or an eager typed-axis split or exclusive singleton of a
-        unit that is not captured.  No sync."""
-        if sp.fn is not None:
-            out = sp([acts[s] for s in sp.ext_inputs])
-            if sp.graph is not None and sp.node_ids[-1] == out_id:
-                # the graph's static output: the next request's replay
-                # would overwrite what this one returns
-                out = out.clone()
-            return out
-        nid = sp.node_ids[0]
-        spec = self.specs[pos[nid]]
-        src_val = acts[sp.ext_inputs[0]]
-        if sp.modes[nid] == MODE_COEXEC:
-            # a typed-axis split, gathered (or merged) by its own lowering
-            split, packed = self._splits[pos[nid]]
-            low = registry.get_split_lowering(spec.unit, spec.axis)
-            return low.run(self._adapt(src_val, spec), packed, split,
-                           self.groups, spec.op, spec.c_fast, gather=True,
-                           x_plan=None, launch=self.launches[pos[nid]])
-        return self._dense(self._adapt(src_val, spec),
-                           self.params[pos[nid]], spec,
-                           self.launches[pos[nid]])
 
     def run_oracle(self, x=None) -> torch.Tensor:
         """The unsplit reference: every node through its plain oracle, with

@@ -12,28 +12,29 @@ fused run into ONE program, the port's counterpart of the reference's one
     walk's own decisions (the chaining predicate, `_adapt`, the crops), and
     records one instruction per member node;
   * `_emit` closes the instruction list into `fn(ext_vals)`, which runs
-    the segment on the executor's groups through the same `coexec_matmul`,
-    `coexec_conv2d`, `gather_stacked` and `_dense` calls as the per-node
-    walk, with the same tuned launches, so both compute bit-identical
-    values (and a capture holds the tuned launches); a chained edge hands the
-    producer's `GroupLocal` to the consumer, an interior reshard gathers
-    it, and the segment ends in its one boundary gather;
-  * on CUDA, `fn` is captured once into a `torch.cuda.CUDAGraph` that reads
-    static input buffers (`_capture`); a replay copies the external inputs
-    into them and launches the whole segment, both streams and the
-    programmatic second passes included, as one graph.  What the captured
-    work allocates (activations, `split_matmul`'s workspaces) comes from
-    the graph's private memory pool and lives as long as the graph.  On
-    the CPU, `fn` runs eagerly: there is no second code path for the
-    arithmetic.
+    the segment on the executor's groups through the per-node walk's own
+    node call (`PlanExecutor._apply`) and `gather_stacked`, with the same
+    tuned launches, so both compute bit-identical values (and a capture
+    holds the tuned launches); a chained edge hands the producer's
+    `GroupLocal` to the consumer, an interior reshard gathers it, and the
+    segment ends in its one boundary gather.
 
-Pool singletons, and exclusive singletons of the units fused segments
-capture (`CAPTURED_UNITS`), get the same treatment: an `fn` that makes the
-per-node walk's one call (`_pool`, or `_adapt` then `_dense`), captured
-once on CUDA and replayed per request.  Typed-axis splits (which the
-partition keeps out of fused runs) and exclusive singletons of other
-units stay eager.  A captured graph holds the weights' addresses, so
-`PlanExecutor.load_params` drops every program.
+Every singleton gets an `fn` too, the per-node walk's one call: `_pool`,
+or `_adapt` then `_apply` (a typed-axis split, which the partition keeps
+out of fused runs, gathered or merged by its own lowering).
+
+One rule, `captured`, decides which programs run as a CUDA graph on the
+card: fused segments, pools and exclusive singletons of the units fused
+segments capture (`CAPTURED_UNITS`).  Each is captured once into a
+`torch.cuda.CUDAGraph` that reads static input buffers (`_capture`); a
+replay copies the external inputs into them and launches the whole
+segment, both streams and the programmatic second passes included, as one
+graph.  What the captured work allocates (activations, `split_matmul`'s
+workspaces) comes from the graph's private memory pool and lives as long
+as the graph.  Typed-axis splits and exclusive singletons of other units
+run their `fn` eagerly, as every program does on the CPU: there is no
+second code path for the arithmetic.  A captured graph holds the weights'
+addresses, so `PlanExecutor.load_params` drops every program.
 """
 from __future__ import annotations
 
@@ -43,9 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.coexec import (GroupLocal, coexec_conv2d,
-                                     coexec_matmul, gather_stacked)
-from repro_torch.graph.ir import SEGMENT_FUSED, SEGMENT_POOL
+from repro_torch.core.coexec import GroupLocal, gather_stacked
+from repro_torch.graph.ir import SEGMENT_EXCLUSIVE, SEGMENT_FUSED, SEGMENT_POOL
 from repro_torch.kernels import registry
 from repro_torch.measure.record import (MODE_ADD, MODE_COEXEC,
                                         MODE_EXCLUSIVE, MODE_POOL)
@@ -56,6 +56,16 @@ Shape = Tuple[int, ...]
 #: the units whose exclusive singletons are captured: those that fused
 #: segments already capture (cuDNN and Winograd convs, `split_matmul`)
 CAPTURED_UNITS = ("conv", "linear")
+
+
+def captured(kind: str, mode: str, unit: str) -> bool:
+    """The capture rule: whether a program of segment `kind` whose first
+    member runs in `mode` and is of `unit` runs as a CUDA graph on the
+    card.  Fused segments and pools do; an exclusive-segment singleton
+    does iff it runs unsplit and its unit is in `CAPTURED_UNITS`
+    (typed-axis splits and other units run eagerly)."""
+    return kind != SEGMENT_EXCLUSIVE or (mode == MODE_EXCLUSIVE
+                                         and unit in CAPTURED_UNITS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,10 +87,8 @@ def launch_counters() -> Dict[str, Any]:
 class SegmentProgram:
     """One executable segment of the fused walk.
 
-    Fused segments, pool singletons and exclusive `CAPTURED_UNITS`
-    singletons carry `fn(ext_vals)` and, on CUDA, its captured graph;
-    typed-axis splits and other exclusive singletons have `fn=None` and
-    run through the executor's eager per-node helpers.  `ext_inputs`
+    Every program carries `fn(ext_vals)`; where the capture rule
+    (`captured`) holds, it also holds `fn`'s graph on CUDA.  `ext_inputs`
     names the producers the segment reads, in order (`None` is the graph
     input); the per-node maps feed the member nodes' measurement records.
     `span` names the segment's profiler span in the walk
@@ -99,7 +107,8 @@ class SegmentProgram:
     gathered: Dict[str, bool]            # node id -> output materialized
     modes: Dict[str, str]                # node id -> measurement mode
     span: str                            # the walk's span of the segment
-    fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
+    fn: Callable[[List[torch.Tensor]], torch.Tensor]
+    captured: bool = False               # `captured`: a graph on CUDA
     graph: Optional[torch.cuda.CUDAGraph] = None
     static_inputs: Tuple[torch.Tensor, ...] = ()
     static_output: Optional[torch.Tensor] = None
@@ -155,121 +164,121 @@ def compile_segments(exe, x_shape: Shape) -> List[SegmentProgram]:
     per-node walk would, and records one instruction per fused member.
     Programs depend on the input shape (chaining is shape-exact), hence
     the per-shape memoization in `PlanExecutor.segment_programs`.  On a
-    CUDA executor every program with an `fn` is captured here, before any
+    CUDA executor every `captured` program is captured here, before any
     timed run."""
-    graph = exe.graph
-    pos = {n.id: i for i, n in enumerate(graph)}
     # the materialized shape of every published (cross-segment) value
     plain_shape: Dict[Optional[str], Shape] = {None: tuple(x_shape)}
     programs: List[SegmentProgram] = []
     for k, seg in enumerate(exe.plan.segment_partition()):
-        if seg.kind != SEGMENT_FUSED:
-            prog = _layout_singleton(exe, k, seg, pos, plain_shape)
-            if prog.fn is not None and exe.device.type == "cuda":
-                _capture(exe, prog, [plain_shape[prog.ext_inputs[0]]])
-            programs.append(prog)
-            continue
-
-        stacked: Dict[str, Shape] = {}      # group-local value -> its shape
-        local_shape: Dict[str, Shape] = {}
-        instrs: List[Dict[str, Any]] = []
-        ext: List[Optional[str]] = []
-        gathers = elided = 0
-        chained_f: Dict[str, bool] = {}
-        modes: Dict[str, str] = {}
-
-        def plain_in(src: Optional[str]) -> Shape:
-            """Shape of `src` consumed materialized (counts the interior
-            gather when it is a still group-local segment member)."""
-            nonlocal gathers
-            if src in stacked:
-                local_shape[src] = stacked.pop(src)
-                gathers += 1
-                return local_shape[src]
-            if src in local_shape:
-                return local_shape[src]
-            if src not in ext:
-                ext.append(src)
-            return plain_shape[src]
-
-        for nid in seg.node_ids:
-            node = graph.node(nid)
-            i = pos[nid]
-            spec = exe.specs[i]
-            if spec.unit == "add":
-                shapes = {plain_in(s) for s in node.inputs}
-                if len(shapes) != 1:
-                    raise ValueError(f"add node {nid!r} joins mismatched "
-                                     f"shapes {sorted(shapes)}")
-                local_shape[nid] = shapes.pop()
-                instrs.append({"id": nid, "kind": "add",
-                               "srcs": tuple(node.inputs)})
-                modes[nid] = MODE_ADD
-                chained_f[nid] = False
-                continue
-            src = node.inputs[0] if node.inputs else None
-            do_split = exe.split_capable and spec.coexec
-            if do_split and spec.axis != "channel":
-                raise AssertionError(        # the partition keeps them out
-                    f"typed-axis split {nid!r} inside fused segment {k}")
-            # the per-node walk's chaining predicate, over shapes
-            ch = (do_split and src in stacked
-                  and exe._chains(stacked[src], spec)
-                  and len(graph.consumers(src)) == 1)
-            if ch:
-                in_shape = stacked.pop(src)
-                elided += 1
-            else:
-                in_shape = _meta_shape(lambda v: exe._adapt(v, spec),
-                                       plain_in(src))
-            chained_f[nid] = ch
-            out_shape = _out_shape(spec, in_shape)
-            if do_split:
-                stacked[nid] = out_shape
-                modes[nid] = MODE_COEXEC
-            else:
-                local_shape[nid] = out_shape
-                modes[nid] = MODE_EXCLUSIVE
-            instrs.append({"id": nid, "kind": "op", "index": i, "src": src,
-                           "chained": ch, "split": do_split, "spec": spec})
-
-        last = seg.node_ids[-1]
-        if last in stacked:                   # the boundary gather
-            gathers += 1
-            local_shape[last] = stacked.pop(last)
-        if stacked:
-            raise AssertionError(             # convexity guarantees this
-                f"segment {seg.node_ids} leaks group-local values "
-                f"{sorted(stacked)}")
-        plain_shape[last] = local_shape[last]
-        gathered_f = {nid: True for nid in seg.node_ids}
-        for ins in instrs:
-            if ins.get("chained"):
-                gathered_f[ins["src"]] = False
-        prog = SegmentProgram(
-            index=k, kind=SEGMENT_FUSED, node_ids=seg.node_ids,
-            ext_inputs=tuple(ext), gathers=gathers, elided=elided,
-            chained=chained_f, gathered=gathered_f, modes=modes,
-            span=segment_span(k, SEGMENT_FUSED, seg.node_ids),
-            fn=_emit(exe, instrs, tuple(ext)))
-        if exe.device.type == "cuda":
-            _capture(exe, prog, [plain_shape[s] for s in ext])
+        layout = (_layout_fused if seg.kind == SEGMENT_FUSED
+                  else _layout_singleton)
+        prog = layout(exe, k, seg, plain_shape)
+        first = seg.node_ids[0]
+        prog.captured = captured(seg.kind, prog.modes[first],
+                                 exe.specs[exe._pos[first]].unit)
+        if prog.captured and exe.device.type == "cuda":
+            _capture(exe, prog, [plain_shape[s] for s in prog.ext_inputs])
         programs.append(prog)
     return programs
 
 
-def _layout_singleton(exe, index: int, seg, pos: Dict[str, int],
+def _layout_fused(exe, k: int, seg, plain_shape: Dict[Optional[str], Shape]
+                  ) -> SegmentProgram:
+    """A fused run: each member's instruction, with the per-node walk's
+    own decisions (`_elides`, `_adapt`, the crops) taken over shapes, and
+    the run's one `fn`."""
+    graph = exe.graph
+    stacked: Dict[str, Shape] = {}          # group-local value -> its shape
+    local_shape: Dict[str, Shape] = {}
+    instrs: List[Dict[str, Any]] = []
+    ext: List[Optional[str]] = []
+    gathers = elided = 0
+    chained_f: Dict[str, bool] = {}
+    modes: Dict[str, str] = {}
+
+    def plain_in(src: Optional[str]) -> Shape:
+        """Shape of `src` consumed materialized (counts the interior
+        gather when it is a still group-local segment member)."""
+        nonlocal gathers
+        if src in stacked:
+            local_shape[src] = stacked.pop(src)
+            gathers += 1
+            return local_shape[src]
+        if src in local_shape:
+            return local_shape[src]
+        if src not in ext:
+            ext.append(src)
+        return plain_shape[src]
+
+    for nid in seg.node_ids:
+        node = graph.node(nid)
+        i = exe._pos[nid]
+        spec = exe.specs[i]
+        if spec.unit == "add":
+            shapes = {plain_in(s) for s in node.inputs}
+            if len(shapes) != 1:
+                raise ValueError(f"add node {nid!r} joins mismatched "
+                                 f"shapes {sorted(shapes)}")
+            local_shape[nid] = shapes.pop()
+            instrs.append({"id": nid, "kind": "add",
+                           "srcs": tuple(node.inputs)})
+            modes[nid] = MODE_ADD
+            chained_f[nid] = False
+            continue
+        src = node.inputs[0] if node.inputs else None
+        do_split = exe.split_capable and spec.coexec
+        if do_split and spec.axis != "channel":
+            raise AssertionError(            # the partition keeps them out
+                f"typed-axis split {nid!r} inside fused segment {k}")
+        ch = src in stacked and exe._elides(i, src, stacked[src])
+        if ch:
+            in_shape = stacked.pop(src)
+            elided += 1
+        else:
+            in_shape = _meta_shape(lambda v: exe._adapt(v, spec),
+                                   plain_in(src))
+        chained_f[nid] = ch
+        out_shape = _out_shape(spec, in_shape)
+        if do_split:
+            stacked[nid] = out_shape
+            modes[nid] = MODE_COEXEC
+        else:
+            local_shape[nid] = out_shape
+            modes[nid] = MODE_EXCLUSIVE
+        instrs.append({"id": nid, "kind": "op", "index": i, "src": src,
+                       "chained": ch, "split": do_split, "spec": spec})
+
+    last = seg.node_ids[-1]
+    if last in stacked:                       # the boundary gather
+        gathers += 1
+        local_shape[last] = stacked.pop(last)
+    if stacked:
+        raise AssertionError(                 # convexity guarantees this
+            f"segment {seg.node_ids} leaks group-local values "
+            f"{sorted(stacked)}")
+    plain_shape[last] = local_shape[last]
+    gathered_f = {nid: True for nid in seg.node_ids}
+    for ins in instrs:
+        if ins.get("chained"):
+            gathered_f[ins["src"]] = False
+    return SegmentProgram(
+        index=k, kind=SEGMENT_FUSED, node_ids=seg.node_ids,
+        ext_inputs=tuple(ext), gathers=gathers, elided=elided,
+        chained=chained_f, gathered=gathered_f, modes=modes,
+        span=segment_span(k, SEGMENT_FUSED, seg.node_ids),
+        fn=_emit(exe, instrs, tuple(ext)))
+
+
+def _layout_singleton(exe, k: int, seg,
                       plain_shape: Dict[Optional[str], Shape]
                       ) -> SegmentProgram:
-    """A pool or exclusive singleton: its shape is tracked, and a pool or
-    an exclusive `CAPTURED_UNITS` node gets the `fn` that makes the
-    per-node walk's call; a typed-axis split or another unit keeps
-    `fn=None` and runs eagerly."""
+    """A pool or exclusive-segment singleton: its shape is tracked, and
+    its `fn` makes the per-node walk's one call."""
     nid = seg.node_ids[0]
     node = exe.graph.node(nid)
-    spec = exe.specs[pos[nid]]
+    i = exe._pos[nid]
+    spec = exe.specs[i]
     src = node.inputs[0] if node.inputs else None
-    fn = None
     if seg.kind == SEGMENT_POOL:
         mode = MODE_POOL
         out_shape = _meta_shape(lambda v: exe._pool(v, spec.pool_bytes),
@@ -280,22 +289,20 @@ def _layout_singleton(exe, index: int, seg, pos: Dict[str, int],
     else:
         # a typed-axis split co-executes here, outside any fused run: its
         # lowering merges or gathers its own sides
-        mode = (MODE_COEXEC if exe.split_capable and spec.coexec
-                else MODE_EXCLUSIVE)
+        split = exe.split_capable and spec.coexec
+        mode = MODE_COEXEC if split else MODE_EXCLUSIVE
         out_shape = _out_shape(spec, _meta_shape(
             lambda v: exe._adapt(v, spec), plain_shape[src]))
-        if mode == MODE_EXCLUSIVE and spec.unit in CAPTURED_UNITS:
-            i = pos[nid]
 
-            def fn(ext_vals):
-                return exe._dense(exe._adapt(ext_vals[0], spec),
-                                  exe.params[i], spec, exe.launches[i])
+        def fn(ext_vals):
+            return exe._apply(i, exe._adapt(ext_vals[0], spec), None,
+                              split=split, gather=True)
     plain_shape[nid] = out_shape
     return SegmentProgram(
-        index=index, kind=seg.kind, node_ids=seg.node_ids,
+        index=k, kind=seg.kind, node_ids=seg.node_ids,
         ext_inputs=(src,), gathers=0, elided=0, chained={nid: False},
         gathered={nid: True}, modes={nid: mode},
-        span=segment_span(index, seg.kind, seg.node_ids), fn=fn)
+        span=segment_span(k, seg.kind, seg.node_ids), fn=fn)
 
 
 # --------------------------------------------------------------- emission
@@ -325,28 +332,14 @@ def _emit(exe, instrs: List[Dict[str, Any]],
                     out = out + p
                 env[ins["id"]] = out
                 continue
-            i, spec = ins["index"], ins["spec"]
             if ins["chained"]:
                 x_in = env[ins["src"]]
                 x_plan = x_in.split
             else:
-                x_in = exe._adapt(plain(ins["src"]), spec)
+                x_in = exe._adapt(plain(ins["src"]), ins["spec"])
                 x_plan = None
-            launch = exe.launches[i]
-            if not ins["split"]:
-                env[ins["id"]] = exe._dense(x_in, exe.params[i], spec,
-                                            launch)
-                continue
-            split, packed = exe._splits[i]
-            if spec.unit == "linear":
-                env[ins["id"]] = coexec_matmul(x_in, packed, split,
-                                               exe.groups, gather=False,
-                                               x_plan=x_plan, launch=launch)
-            else:
-                env[ins["id"]] = coexec_conv2d(x_in, packed, split,
-                                               exe.groups, op=spec.op,
-                                               gather=False, x_plan=x_plan,
-                                               launch=launch)
+            env[ins["id"]] = exe._apply(ins["index"], x_in, x_plan,
+                                        split=ins["split"])
         return plain(instrs[-1]["id"])
 
     return program

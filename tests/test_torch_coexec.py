@@ -17,7 +17,8 @@ from repro_torch.core.coexec import (GroupLocal, SplitPlan, coexec_conv2d,
                                      coexec_groups, coexec_matmul,
                                      gather_stacked, pack_weights,
                                      resolve_device, split_for_groups)
-from repro_torch.core.types import ConvOp
+from repro_torch.core.types import ConvOp, LinearOp
+from repro_torch.kernels import registry
 from repro_torch.kernels.winograd_conv.ops import (conv2d_op,
                                                    crop_to_declared)
 
@@ -98,6 +99,49 @@ def test_coexec_conv2d_gathered_and_chained_match_unsplit(groups, op,
     y2 = coexec_conv2d(local, p2, s2, groups, op=nxt, x_plan=s1)
     want2 = crop_to_declared(conv2d_op(want1, w2, nxt), nxt)
     torch.testing.assert_close(y2, want2, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("op,c_fast", [
+    (LinearOp(3, 64, 64), 20),
+    (LinearOp(3, 64, 64), 43),
+    (ConvOp(16, 16, 24, 24, 3, 1), 10),
+    (ConvOp(32, 32, 128, 128, 3, 1), 40),  # Winograd-eligible
+], ids=["linear-20", "linear-43", "conv-10", "conv-winograd-40"])
+def test_channel_split_lowering_is_pack_weights_and_coexec(groups, op,
+                                                           c_fast):
+    """The registry's ("linear" | "conv", "channel") split lowering packs
+    as `split_for_groups` + `pack_weights` and runs as `coexec_matmul` /
+    `coexec_conv2d`, group-local, gathered and chained, bit for bit; the
+    planner is offered no "channel" axis."""
+    unit = registry.op_kind(op)
+    assert all(a.axis != "channel" for a in registry.axes_for(op))
+    low = registry.get_split_lowering(unit, "channel")
+    rng = np.random.default_rng(c_fast)
+    w = _t(rng, registry.get(unit).weight_shape(op), 0.1)
+    x = _t(rng, (1,) + tuple(registry.get(unit).input_shape(op))
+           if unit == "conv" else registry.get(unit).input_shape(op))
+    split, packed = low.pack(w, op, c_fast, groups)
+    want = split_for_groups(op.C_out, c_fast, groups)
+    assert split == want and torch.equal(packed, pack_weights(w, want))
+
+    def ref(x_in, gather, x_plan=None):
+        if unit == "linear":
+            return coexec_matmul(x_in, packed, split, groups, gather=gather,
+                                 x_plan=x_plan)
+        return coexec_conv2d(x_in, packed, split, groups, op=op,
+                             gather=gather, x_plan=x_plan)
+
+    def run(x_in, gather, x_plan=None):
+        return low.run(x_in, packed, split, groups, op, c_fast,
+                       gather=gather, x_plan=x_plan, launch=None)
+
+    assert torch.equal(run(x, True), ref(x, True))
+    local, ref_local = run(x, False), ref(x, False)
+    assert isinstance(local, GroupLocal) and local.split == split
+    assert all(torch.equal(a, b)
+               for a, b in zip(local.parts, ref_local.parts))
+    # chained into the same node again (C_in == C_out)
+    assert torch.equal(run(local, True, split), ref(ref_local, True, split))
 
 
 def test_chaining_needs_the_producers_split(groups):

@@ -604,7 +604,7 @@ def test_fused_walk_replays_cuda_graphs(cuda, which):
     # fused segments, pools and exclusive convs and linears are graphs;
     # the decode plan's typed-axis split stays eager
     assert [p.graph is not None for p in programs] == \
-        [p.fn is not None for p in programs]
+        [p.captured for p in programs]
     assert any(p.graph is None for p in programs) == (which == "decode")
     assert any(p.launches for p in programs)
     assert torch.equal(y0, y_node0)

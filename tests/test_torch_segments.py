@@ -32,7 +32,8 @@ from repro_torch.cli import main as cli_main
 from repro_torch.core.types import LinearOp
 from repro_torch.graph.ir import (SEGMENT_EXCLUSIVE, SEGMENT_FUSED,
                                   SEGMENT_POOL, Graph, Node, Segment)
-from repro_torch.measure.record import MODE_EXCLUSIVE, SOURCE_FUSED
+from repro_torch.measure.record import (MODE_COEXEC, MODE_EXCLUSIVE,
+                                        SOURCE_EXECUTOR, SOURCE_FUSED)
 from repro_torch.runtime.executor import PlanExecutor
 from repro_torch.runtime.plan import CoexecPlan
 
@@ -179,11 +180,56 @@ def test_typed_splits_are_singletons_and_the_fused_walk_matches(hybrid,
             assert by_id[nid].mode == "coexec"
     # ... and stays eager, while the exclusive linears are captured
     programs = assert_capture_rule(exe)
-    eager = {p.node_ids[0] for p in programs if p.fn is None}
+    eager = {p.node_ids[0] for p in programs if not p.captured}
     assert {nid for nid, share in FORCED[variant].items()
             if isinstance(share, tuple)} <= eager
-    assert any(p.kind == SEGMENT_EXCLUSIVE and p.fn is not None
+    assert any(p.kind == SEGMENT_EXCLUSIVE and p.captured
                for p in programs)
+
+
+@pytest.mark.parametrize("compiled,variant", [
+    ("grid", "small"), ("predicted", "small"), ("grid", "head"),
+    ("grid", "ssm-state")], indirect=["compiled"])
+def test_both_walks_record_alike(compiled, hybrid, variant):
+    """One request's records from the per-node and the fused walk agree on
+    every field but `wall_us` and `source`, except where the walks differ
+    in what a node does:
+
+      * `chained_input`: the per-node walk also chains the edges into and
+        out of a typed-axis split, which the fused walk runs as a
+        singleton segment, gathering its input first and its output
+        inside its own lowering; so a record chains in the fused walk
+        only where it does in the per-node walk, and only inside one
+        segment;
+      * `gathered_output`: where a split node's consumer does not chain
+        its output, the per-node walk leaves it group-local and the
+        consumer's step gathers it, while the fused walk gathers it
+        inside the producer's segment."""
+    src, splits = ((compiled, SMALL_FORCED) if variant == "small"
+                   else (hybrid, FORCED[variant]))
+    port = repro_torch.CompiledNetwork.from_json(_forced_doc(src, splits),
+                                                 verify=False)
+    exe = port.executor(device="cpu")
+    _, node = exe.run()
+    _, fused = exe.run(fused=True)
+    graph, seg_of = port.graph, port.plan.segment_of()
+    assert len(node.timings) == len(fused.timings) == len(exe.specs)
+    differs = set()
+    for a, b in zip(node.timings, fused.timings):
+        da, db = a.to_json(), b.to_json()
+        for key in ("wall_us", "source"):
+            da.pop(key), db.pop(key)
+        differs |= {k for k in da if da[k] != db[k]}
+        if b.chained_input:
+            assert a.chained_input
+        if a.chained_input and not b.chained_input:
+            src_id = graph.node(a.node_id).inputs[0]
+            assert seg_of[src_id] != seg_of[a.node_id], a.node_id
+        if a.gathered_output != b.gathered_output:
+            assert a.mode == MODE_COEXEC and b.gathered_output, a.node_id
+    assert differs <= {"chained_input", "gathered_output"}
+    assert (node.timings[0].source, fused.timings[0].source) == \
+        (SOURCE_EXECUTOR, SOURCE_FUSED)
 
 
 # ------------------------------------------------------ committed artifacts
@@ -353,11 +399,11 @@ def test_fused_warmup_runs_once_and_publishes_only_the_timed_run(forced_exe):
 
 
 def assert_capture_rule(exe):
-    """Which programs carry an `fn`, which the card captures: fused
-    segments, pools and exclusive conv and linear singletons; typed-axis
-    splits and exclusive ssm and attention singletons keep `fn=None` and
-    run eagerly.  On the CPU no program holds a graph.  Returns the
-    programs."""
+    """Which programs are `captured`, which the card replays as graphs:
+    fused segments, pools and exclusive conv and linear singletons;
+    typed-axis splits and exclusive ssm and attention singletons run
+    eagerly.  Every program carries an `fn`.  On the CPU no program holds
+    a graph.  Returns the programs."""
     units = {s.node_id: s.unit for s in exe.specs}
     programs = exe.segment_programs()
     for p in programs:
@@ -367,13 +413,14 @@ def assert_capture_rule(exe):
                     or (p.kind == SEGMENT_EXCLUSIVE
                         and p.modes[nid] == MODE_EXCLUSIVE
                         and units[nid] in ("conv", "linear")))
-        assert (p.fn is not None) == captured, p.span
+        assert p.captured == captured, p.span
+        assert callable(p.fn), p.span
     return programs
 
 
 def test_cpu_segments_run_eagerly(forced_exe):
     programs = assert_capture_rule(forced_exe)
-    assert {p.kind for p in programs if p.fn is not None} == \
+    assert {p.kind for p in programs if p.captured} == \
         {SEGMENT_FUSED, SEGMENT_POOL, SEGMENT_EXCLUSIVE}
 
 

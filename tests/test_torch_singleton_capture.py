@@ -51,7 +51,7 @@ def test_the_rule_on_the_committed_vgg16_plan(monkeypatch):
         device="cpu")
     programs = assert_capture_rule(exe)
     assert _kinds(programs) == VGG16_KINDS
-    assert all(p.fn is not None for p in programs)
+    assert all(p.captured for p in programs)
 
 
 def test_the_frozen_plan_is_the_committed_one():
