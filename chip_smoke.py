@@ -40,7 +40,13 @@ the port cannot be imported, and otherwise runs, in order:
    attention at 4 x 1024, 2048 and 4096 tokens first, each output row
    within `PREFILL_ATTN_RTOL` of its plain version's relative to that
    row's rms, no further from fp32 attention than the plain version is
-   (`PREFILL_ATTN_ROOM`), and called twice bit for bit;
+   (`PREFILL_ATTN_ROOM`), and called twice bit for bit; the Mamba2
+   mixer's `mamba_conv_silu` and `gated_rms_norm` (bf16 in, fp32 between)
+   at zamba2-7b's widths (`MIXER_CASES`: 4 x 4096 from a zero carry, 4 x
+   1024 and a decode step from a live one), their operands the strided
+   column slices of an in_proj output as the model passes them, each
+   within `MIXER_CONV_TOL` or one bf16 step (`MIXER_NORM_STEP`) of its
+   plain version and called twice bit for bit;
 4. the compile phase, on the host: each main path compiled by
    `repro_torch.compile` (no JAX) for its committed artifact's `Target`,
    into a fresh plan cache and predictor cache, its document held equal
@@ -191,10 +197,11 @@ the port cannot be imported, and otherwise runs, in order:
    eager ops apart (`wkv_range`); then zamba2-7b-instruct as published
    (`published_phase`: bf16, full width and depth, 14.7 GB drawn on the
    card), one prefill of `PUBLISHED_PREFILL` tokens from an empty cache,
-   which must launch `prefill_attention` once per hybrid layer (13) and
-   `ssd_chunk_scan` once per group and layer (162) and no other kernel;
-   its attention calls captured and held as in the kernel phase, timed
-   for the result line;
+   which must launch `prefill_attention` once per hybrid layer (13),
+   `ssd_chunk_scan` and `gated_rms_norm` once per group and layer (162
+   each), `mamba_conv_silu` once per layer (81) and no other kernel; its
+   attention and mixer calls captured and held as in the kernel phase,
+   timed for the result line;
 13. the MLA and MoE model phases: deepseek-v2-lite-16b at its published
    widths and full depth (`deepseek_phase`: 27 layers of MLA attention,
    a dense first layer then 64 routed experts top-6 and 2 shared; 15.7 B
@@ -348,9 +355,10 @@ BF16_RTOL = 5e-2
 
 #: every kernel of the port, by its launch counter's name
 KERNEL_NAMES = ("split_matmul", "hadamard_matmul", "decode_attention",
-                "ssd_chunk_scan", "prefill_attention")
-#: the kernels a compiled plan's walk launches; `prefill_attention` is on
-#: no plan, the published zamba2-7b's prefill (`published_phase`) runs it
+                "ssd_chunk_scan", "prefill_attention", "mamba_conv_silu",
+                "gated_rms_norm")
+#: the kernels a compiled plan's walk launches; the last three are on no
+#: plan, the published zamba2-7b's prefill (`published_phase`) runs them
 PLAN_KERNELS = KERNEL_NAMES[:4]
 
 #: (label, M, K, N, c0, width, launches per request by main path).  A
@@ -456,6 +464,24 @@ PREFILL_ATTN_RTOL = 2 ** -5
 #: and its row error against fp32 attention no more than the plain
 #: version's plus this (a quarter of a bf16 step)
 PREFILL_ATTN_ROOM = 2 ** -10
+
+#: (label, B, T, live carry): the published zamba2-7b's Mamba2 mixer at
+#: the prefill cell's longest call, a shorter one after a live carry, and
+#: a decode step
+MIXER_CASES = [
+    ("zamba2-7b 4x4096", 4, 4096, False),
+    ("zamba2-7b 4x1024 live", 4, 1024, True),
+    ("zamba2-7b decode 4x1", 4, 1, True),
+]
+#: `mamba_conv_silu` against its plain version (fp32 out of bf16 in, the
+#: same arithmetic in another instruction order: a few ulps), rtol = atol
+MIXER_CONV_TOL = 1e-5
+#: `gated_rms_norm` against its plain version: the same fp32 value
+#: rounded once to bf16, so within one bf16 step (2^-7 of |value|) plus
+#: 2^-16 of the row's rms where y and D xs nearly cancel, and fewer than
+#: `MIXER_NORM_ROUNDED` of the outputs rounded the other way
+MIXER_NORM_STEP = (2.0 ** -7, 2.0 ** -16)
+MIXER_NORM_ROUNDED = 0.01
 
 #: the SSD chunk kernels' comparison shapes at zamba2-7b's widths (H = 112,
 #: hd = N = 64), (B, T): the model phase's fp32 and bf16 prefills and a
@@ -764,6 +790,93 @@ def hold_prefill_attention(label: str, args: tuple, peaks: dict):
     return err, times
 
 
+def hold_mamba_conv_silu(label: str, args: tuple, peaks: dict):
+    """The mixer's conv kernel against its plain version: each fp32 output
+    within `MIXER_CONV_TOL`, and two calls bit for bit.  args: the
+    wrapper's (xbc, carry, conv_w, conv_b, dt_raw, dt_bias, ngroups,
+    headdim)."""
+    from repro_torch.kernels.mamba_mixer import (mamba_conv_silu,
+                                                 mamba_conv_silu_ref)
+    *tensors, g, hd = args
+    xbc, dt_raw = tensors[0], tensors[4]
+    (b, t, conv_dim), k, h = xbc.shape, tensors[2].shape[0], dt_raw.shape[-1]
+
+    def kernel():
+        return mamba_conv_silu(*tensors, ngroups=g, headdim=hd)
+
+    def plain():
+        return mamba_conv_silu_ref(*tensors, ngroups=g, headdim=hd)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, e in zip(("xs", "B", "C", "dt"), got, want):
+        if a.shape != e.shape or a.dtype != e.dtype:
+            raise AssertionError(f"mamba_conv_silu {label} {name}: got "
+                                 f"{tuple(a.shape)} {a.dtype}, want "
+                                 f"{tuple(e.shape)} {e.dtype}")
+        diff = (a - e).abs()
+        err = max(err, float(diff.max()))
+        if not bool((diff <= MIXER_CONV_TOL * (1 + e.abs())).all()):
+            raise AssertionError(f"mamba_conv_silu {label} {name}: max "
+                                 f"|kernel - plain| {float(diff.max()):.3e}"
+                                 f" beyond {MIXER_CONV_TOL:g} (rtol = atol)")
+    if not all(torch.equal(a, c) for a, c in zip(got, kernel())):
+        raise AssertionError(f"mamba_conv_silu {label}: two calls on the "
+                             f"same inputs differ")
+    moved = nbytes(*tensors[:5], *got) + tensors[5].numel() * 4
+    times = _times(kernel, plain, None, moved, 2.0 * k * b * t * conv_dim,
+                   torch.float32, peaks)
+    _report("mamba_conv_silu", label, xbc.dtype, err, times,
+            f"B={b} T={t} conv_dim={conv_dim} H={h} G={g} K={k} [xbc row "
+            f"pitch {xbc.stride(1)}, bound by bytes]")
+    return err, times
+
+
+def hold_gated_rms_norm(label: str, args: tuple, peaks: dict):
+    """The mixer's gated norm against its plain version: within one bf16
+    step (`MIXER_NORM_STEP`), fewer than `MIXER_NORM_ROUNDED` of the
+    outputs rounded the other way, and two calls bit for bit.  args: the
+    wrapper's (y, xs, z, d, gate, out, eps); `out` is written."""
+    from repro_torch.kernels.mamba_mixer import (gated_rms_norm,
+                                                 gated_rms_norm_ref)
+    y, xs, z, d, gate, out, eps = args
+    b, t, hg, p = y.shape
+
+    def kernel(dst=out):
+        return gated_rms_norm(y, xs, z, d, gate, dst, eps=eps)
+
+    def plain():
+        return gated_rms_norm_ref(y, xs, z, d, gate, eps=eps)
+
+    got = kernel().float()
+    want = plain().float()
+    torch.cuda.synchronize()
+    rel, ab = MIXER_NORM_STEP
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    over = float(((got - want).abs() / (rel * want.abs() + ab * rms)).max())
+    rounded = float((got != want).float().mean())
+    err = float((got - want).abs().max())
+    print(f"gated_rms_norm {label}: {over:.3f} of one bf16 step at most, "
+          f"{rounded:.2e} of the outputs rounded the other way", flush=True)
+    if not (np.isfinite(over) and over <= 1.0
+            and rounded < MIXER_NORM_ROUNDED):
+        raise AssertionError(f"gated_rms_norm {label}: {over:.3f} bf16 "
+                             f"steps from its plain version, {rounded:.2e} "
+                             f"of the outputs rounded apart")
+    again = torch.empty_like(out)
+    if not torch.equal(kernel(again), out):
+        raise AssertionError(f"gated_rms_norm {label}: two calls on the "
+                             f"same inputs differ")
+    moved = nbytes(y, xs, z, d, gate, out)
+    times = _times(kernel, plain, None, moved, 8.0 * b * t * hg * p,
+                   torch.float32, peaks)
+    _report("gated_rms_norm", label, out.dtype, err, times,
+            f"B={b} T={t} heads={hg} P={p} [z row pitch {z.stride(1)}, out "
+            f"row pitch {out.stride(1)}, bound by bytes]")
+    return err, times
+
+
 def ssd_plan_text(plan) -> str:
     """One SSD launch plan, as the kernel phases print it."""
     from repro_torch.kernels.ssd_chunk.ssd_chunk import CHUNKED
@@ -875,6 +988,60 @@ def prefill_attention_phase(peaks: dict) -> Tally:
     return tally
 
 
+def mamba_mixer_phase(peaks: dict) -> dict:
+    """`MIXER_CASES` at the published zamba2-7b's widths, bf16 weights and
+    activations drawn on the card: the conv from the strided xBC and dt
+    columns of an in_proj output, then each group's norm from that
+    group's xs, a drawn scan output y and the z columns, into its columns
+    of the out_proj input.  No case's times enter the totals: the
+    published prefill's calls do (`published_phase`).  Returns both
+    kernels' tallies."""
+    from repro_torch.kernels.mamba_mixer import mamba_conv_silu
+    from repro_torch.models import get_config
+    from repro_torch.models.zamba2_published import GATED_NORM_EPS
+    cfg = get_config(PUBLISHED_ARCH)
+    g, hd, h = cfg.mamba_ngroups, cfg.mamba_headdim, cfg.n_mamba_heads
+    d_inner, conv_dim, k = cfg.d_inner, cfg.conv_dim, cfg.mamba_d_conv
+    dg, hg = d_inner // g, h // g
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+
+    tallies = {"mamba_conv_silu": Tally(library=False),
+               "gated_rms_norm": Tally(library=False)}
+    conv_w, conv_b = draw(k, conv_dim, scale=k ** -0.5), draw(conv_dim)
+    dt_bias = torch.randn(h, generator=gen, device="cuda") - 4.0
+    d = torch.rand(h, generator=gen, device="cuda") + 0.5
+    gate = draw(d_inner, scale=0.5) + 1.0
+    for label, b, t, live in MIXER_CASES:
+        proj = draw(b, t, d_inner + conv_dim + h)
+        z, xbc, dt_raw = torch.split(proj, [d_inner, conv_dim, h], dim=-1)
+        carry = draw(b, k - 1, conv_dim) * float(live)
+        err, _ = hold_mamba_conv_silu(
+            label, (xbc, carry, conv_w, conv_b, dt_raw, dt_bias, g, hd),
+            peaks)
+        tallies["mamba_conv_silu"].note(torch.bfloat16, err)
+        xs = mamba_conv_silu(xbc, carry, conv_w, conv_b, dt_raw, dt_bias,
+                             ngroups=g, headdim=hd)[0]
+        out = torch.empty((b, t, d_inner), dtype=torch.bfloat16,
+                          device="cuda")
+        for gi in range(g):
+            cols, heads = slice(gi * dg, (gi + 1) * dg), slice(gi * hg,
+                                                               (gi + 1) * hg)
+            y = torch.randn((b, t, hg, hd), generator=gen, device="cuda")
+            err, _ = hold_gated_rms_norm(
+                f"{label} group {gi}", (y, xs[gi], z[..., cols], d[heads],
+                                        gate[cols], out[..., cols],
+                                        GATED_NORM_EPS),
+                peaks)
+            tallies["gated_rms_norm"].note(torch.bfloat16, err)
+        del proj, z, xbc, dt_raw, carry, xs, out, y
+        torch.cuda.empty_cache()
+    return tallies
+
+
 def ssd_inputs(gen, b: int, t: int, h: int, hd: int, n: int,
                dtype) -> list:
     """Seeded SSD scan operands on the card, as the ssm lowering makes
@@ -934,13 +1101,30 @@ def _copy_aligned(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t)
 
 
+#: the kernels whose captured operands keep their strides
+#: (`_copy_strided`): the mixer's are column slices of the in_proj output
+#: and of the out_proj input, held with those row pitches
+KEEP_STRIDES = ("mamba_conv_silu", "gated_rms_norm")
+
+
+def _copy_strided(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` on its device with its strides and its address
+    modulo 256 bytes: the whole span of storage its strides reach is
+    allocated, so a column slice keeps its row pitch."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    pad = t.data_ptr() % 256 // t.element_size()
+    base = torch.empty(pad + span, dtype=t.dtype, device=t.device)
+    return base.as_strided(t.shape, t.stride(), pad).copy_(t)
+
+
 def capture_calls(fn, every: bool = False) -> dict:
     """Every kernel call `fn()` makes, by kernel: {signature: [calls,
     arguments]}.  A profile hook sees each wrapper's call as it is made; a
     signature is the arguments' shapes, dtypes, scalars and each tensor's
     address modulo 16 bytes, and the first call of each keeps its
     arguments (`every`: a list of every call's), copied on the caller's
-    stream (`_copy_aligned`), for the holds.  The run is not one a launch
+    stream (`_copy_aligned`; `_copy_strided` for `KEEP_STRIDES`), for the
+    holds.  The run is not one a launch
     count is read from."""
     import inspect
     wrappers = kernel_counters()
@@ -958,7 +1142,8 @@ def capture_calls(fn, every: bool = False) -> dict:
         entry = calls[name].setdefault(sig, [0, [] if every else None])
         entry[0] += 1
         if every or entry[1] is None:
-            copy = tuple(_copy_aligned(a) if torch.is_tensor(a) else a
+            copier = _copy_strided if name in KEEP_STRIDES else _copy_aligned
+            copy = tuple(copier(a) if torch.is_tensor(a) else a
                          for a in args)
             if every:
                 entry[1].append(copy)
@@ -1002,10 +1187,15 @@ def hold_walk_calls(label: str, calls: dict, want: dict, peaks: dict,
 
 
 def kernel_counters() -> dict:
-    """The plan walks' kernel wrappers and the prefill attention's."""
+    """The plan walks' kernel wrappers, the prefill attention's and the
+    Mamba2 mixer's two."""
+    from repro_torch.kernels.mamba_mixer import (gated_rms_norm,
+                                                 mamba_conv_silu)
     from repro_torch.kernels.prefill_attention import prefill_attention
     from repro_torch.runtime.segments import launch_counters
-    return {**launch_counters(), "prefill_attention": prefill_attention}
+    return {**launch_counters(), "prefill_attention": prefill_attention,
+            "mamba_conv_silu": mamba_conv_silu,
+            "gated_rms_norm": gated_rms_norm}
 
 
 def zero_counts() -> None:
@@ -1913,13 +2103,16 @@ def published_phase(peaks: dict, tallies: dict, smi: str) -> dict:
     width and depth, seeded weights drawn on the card): one prefill of
     `PUBLISHED_PREFILL` tokens from an empty cache, the counters set to 0
     just before and read just after; it must launch `prefill_attention`
-    once per hybrid layer and `ssd_chunk_scan` as often as
-    `last_prefill_counts` says, and no other kernel.  Then every
-    `prefill_attention` call of one more prefill captured
-    (`capture_calls`), the model freed, and the first call of each
-    signature held and timed (`hold_prefill_attention`), its times added
-    to the tally under the walk with its calls per prefill.  Returns the
-    walk."""
+    once per hybrid layer, `ssd_chunk_scan` as often as
+    `last_prefill_counts` says, `mamba_conv_silu` once per Mamba layer
+    and `gated_rms_norm` once per group and layer (every layer counted in
+    `mixer_fused`), and no other kernel.  Then every `prefill_attention`,
+    `mamba_conv_silu` and `gated_rms_norm` call of one more prefill
+    captured (`capture_calls`), the model freed, and the first call of
+    each signature held and timed (`hold_prefill_attention`,
+    `hold_mamba_conv_silu`, `hold_gated_rms_norm`), its times added to
+    its kernel's tally under the walk with its calls per prefill.  Returns
+    the walk."""
     from repro_torch.models import build_model, get_config
 
     gc.collect()
@@ -1952,30 +2145,40 @@ def published_phase(peaks: dict, tallies: dict, smi: str) -> dict:
     counts = read_counts()
     made = model.last_prefill_counts
     want = dict.fromkeys(counts, 0)
+    layers = cfg.num_hidden_layers
     want.update(prefill_attention=len(cfg.hybrid_layer_ids),
-                ssd_chunk_scan=made["ssd_calls"])
+                ssd_chunk_scan=made["ssd_calls"], mamba_conv_silu=layers,
+                gated_rms_norm=layers * cfg.mamba_ngroups)
     if counts != want or made["prefill_attention"] != want[
-            "prefill_attention"] or not bool(
+            "prefill_attention"] or made["mixer_fused"] != layers or not bool(
                 torch.isfinite(logits.float()).all()):
         raise AssertionError(f"{PUBLISHED_WALK}: launches {counts}, "
-                             f"last_prefill_counts {made}, want {want} "
-                             f"and finite logits")
-    calls = capture_calls(prefill)["prefill_attention"]
+                             f"last_prefill_counts {made}, want {want}, "
+                             f"mixer_fused {layers} and finite logits")
+    held = ("prefill_attention", "mamba_conv_silu", "gated_rms_norm")
+    calls = {k: v for k, v in capture_calls(prefill).items() if k in held}
     del model, params, logits
     torch.cuda.empty_cache()
-    tally = tallies["prefill_attention"]
-    for i, (n, args) in enumerate(calls.values()):
-        err, times = hold_prefill_attention(f"{PUBLISHED_WALK} #{i} x{n}",
-                                            args, peaks)
-        tally.note(torch.bfloat16, err)
-        agg = tally.by_path.setdefault(PUBLISHED_WALK,
-                                       dict.fromkeys(_TIMES, 0.0))
-        for key in _TIMES:
-            agg[key] += times[key] * n
+    holds = {"prefill_attention": hold_prefill_attention,
+             "mamba_conv_silu": hold_mamba_conv_silu,
+             "gated_rms_norm": hold_gated_rms_norm}
+    for name, sigs in calls.items():
+        tally = tallies[name]
+        for i, (n, args) in enumerate(sigs.values()):
+            err, times = holds[name](f"{PUBLISHED_WALK} #{i} x{n}", args,
+                                     peaks)
+            tally.note(torch.bfloat16, err)
+            agg = tally.by_path.setdefault(PUBLISHED_WALK,
+                                           dict.fromkeys(_TIMES, 0.0))
+            for key in _TIMES:
+                if times[key] is not None:
+                    agg[key] += times[key] * n
+        sigs.clear()
+        torch.cuda.empty_cache()
     print(f"{PUBLISHED_WALK}: bf16 prefill in {wall:.3f} s, "
-          f"{counts['prefill_attention']} prefill_attention and "
-          f"{counts['ssd_chunk_scan']} ssd_chunk_scan launches; its "
-          f"attention calls held; {smi}", flush=True)
+          + ", ".join(f"{counts[k]} {k}" for k in KERNEL_NAMES if want[k])
+          + f" launches; its attention and mixer calls held; {smi}",
+          flush=True)
     del calls
     torch.cuda.empty_cache()
     return {PUBLISHED_WALK: (PUBLISHED_WALK, counts)}
@@ -4050,7 +4253,9 @@ TRACE_NAMES = {"split_matmul": ("splitk_gemv<float", "tc_gemm<float"),
                "decode_attention": ("attn_runs<float",),
                "ssd_chunk_scan": ("ssd_decode<float",
                                   "ssd_chunk_state<float"),
-               "prefill_attention": ("prefill_attention_fwd<",)}
+               "prefill_attention": ("prefill_attention_fwd<",),
+               "mamba_conv_silu": ("mamba_conv_silu_fwd",),
+               "gated_rms_norm": ("gated_rms_norm_fwd",)}
 #: CUDA runtime calls by which the host puts work on the card
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
                      "cudaMemset", "cudaGraphLaunch")
@@ -4322,6 +4527,10 @@ SOURCES = {
                        "src/repro/kernels/ssd_chunk/ssd_chunk.py:67"),
     "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
                           "none (stands in for src/repro/models/flash.py)"),
+    "mamba_conv_silu": ("src/repro_torch/csrc/mamba_mixer.cu",
+                        "none (the mixer's plain conv and SiLU)"),
+    "gated_rms_norm": ("src/repro_torch/csrc/mamba_mixer.cu",
+                       "none (the mixer's plain gated RMSNorm)"),
 }
 
 
@@ -4539,6 +4748,65 @@ def mesh_phases(smi: str, peaks: dict, tallies: dict, phases) -> dict:
     return walks
 
 
+def kernel_line(results: dict, walks: dict) -> dict:
+    """The result line's `kernels`: each kernel's launches over `walks`,
+    its max errors and its float32 times over the main paths and
+    `MODEL_TIMED` from its tally in `results`."""
+    def by_path(name: str, t: Tally) -> dict:
+        """Each walk's launches of kernel `name`, with the float32 times
+        of one request where the walk has them."""
+        out = {}
+        for walk, (key, counts) in walks.items():
+            if not counts[name] and key not in t.by_path:
+                continue
+            out[walk] = {"launches": counts[name]}
+            if key in t.by_path:
+                out[walk].update(
+                    {k: (None if k == "library_ms" and not t.library else v)
+                     for k, v in t.by_path[key].items()})
+        return out
+
+    mains = [p[0] for p in PATHS] + list(MODEL_TIMED)
+    return {"kernels": [{
+        "name": name, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1],
+        "launches": sum(c[name] for _, c in walks.values()),
+        "max_abs_err": t.max_abs_err,
+        "max_abs_err_bf16": t.max_abs_err_bf16,
+        "ms": t.total("ms", mains), "plain_ms": t.total("plain_ms", mains),
+        "bound_ms": t.total("bound_ms", mains),
+        "bound_by": ("bytes" if t.total("t_bytes", mains)
+                     >= t.total("t_ops", mains) else "operations"),
+        "library_ms": t.total("library_ms", mains),
+        "per": (f"launches: the {REQUESTS} requests of each main path's "
+                f"per-node and fused walks, the {BF16_REQUESTS} of each "
+                f"bf16 walk, the {RECORD_RUNS + 1} recorded runs of each "
+                f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
+                f"replanned walk, the {PORTFOLIO_REQUESTS} of each "
+                f"portfolio entry's walks, of each serve bucket's plan and "
+                f"of each tuned walk, the serve walks' plan executions "
+                f"(every "
+                f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
+                f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
+                f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
+                f"deepseek-v2-lite-16b engine's execute_plan, the "
+                f"zamba2-7b-instruct prefill of {PUBLISHED_PREFILL[0]} x "
+                f"{PUBLISHED_PREFILL[1]} tokens, the "
+                f"reduced zamba2-7b train step (its forward's launches, "
+                f"each with a gradient), the {ZAMBA_TRAIN_STEPS} zamba2-7b "
+                f"train steps at published widths on the mesh path; "
+                f"times: one request of each main path (rwkv6-1.6b's two "
+                f"plans and deepseek-v2-lite-16b's: the calls of one "
+                f"request, each held) and one "
+                f"prefill and one decode step of the zamba2-7b model, "
+                f"float32, and the zamba2-7b-instruct prefill's "
+                f"prefill_attention, mamba_conv_silu and gated_rms_norm "
+                f"calls, bf16 (by_path: "
+                f"one request, prefill or decode step of each walk)"),
+        "by_path": by_path(name, t)}
+        for name, t in results.items()]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4583,6 +4851,8 @@ def main() -> int:
                         ("prefill_attention", prefill_attention_phase)):
         results[name] = phase(peaks)
         phases.done(f"kernel {name}")
+    results.update(mamba_mixer_phase(peaks))
+    phases.done("kernel mamba_mixer")
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -4657,58 +4927,7 @@ def main() -> int:
     walks.update(tune_phase(peaks, results, tune_inputs))
     phases.done("tune")
 
-    def by_path(name: str, t: Tally) -> dict:
-        """Each walk's launches of kernel `name`, with the float32 times
-        of one request where the walk has them."""
-        out = {}
-        for walk, (key, counts) in walks.items():
-            if not counts[name] and key not in t.by_path:
-                continue
-            out[walk] = {"launches": counts[name]}
-            if key in t.by_path:
-                out[walk].update(
-                    {k: (None if k == "library_ms" and not t.library else v)
-                     for k, v in t.by_path[key].items()})
-        return out
-
-    mains = [p[0] for p in PATHS] + list(MODEL_TIMED)
-    line = {"kernels": [{
-        "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1],
-        "launches": sum(c[name] for _, c in walks.values()),
-        "max_abs_err": t.max_abs_err,
-        "max_abs_err_bf16": t.max_abs_err_bf16,
-        "ms": t.total("ms", mains), "plain_ms": t.total("plain_ms", mains),
-        "bound_ms": t.total("bound_ms", mains),
-        "bound_by": ("bytes" if t.total("t_bytes", mains)
-                     >= t.total("t_ops", mains) else "operations"),
-        "library_ms": t.total("library_ms", mains),
-        "per": (f"launches: the {REQUESTS} requests of each main path's "
-                f"per-node and fused walks, the {BF16_REQUESTS} of each "
-                f"bf16 walk, the {RECORD_RUNS + 1} recorded runs of each "
-                f"calibrate walk, the {REPLAN_REQUESTS} requests of each "
-                f"replanned walk, the {PORTFOLIO_REQUESTS} of each "
-                f"portfolio entry's walks, of each serve bucket's plan and "
-                f"of each tuned walk, the serve walks' plan executions "
-                f"(every "
-                f"{SERVE_FIDELITY_EVERY} scheduler steps, one execute_plan), "
-                f"the zamba2-7b and rwkv6-1.6b model walks (each prefill, its "
-                f"{MODEL_DECODE_STEPS} decode steps, the engines' runs), the "
-                f"deepseek-v2-lite-16b engine's execute_plan, the "
-                f"zamba2-7b-instruct prefill of {PUBLISHED_PREFILL[0]} x "
-                f"{PUBLISHED_PREFILL[1]} tokens, the "
-                f"reduced zamba2-7b train step (its forward's launches, "
-                f"each with a gradient), the {ZAMBA_TRAIN_STEPS} zamba2-7b "
-                f"train steps at published widths on the mesh path; "
-                f"times: one request of each main path (rwkv6-1.6b's two "
-                f"plans and deepseek-v2-lite-16b's: the calls of one "
-                f"request, each held) and one "
-                f"prefill and one decode step of the zamba2-7b model, "
-                f"float32, and the zamba2-7b-instruct prefill's "
-                f"prefill_attention calls, bf16 (by_path: "
-                f"one request, prefill or decode step of each walk)"),
-        "by_path": by_path(name, t)}
-        for name, t in results.items()]}
+    line = kernel_line(results, walks)
     phases.done("paths")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

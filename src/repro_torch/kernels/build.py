@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: every kernel library of the port, by source stem
 KERNELS: Tuple[str, ...] = ("split_matmul", "hadamard_matmul",
                            "decode_attention", "ssd_chunk",
-                           "prefill_attention")
+                           "prefill_attention", "mamba_mixer")
 
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -24,16 +24,22 @@ Per token, with x0 the embedding's output:
 - A final RMSNorm and an lm_head tied to the embedding.
 
 Weights and activations are in the layout's dtype (bf16 as published);
-the conv, the scan and the gated norm run in fp32.  The SSD core is the
-hand-written `ssd_chunk_scan`, which takes one B and C for all the heads
-of a call, so each layer makes one call per group over that group's
-contiguous heads: two calls a layer at G = 2.  A grouped kernel is later
-work.  A prefill's shared-block attention is the hand-written
-`prefill_attention` (bf16 products, fp32 softmax state), at every prompt
-length; a decode step attends through `attention_scores`.  That kernel
-takes bf16 only, so a float32 layout runs on the CPU alone (`init` and
-`init_cache` refuse it on CUDA).  On the CPU the attention is the
-kernel's plain version, which holds a sequence's whole (H, T, T) fp32
+the conv, the scan and the gated norm run in fp32.  The mixer's pointwise
+work is two hand-written kernels (`kernels/mamba_mixer`), in the precision
+and order of the plain expressions they replace: `mamba_conv_silu` takes
+the conv, its bias and SiLU and softplus(dt + dt_bias) from the in_proj
+output and the conv carry, writing xs, B, C and dt group-major in fp32;
+`gated_rms_norm` takes each group's D skip, SiLU(z) gate and gated norm
+from that group's scan output, writing bf16 into the out_proj input.  The
+SSD core is the hand-written `ssd_chunk_scan`, which takes one B and C
+for all the heads of a call, so each layer makes one call per group over
+that group's contiguous heads: two calls a layer at G = 2.  A grouped
+kernel is later work.  A prefill's shared-block attention is the
+hand-written `prefill_attention` (bf16 products, fp32 softmax state), at
+every prompt length; a decode step attends through `attention_scores`.
+That kernel takes bf16 only, so a float32 layout runs on the CPU alone
+(`init` and `init_cache` refuse it on CUDA).  On the CPU the attention is
+the kernel's plain version, which holds a sequence's whole (H, T, T) fp32
 scores at once (2 GB at 32 heads and 4096 tokens): the CPU runs the
 reduced shapes of the tests, not full-size prompts.
 
@@ -45,8 +51,10 @@ shared-block application (its linear included) is a
 `repro_torch.zamba2.shared` span, each Mamba layer a
 `repro_torch.zamba2.mamba` span and each scan call a `repro_torch.ssd`
 span; `last_prefill_counts` holds the last prefill's `ssd_calls`,
-`shared_applications` and `prefill_attention`, the attention kernel's
-launches (one a hybrid layer on a card, none on the CPU).
+`shared_applications`, `mixer_fused` (the Mamba layers whose conv and
+gated norm ran the `mamba_mixer` kernels: every layer on a card, none on
+the CPU) and `prefill_attention`, the attention kernel's launches (one a
+hybrid layer on a card, none on the CPU).
 """
 from __future__ import annotations
 
@@ -58,6 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.coexec import resolve_device
+from repro_torch.kernels.mamba_mixer import (gated_rms_norm,
+                                             mamba_conv_silu, next_carry)
 from repro_torch.kernels.prefill_attention import prefill_attention
 from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.models.layers import (_causal_mask, _normal, apply_rope,
@@ -361,51 +371,56 @@ class Zamba2PublishedModel:
 
     def _scan(self, xs, bmat, cmat, dt, a, state):
         """The SSD scan of every head, one `ssd_chunk_scan` call a group.
-        xs (B, T, H, P), bmat and cmat (B, T, G, N), dt (B, T, H) fp32;
-        a (H,); state (B, H, P, N).  Returns (y (B, T, H, P), final
-        state), both fp32."""
+        xs (B, T, G, H / G, P), bmat and cmat (B, T, G, N), dt (B, T, G,
+        H / G) fp32, views of group-major storage, so that each group's
+        slices are dense; a (H,); state (B, H, P, N).  Returns (each
+        group's y (B, T, H / G, P), final state (B, H, P, N)), fp32."""
         per = self.cfg.n_mamba_heads // self.cfg.mamba_ngroups
         ys, finals = [], []
         for g in range(self.cfg.mamba_ngroups):
             hs = slice(g * per, (g + 1) * per)
             with span("repro_torch.ssd"):
                 sf, y = ssd_chunk_scan(
-                    xs[:, :, hs].contiguous(), bmat[:, :, g].contiguous(),
-                    cmat[:, :, g].contiguous(), dt[:, :, hs].contiguous(),
+                    xs[:, :, g].contiguous(), bmat[:, :, g].contiguous(),
+                    cmat[:, :, g].contiguous(), dt[:, :, g].contiguous(),
                     a[hs].contiguous(), state[:, hs].contiguous())
             self._count("ssd_calls")
             ys.append(y)
             finals.append(sf)
-        return torch.cat(ys, dim=2), torch.cat(finals, dim=1)
+        return ys, torch.cat(finals, dim=1)
 
     def _mixer(self, p: Params, h: torch.Tensor, state: torch.Tensor,
                carry: torch.Tensor):
         """The Mamba2 mixer over h (B, T, d) from `state` and the conv
-        `carry`.  Returns (out (B, T, d), final state, new carry)."""
+        `carry`.  Returns (out (B, T, d), final state, new carry).  The
+        conv and the gated norm are the `mamba_mixer` kernels (their plain
+        versions on the CPU); a layer whose conv and norms all launched
+        counts in `mixer_fused`."""
         cfg = self.cfg
         b, t, _ = h.shape
-        g, n, k = cfg.mamba_ngroups, cfg.mamba_d_state, cfg.mamba_d_conv
+        g = cfg.mamba_ngroups
+        dg, hg = cfg.d_inner // g, cfg.n_mamba_heads // g
+        launched = (mamba_conv_silu.launches, gated_rms_norm.launches)
         z, xbc, dt_raw = torch.split(
             h @ p["w_in"], [cfg.d_inner, cfg.conv_dim, cfg.n_mamba_heads],
             dim=-1)
-        ext = torch.cat([carry, xbc], dim=1)              # (B, T + K - 1, C)
-        extf, w = ext.float(), p["conv_w"].float()
-        acc = extf[:, 0:t] * w[0] + p["conv_b"].float()
-        for i in range(1, k):
-            acc.addcmul_(extf[:, i:i + t], w[i])
-        xs, bmat, cmat = torch.split(F.silu(acc),
-                                     [cfg.d_inner, g * n, g * n], dim=-1)
-        dt = F.softplus(dt_raw.float() + p["dt_bias"])
-        xs = xs.reshape(b, t, cfg.n_mamba_heads, cfg.mamba_headdim)
-        y, final = self._scan(xs, bmat.reshape(b, t, g, n),
-                              cmat.reshape(b, t, g, n), dt,
-                              -torch.exp(p["A_log"]), state)
-        y = (y + p["D"][:, None] * xs).reshape(b, t, cfg.d_inner)
-        y = (y * F.silu(z.float())).reshape(b, t, g, cfg.d_inner // g)
-        y = y * torch.rsqrt(y.square().mean(-1, keepdim=True)
-                            + GATED_NORM_EPS)
-        y = (y.reshape(b, t, cfg.d_inner) * p["norm_gate"]).to(h.dtype)
-        return y @ p["w_out"], final, ext[:, -(k - 1):]
+        xs, bmat, cmat, dt = mamba_conv_silu(
+            xbc, carry, p["conv_w"], p["conv_b"], dt_raw, p["dt_bias"],
+            ngroups=g, headdim=cfg.mamba_headdim)
+        ys, final = self._scan(xs.movedim(0, 2), bmat.movedim(0, 2),
+                               cmat.movedim(0, 2), dt.movedim(0, 2),
+                               -torch.exp(p["A_log"]), state)
+        y = torch.empty((b, t, cfg.d_inner), dtype=h.dtype, device=h.device)
+        for i, yg in enumerate(ys):
+            cols, heads = slice(i * dg, (i + 1) * dg), slice(i * hg,
+                                                             (i + 1) * hg)
+            gated_rms_norm(yg, xs[i], z[..., cols], p["D"][heads],
+                           p["norm_gate"][cols], y[..., cols],
+                           eps=GATED_NORM_EPS)
+        if (mamba_conv_silu.launches - launched[0],
+                gated_rms_norm.launches - launched[1]) == (1, g):
+            self._count("mixer_fused")
+        return y @ p["w_out"], final, next_carry(carry, xbc)
 
     # -------------------------------------------------------- shared block
     def _attend(self, q, k, v, pos: int) -> torch.Tensor:
@@ -457,7 +472,8 @@ class Zamba2PublishedModel:
         writing the caches in place; returns the final-normed hidden
         states (B, T, d)."""
         cfg = self.cfg
-        self._tally = {"ssd_calls": 0, "shared_applications": 0}
+        self._tally = {"ssd_calls": 0, "shared_applications": 0,
+                       "mixer_fused": 0}
         x0 = params["embed"][tokens.long()]
         x = x0
         for layer, p in enumerate(params["layers"]):
@@ -474,6 +490,9 @@ class Zamba2PublishedModel:
                 cache["ssm"][layer].copy_(state)
                 cache["conv"][layer].copy_(carry)
                 x = x + y
+                # the new carry views the in_proj output: let both go
+                # before the next layer allocates its own
+                del y, state, carry
         return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:

@@ -213,13 +213,13 @@ def test_chip_smoke_derives_the_main_paths_counts_from_the_artifacts():
     zamba = repro_torch.CompiledNetwork.load(ZAMBA_ARTIFACT).plan
     assert mod.expected_counts(zamba) == {
         "split_matmul": 39, "hadamard_matmul": 0, "decode_attention": 2,
-        "ssd_chunk_scan": 8, "prefill_attention": 0, "reshard": 17,
-        "elided": 1}
+        "ssd_chunk_scan": 8, "prefill_attention": 0, "mamba_conv_silu": 0,
+        "gated_rms_norm": 0, "reshard": 17, "elided": 1}
     vgg = repro_torch.CompiledNetwork.load(mod.ARTIFACT).plan
     assert mod.expected_counts(vgg) == {
         "split_matmul": 4, "hadamard_matmul": 6, "decode_attention": 0,
-        "ssd_chunk_scan": 0, "prefill_attention": 0, "reshard": 4,
-        "elided": 4}
+        "ssd_chunk_scan": 0, "prefill_attention": 0, "mamba_conv_silu": 0,
+        "gated_rms_norm": 0, "reshard": 4, "elided": 4}
 
 
 def test_zamba_entry_points_need_cuda_unless_asked_for_the_cpu():

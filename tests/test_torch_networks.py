@@ -108,7 +108,8 @@ def test_chip_smoke_derives_the_counts(net):
     assert mod.expected_counts(plan) == {
         "split_matmul": n_split, "hadamard_matmul": n_hadamard,
         "decode_attention": 0, "ssd_chunk_scan": 0, "prefill_attention": 0,
-        "reshard": reshard, "elided": elided}
+        "mamba_conv_silu": 0, "gated_rms_norm": 0, "reshard": reshard,
+        "elided": elided}
 
 
 @pytest.mark.parametrize("net", sorted(NETWORKS))

@@ -278,10 +278,11 @@ def test_the_engine_keeps_the_prefill_logits_and_the_counts():
     assert rel(engine.last_prefill_logits, want) <= TOL["float32"]
     assert [c.tokens for c in out] == \
         [[int(t)] for t in engine.last_prefill_logits.argmax(-1)]
-    # the attention kernel launches only on a card: none on the CPU
+    # the attention and mixer kernels launch only on a card: none on the CPU
     assert model.last_prefill_counts == {
         "ssd_calls": cfg.num_hidden_layers * cfg.mamba_ngroups,
-        "shared_applications": cfg.n_hybrid, "prefill_attention": 0}
+        "shared_applications": cfg.n_hybrid, "mixer_fused": 0,
+        "prefill_attention": 0}
 
 
 def test_the_spans_are_traced():
